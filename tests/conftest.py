@@ -40,3 +40,5 @@ def pytest_configure(config):
     # tier-1 runs with -m 'not slow'; register the marker so pytest does not
     # warn on the opt-in big-bucket executions.
     config.addinivalue_line("markers", "slow: excluded from the tier-1 gate")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernels); skips without one")
