@@ -11,7 +11,7 @@ Phases, each of which raises on a failed check:
 2. build   — nvcc builds csrc/fq_mul.cu for sm_90a (time and -Xptxas -v);
 3. kernels — both Fq kernels against their plain PyTorch versions on the
              card, limb for limb, on canonical, redundant, negative and edge
-             inputs at n in {1, 127, 128, 129, 65536}, with values checked
+             inputs at n in KERNEL_NS (block edges of both kernels), with values checked
              against Python integers on a sample;
 4. verify  — ``crypto.bls.api.verify_signature_sets`` through the torch
              backend (default device) at 128 sets x 32 keys (valid -> True,
@@ -20,7 +20,12 @@ Phases, each of which raises on a failed check:
 5. parity  — a fixed-seed 4 x 4 batch on the card and on the CPU: the two
              final-exponentiation outputs must be equal limb for limb;
 6. timing  — each kernel and its plain version at the largest shape the
-             128 x 32 run gave it, beside the least time the card could take.
+             128 x 32 run gave it, beside the least time the card could take;
+             then each kernel at every launch size of that run (the
+             histogram ``cuda_fq.SIZES``), summed to its time per verify,
+             beside its bound per verify.  Kernel times are device times of
+             launches replayed from a CUDA graph, so the host's launch
+             overhead does not count.
 
 The line before the last is one JSON object naming every kernel with its
 numbers; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA,
@@ -36,24 +41,17 @@ import subprocess
 import sys
 import time
 
-#: H100 SXM memory rate (bytes/s), int32 IMADs per clock per SM, and SMs.
+#: H100 SXM memory rate (bytes/s).  The operations per product and the
+#: card's IMAD rate are in lighthouse_tpu_torch/bench_kernels.py.
 HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_CLK_PER_SM = 64
-SMS = 132
-#: Integer operations and bytes one product needs, per kernel (see
-#: csrc/fq_mul.cu): the 54 x 54 convolution's multiply-adds, and the
-#: reduction's 61 non-unit table rows x 48 positions of multiply-adds plus
-#: 48 adds for the unit rows (2^8k < p for k < 48).
-FQ_OPS = 54 * 54 + 61 * 48 + 48
+#: Bytes one row moves (two operands in, one result out), per kernel.
 KERNELS = {
-    "fq_mul": {"ops": FQ_OPS, "bytes": 3 * 25 * 4,
-               "replaces": "lighthouse_tpu/ops/pallas_fq.py:122"},
-    "fq2_mul": {"ops": 3 * FQ_OPS, "bytes": 3 * 2 * 25 * 4,
-                "replaces": "lighthouse_tpu/ops/pallas_fq.py:131"},
+    "fq_mul": {"bytes": 3 * 25 * 4, "replaces": "lighthouse_tpu/ops/pallas_fq.py:122"},
+    "fq2_mul": {"bytes": 3 * 2 * 25 * 4, "replaces": "lighthouse_tpu/ops/pallas_fq.py:131"},
 }
 SOURCE = "lighthouse_tpu_torch/csrc/fq_mul.cu"
 #: Kernel check sizes; the main path's (sets, keys); the gossip batch.
-KERNEL_NS = (1, 127, 128, 129, 65536)
+KERNEL_NS = (1, 3, 5, 7, 15, 17, 127, 128, 129, 65536)
 MAIN = (128, 32)
 GOSSIP = (64, 1)
 
@@ -68,23 +66,6 @@ def nvidia_smi(fields: str) -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return res.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of ``fn()`` over ``reps`` runs (CUDA events,
-    after one warm-up run)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 # ------------------------------------------------------------------ inputs
@@ -224,9 +205,11 @@ def phase_verify(cuda_fq) -> dict:
     rechecks0 = verify.COUNTERS["w_z_rechecks"]
     main = timed_verify(f"{tag(MAIN)} valid", main_sets, True)
     launches = dict(cuda_fq.LAUNCHES)
-    rows = dict(cuda_fq.ROWS)
-    max_rows = dict(cuda_fq.MAX_ROWS)
-    log(f"[verify] {tag(MAIN)} kernel launches {launches}, rows {rows}, largest launch {max_rows}")
+    sizes = {name: dict(c) for name, c in cuda_fq.SIZES.items()}
+    rows = {name: sum(n * c for n, c in s.items()) for name, s in sizes.items()}
+    max_rows = {name: max(s, default=0) for name, s in sizes.items()}
+    log(f"[verify] {tag(MAIN)} kernel launches {launches}, rows {rows}, largest launch {max_rows}, "
+        f"distinct launch sizes { {name: len(s) for name, s in sizes.items()} }")
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -243,7 +226,7 @@ def phase_verify(cuda_fq) -> dict:
     log(f"[verify] {tag(GOSSIP)} kernel launches {dict(cuda_fq.LAUNCHES)}")
     rechecks = verify.COUNTERS["w_z_rechecks"] - rechecks0
     log(f"[verify] W_z host re-checks: {rechecks}")
-    return {"launches": launches, "rows": rows, "max_rows": max_rows,
+    return {"launches": launches, "sizes": sizes,
             "main": main, "again": again, "gossip": gossip, "rechecks": rechecks}
 
 
@@ -273,27 +256,27 @@ def phase_parity() -> None:
 def phase_timing(cuda_fq, verify_out: dict, max_err: dict, clock_mhz: float) -> list:
     import torch
 
-    ops_per_s = IMAD_PER_CLK_PER_SM * SMS * clock_mhz * 1e6
+    from lighthouse_tpu_torch.bench_kernels import OPS, graph_ms, operands, ops_per_ms, time_library
+
+    lib, _ = cuda_fq.library(torch.device("cuda"))
+    timed = time_library(lib, verify_out["sizes"], clock_mhz)
     out = []
     for name, spec in KERNELS.items():
-        n = verify_out["max_rows"][name]
-        tail = (25,) if name == "fq_mul" else (2, 25)
-        a = torch.randint(-(1 << 20), 1 << 20, (n,) + tail, dtype=torch.int32, device="cuda")
-        b = torch.randint(-(1 << 20), 1 << 20, (n,) + tail, dtype=torch.int32, device="cuda")
-        kern = getattr(cuda_fq, name)
+        t = timed[name]
+        n, ms = t["at_max"]
+        a, b = operands(name, n, seed=1)
         plain = getattr(cuda_fq, f"{name}_plain")
-        ms = cuda_ms(lambda: kern(a, b), reps=50)
-        plain_ms = cuda_ms(lambda: plain(a, b), reps=5)
-        ops_ms = n * spec["ops"] / ops_per_s * 1e3
+        plain_ms = graph_ms(lambda: plain(a, b), reps=3)
+        ops_ms = n * OPS[name] / ops_per_ms(clock_mhz)
         bytes_ms = n * spec["bytes"] / HBM_BYTES_PER_S * 1e3
-        mean_rows = verify_out["rows"][name] / verify_out["launches"][name]
-        small = max(1, round(mean_rows))
-        xs = torch.randint(-(1 << 20), 1 << 20, (small,) + tail, dtype=torch.int32, device="cuda")
-        small_ms = cuda_ms(lambda: kern(xs, xs), reps=200)
+        mean_n, mean_ms = t["at_mean"]
         log(f"[timing] {name} at n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, bytes {bytes_ms:.4f}, "
             f"SM clock {clock_mhz:.0f} MHz), {max(ops_ms, bytes_ms) / ms:.1%} of bound; "
-            f"at the mean launch n={small}: {small_ms:.4f} ms")
+            f"at the mean launch n={mean_n}: {mean_ms:.4f} ms")
+        log(f"[timing] {name} per {tag(MAIN)} verify: {t['verify_ms']:.4f} ms over "
+            f"{t['launches']} launches of {len(t['ms_by_size'])} sizes, bound "
+            f"{t['verify_bound_ms']:.4f} ms ({t['verify_bound_ms'] / t['verify_ms']:.1%})")
         out.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": spec["replaces"],
@@ -303,6 +286,8 @@ def phase_timing(cuda_fq, verify_out: dict, max_err: dict, clock_mhz: float) -> 
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
+            "rows": n, "mean_rows": t["mean_rows"], "mean_ms": mean_ms,
+            "verify_ms": t["verify_ms"], "verify_bound_ms": t["verify_bound_ms"],
         })
     return out
 

@@ -18,7 +18,10 @@ the same int32 pipeline as the JAX package's ``ops/fq.py:_fq_mul_int32``, so
 kernel, plain version and JAX package agree limb for limb.
 
 The library is built at first use into ``lighthouse_tpu_torch/build/`` (a
-file name keyed by the source's hash), or ahead of time by :func:`build`.
+file name keyed by the source's hash), or ahead of time by :func:`build`;
+:func:`build` and :func:`load_library` also take another source with the
+same C entry points (``lighthouse_tpu_torch/bench_kernels.py`` times an
+earlier version of the kernels that way).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 from typing import NamedTuple
 
@@ -48,17 +52,16 @@ NVCC_FLAGS = (
 )
 
 #: Kernel launches per wrapper, bumped where each kernel is launched and
-#: nowhere else; ``ROWS`` holds the rows those launches covered and
-#: ``MAX_ROWS`` the largest single launch.
+#: nowhere else; ``SIZES`` holds the number of those launches at each row
+#: count.
 LAUNCHES = {"fq_mul": 0, "fq2_mul": 0}
-ROWS = {"fq_mul": 0, "fq2_mul": 0}
-MAX_ROWS = {"fq_mul": 0, "fq2_mul": 0}
+SIZES = {"fq_mul": Counter(), "fq2_mul": Counter()}
 
 
 def reset_launch_counts() -> None:
-    for table in (LAUNCHES, ROWS, MAX_ROWS):
-        for name in table:
-            table[name] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+        SIZES[name].clear()
 
 
 # ------------------------------------------------------------ plain versions
@@ -119,20 +122,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+def library_path(source: Path = SOURCE) -> Path:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libfq_mul-{digest.hexdigest()[:12]}.so"
 
 
-def build(force: bool = False) -> BuildResult:
-    """Compile ``csrc/fq_mul.cu`` with nvcc for sm_90a, unless a library
-    built from the same source and flags is already there."""
-    path = library_path()
+def build(force: bool = False, source: Path = SOURCE) -> BuildResult:
+    """Compile ``source`` (by default ``csrc/fq_mul.cu``) with nvcc for
+    sm_90a, unless a library built from the same source and flags is
+    already there."""
+    path = library_path(source)
     if path.exists() and not force:
         return BuildResult(path, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -152,9 +156,9 @@ _load_lock = threading.Lock()
 
 def reduction_table() -> np.ndarray:
     """The kernels' reduction table: rows ``RED_OUT..RED_IN-1`` of
-    ``REDMAT8``, transposed and zero padded to (RED_OUT, 64) int32.  The rows
-    below ``RED_OUT`` are unit vectors (2^8k < p), which the kernels apply as
-    an add, not a product."""
+    ``REDMAT8``, transposed and zero padded to (RED_OUT, 64) int32, as
+    ``lt_fq_init`` takes it.  The rows below ``RED_OUT`` are unit vectors
+    (2^8k < p), which the kernels apply as an add, not a product."""
     if not np.array_equal(REDMAT8[:RED_OUT], np.eye(RED_OUT, dtype=REDMAT8.dtype)):
         raise AssertionError("REDMAT8 rows below RED_OUT are not unit vectors")
     table = np.zeros((RED_OUT, _RED_W), np.int32)
@@ -162,34 +166,44 @@ def reduction_table() -> np.ndarray:
     return table
 
 
-def _library(device: torch.device):
+def load_library(path: Path) -> ctypes.CDLL:
+    """A built kernel library with its C entry points typed."""
+    lib = ctypes.CDLL(str(path))
+    ptr, i64, cint = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.lt_fq_init.argtypes = [ptr]
+    lib.lt_fq_init.restype = cint
+    for fn in (lib.lt_fq_mul, lib.lt_fq2_mul):
+        fn.argtypes = [ptr, ptr, ptr, i64, ptr]
+        fn.restype = cint
+    lib.lt_error_string.argtypes = [cint]
+    lib.lt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def init_device(lib: ctypes.CDLL, index: int) -> None:
+    """Upload the reduction table to device ``index`` for ``lib``'s kernels."""
+    table = reduction_table()
+    with torch.cuda.device(index):
+        check_cuda(lib, lib.lt_fq_init(table.ctypes.data), "lt_fq_init")
+
+
+def library(device: torch.device):
     """The loaded kernel library, with the reduction table uploaded to
-    ``device``'s constant memory, and the device's index."""
+    ``device``, and the device's index."""
     global _lib
     with _load_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build().path))
-            ptr, i64, cint = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.lt_fq_init.argtypes = [ptr]
-            lib.lt_fq_init.restype = cint
-            for fn in (lib.lt_fq_mul, lib.lt_fq2_mul):
-                fn.argtypes = [ptr, ptr, ptr, i64, ptr]
-                fn.restype = cint
-            lib.lt_error_string.argtypes = [cint]
-            lib.lt_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = load_library(build().path)
         index = device.index if device.index is not None else torch.cuda.current_device()
         if index not in _ready_devices:
-            table = reduction_table()
-            with torch.cuda.device(index):
-                _check_cuda(_lib.lt_fq_init(table.ctypes.data), "lt_fq_init")
+            init_device(_lib, index)
             _ready_devices.add(index)
     return _lib, index
 
 
-def _check_cuda(err: int, what: str) -> None:
+def check_cuda(lib, err: int, what: str) -> None:
     if err != 0:
-        msg = _lib.lt_error_string(err).decode() if _lib is not None else ""
+        msg = lib.lt_error_string(err).decode() if lib is not None else ""
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
@@ -220,16 +234,15 @@ def _launch(name: str, fn_name: str, a: torch.Tensor, b: torch.Tensor) -> torch.
     n = a.shape[0]
     if n == 0:
         return out
-    lib, index = _library(a.device)
+    lib, index = library(a.device)
     # The C entry points launch on the thread's current device: select the
     # operands' device for the call and restore the caller's afterwards.
     with torch.cuda.device(index):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, fn_name)(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, stream)
-    _check_cuda(err, fn_name)
+    check_cuda(lib, err, fn_name)
     LAUNCHES[name] += 1
-    ROWS[name] += n
-    MAX_ROWS[name] = max(MAX_ROWS[name], n)
+    SIZES[name][n] += 1
     return out
 
 

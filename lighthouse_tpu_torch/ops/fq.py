@@ -62,8 +62,8 @@ def red_rows(n: int) -> np.ndarray:
     return rows
 
 
-#: The reduction table, (RED_IN, RED_OUT); the CUDA kernels hold it transposed
-#: in constant memory.
+#: The reduction table, (RED_IN, RED_OUT); the CUDA kernels copy rows
+#: RED_OUT.. of it, transposed, into each block's shared memory.
 REDMAT8 = red_rows(RED_IN)
 
 _CONSTS: dict = {}

@@ -188,8 +188,10 @@ def test_kernels_on_card():
 
 # The CUDA source compiled by the host's C++ compiler: the CUDA keywords are
 # defined away, each CUDA thread of a block is a std::thread, __syncthreads
-# is a std::barrier and the <<<grid, block>>> launch is a loop over blocks.
-# This runs the kernels' own arithmetic (not the plain versions) on the CPU.
+# is a std::barrier, a shared-memory atomicAdd is a GCC atomic, __dp4a is
+# its byte-wise definition, and each <<<grid, threads>>> launch is a loop
+# over blocks.  This runs the kernels' own arithmetic and thread layout (not
+# the plain versions) on the CPU.
 _HOST_PRELUDE = r"""
 #include <stdint.h>
 #include <string.h>
@@ -198,8 +200,8 @@ _HOST_PRELUDE = r"""
 #include <vector>
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
-#define __constant__
 #define __restrict__
 #define __shared__ static
 #define __align__(n) __attribute__((aligned(n)))
@@ -209,37 +211,53 @@ typedef void* cudaStream_t;
 #define cudaSuccess 0
 struct D3 { unsigned x; };
 struct int4 { int x, y, z, w; };
+struct uint4 { unsigned x, y, z, w; };
+static int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+static unsigned __dp4a(unsigned a, unsigned b, unsigned c) {
+  for (int i = 0; i < 32; i += 8) c += ((a >> i) & 0xFF) * ((b >> i) & 0xFF);
+  return c;
+}
 static thread_local D3 blockIdx, threadIdx;
 static std::barrier<>* g_bar;
 static void __syncthreads() { g_bar->arrive_and_wait(); }
+static int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
 #define cudaMemcpyToSymbol(sym, src, n) (memcpy(sym, src, n), 0)
 static int cudaGetLastError() { return 0; }
 static const char* cudaGetErrorString(int) { return ""; }
-#define LAUNCH(kern, grid, ...)                                          \
+#define LAUNCH(kern, grid, threads, ...)                                 \
   for (unsigned bx = 0; bx < grid; ++bx) {                               \
-    std::barrier<> bar(THREADS);                                         \
+    std::barrier<> bar(threads);                                         \
     g_bar = &bar;                                                        \
     std::vector<std::thread> ts;                                         \
-    for (unsigned tx = 0; tx < THREADS; ++tx)                            \
+    for (unsigned tx = 0; tx < (unsigned)threads; ++tx)                  \
       ts.emplace_back([=] { blockIdx.x = bx; threadIdx.x = tx; kern(__VA_ARGS__); }); \
     for (auto& t : ts) t.join();                                         \
   }
 """
 
 
-def test_cuda_source_on_host_compiler(tmp_path):
+def _source_constant(src, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+@pytest.fixture(scope="module")
+def host_kernels(tmp_path_factory):
+    """The CUDA source built by g++ into a shared library, its reduction
+    table uploaded; with the source's group size and rows per block."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the CUDA source for the host")
     src = cuda_fq.SOURCE.read_text()
+    layout = {name: _source_constant(src, name) for name in ("G", "FQ_ROWS", "FQ2_ROWS")}
     src = src.replace("#include <cuda_runtime.h>", _HOST_PRELUDE)
     src, launches = re.subn(
-        r"(\w+)<<<grid_for\(n\), THREADS, 0, \(cudaStream_t\)stream>>>\((.*?)\);",
-        r"LAUNCH(\1, grid_for(n), \2);", src)
+        r"(\w+)<<<(blocks\(n, \w+\)), (\w+), 0, \(cudaStream_t\)stream>>>\((.*?)\);",
+        r"LAUNCH(\1, \2, \3, \4);", src)
     assert launches == 2
-    (tmp_path / "fq_mul_host.cc").write_text(src)
-    lib_path = tmp_path / "libfq_mul_host.so"
-    res = subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                          "-o", str(lib_path), str(tmp_path / "fq_mul_host.cc")],
+    tmp = tmp_path_factory.mktemp("host_kernels")
+    (tmp / "fq_mul_host.cc").write_text(src)
+    lib_path = tmp / "libfq_mul_host.so"
+    res = subprocess.run(["g++", "-std=c++20", "-O1", "-fno-strict-aliasing", "-shared",
+                          "-fPIC", "-pthread", "-o", str(lib_path), str(tmp / "fq_mul_host.cc")],
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     lib = ctypes.CDLL(str(lib_path))
@@ -249,15 +267,53 @@ def test_cuda_source_on_host_compiler(tmp_path):
         fn.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, ptr]
     table = cuda_fq.reduction_table()
     assert lib.lt_fq_init(table.ctypes.data) == 0
+    return lib, layout
+
+
+def _host_fq_mul(lib, a, b):
+    a, b = np.ascontiguousarray(a, np.int32), np.ascontiguousarray(b, np.int32)
+    out = np.full_like(a, 0x5A5A5A5A)  # rows the kernel fails to store show up
+    assert lib.lt_fq_mul(a.ctypes.data, b.ctypes.data, out.ctypes.data, len(a), None) == 0
+    return out, cuda_fq.fq_mul_plain(torch.as_tensor(a), torch.as_tensor(b)).numpy()
+
+
+def _host_fq2_mul(lib, a, b):
+    a2 = np.ascontiguousarray(np.stack([a, np.roll(b, 1, 0)], axis=1), np.int32)
+    b2 = np.ascontiguousarray(np.stack([b, np.roll(a, 2, 0)], axis=1), np.int32)
+    out = np.full_like(a2, 0x5A5A5A5A)
+    assert lib.lt_fq2_mul(a2.ctypes.data, b2.ctypes.data, out.ctypes.data, len(a2), None) == 0
+    return out, cuda_fq.fq2_mul_plain(torch.as_tensor(a2), torch.as_tensor(b2)).numpy()
+
+
+def test_cuda_source_on_host_compiler(host_kernels):
+    lib, _ = host_kernels
     for kind in KINDS:
         a, b, _, _ = _operands(kind, N, seed=60 + KINDS.index(kind))
-        a, b = np.ascontiguousarray(a, np.int32), np.ascontiguousarray(b, np.int32)
-        out = np.empty_like(a)
-        assert lib.lt_fq_mul(a.ctypes.data, b.ctypes.data, out.ctypes.data, N, None) == 0
-        assert np.array_equal(out, cuda_fq.fq_mul_plain(torch.as_tensor(a), torch.as_tensor(b)).numpy())
-        a2 = np.ascontiguousarray(np.stack([a, np.roll(b, 1, 0)], axis=1))
-        b2 = np.ascontiguousarray(np.stack([b, np.roll(a, 2, 0)], axis=1))
-        out2 = np.empty_like(a2)
-        assert lib.lt_fq2_mul(a2.ctypes.data, b2.ctypes.data, out2.ctypes.data, N, None) == 0
-        assert np.array_equal(out2, cuda_fq.fq2_mul_plain(torch.as_tensor(a2), torch.as_tensor(b2)).numpy())
+        for run in (_host_fq_mul, _host_fq2_mul):
+            out, plain = run(lib, a, b)
+            assert np.array_equal(out, plain)
 
+
+# Row counts around each kernel's layout: one row, G - 1 rows, one row short
+# of and one past a block (a partial block), and 129.
+_LAYOUT_NS = ("1", "G-1", "rows-1", "rows+1", "129")
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n_case", _LAYOUT_NS)
+@pytest.mark.parametrize("kernel", ["fq_mul", "fq2_mul"])
+def test_cuda_source_partial_groups_and_blocks(host_kernels, kernel, n_case, kind):
+    """The redesigned kernels, one product group of G threads per Fq product
+    and several products per block, equal their plain versions limb for
+    limb on row counts that end inside a block."""
+    lib, layout = host_kernels
+    rows = layout["FQ_ROWS"] if kernel == "fq_mul" else layout["FQ2_ROWS"]
+    n = {"1": 1, "G-1": layout["G"] - 1, "rows-1": rows - 1, "rows+1": rows + 1,
+         "129": 129}[n_case]
+    if n < 1:
+        pytest.fail(f"layout {layout} gives no rows for {n_case}")
+    seed = 70 + 10 * _LAYOUT_NS.index(n_case) + KINDS.index(kind)
+    a, b, _, _ = _operands(kind, n, seed=seed)
+    out, plain = (_host_fq_mul if kernel == "fq_mul" else _host_fq2_mul)(lib, a, b)
+    assert out.shape == plain.shape
+    assert np.array_equal(out, plain)
