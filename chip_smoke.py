@@ -19,11 +19,23 @@ Phases, each of which raises on a failed check:
              launch counters of both kernels must rise during the 128 x 32 run;
 5. parity  — a fixed-seed 4 x 4 batch on the card and on the CPU: the two
              final-exponentiation outputs must be equal limb for limb;
-6. timing  — each kernel and its plain version at the largest shape the
+6. kzg     — the vendored mainnet trusted setup (tests/vectors/
+             mainnet_trusted_setup.json, 4096 field elements a blob), six
+             blobs from a seed committed and proved on the host; then
+             ``Kzg(setup).verify_blob_kzg_proof_batch`` at the default device
+             on the six (valid -> True, two proofs swapped -> False) and
+             ``ops.kzg_device.verify_kzg_proof_batch_device`` on 192 lanes,
+             the six tiled 32 times (valid -> True, one y + 1 -> False); the
+             launch counters of both kernels must rise in each valid run;
+             one traced run of the 192-lane program (torch.profiler);
+7. kzg parity — a fixed-seed 2-blob batch of the KZG device program on the
+             card and on the CPU: ``fe`` equal limb for limb;
+8. timing  — each kernel and its plain version at the largest shape the
              128 x 32 run gave it, beside the least time the card could take;
              then each kernel at every launch size of that run (the
              histogram ``cuda_fq.SIZES``), summed to its time per verify,
-             beside its bound per verify.  Kernel times are device times of
+             beside its bound per verify, and likewise per 6-blob and per
+             192-lane KZG batch.  Kernel times are device times of
              launches replayed from a CUDA graph, so the host's launch
              overhead does not count.
 
@@ -40,6 +52,7 @@ import random
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 #: H100 SXM memory rate (bytes/s).  The operations per product and the
 #: card's IMAD rate are in lighthouse_tpu_torch/bench_kernels.py.
@@ -54,6 +67,11 @@ SOURCE = "lighthouse_tpu_torch/csrc/fq_mul.cu"
 KERNEL_NS = (1, 3, 5, 7, 15, 17, 127, 128, 129, 65536)
 MAIN = (128, 32)
 GOSSIP = (64, 1)
+#: KZG: blobs per block (MAX_BLOBS_PER_BLOCK of the mainnet Deneb preset),
+#: lanes of the Deneb target (6 blobs x 32 blocks), the trusted setup.
+KZG_BLOBS = 6
+KZG_LANES = 192
+KZG_SETUP = Path(__file__).resolve().parent / "tests" / "vectors" / "mainnet_trusted_setup.json"
 
 
 def log(*args) -> None:
@@ -253,13 +271,163 @@ def phase_parity() -> None:
         f"({t2 - t1:.3f} s); verdict True")
 
 
-def phase_timing(cuda_fq, verify_out: dict, max_err: dict, clock_mhz: float) -> list:
+def kzg_inputs() -> tuple:
+    """The mainnet setup, a ``Kzg`` at the default device, and KZG_BLOBS
+    distinct blobs from a seed with their commitments and proofs."""
+    from lighthouse_tpu_torch.crypto.kzg import BLS_MODULUS, FIELD_ELEMENTS_PER_BLOB, Kzg, TrustedSetup
+
+    t0 = time.perf_counter()
+    setup = TrustedSetup.from_json(KZG_SETUP.read_text(), validate=False)
+    t1 = time.perf_counter()
+    kzg = Kzg(setup)
+    rng = random.Random(0xB10B)
+    blobs = [b"".join((rng.getrandbits(256) % BLS_MODULUS).to_bytes(32, "big")
+                      for _ in range(FIELD_ELEMENTS_PER_BLOB)) for _ in range(KZG_BLOBS)]
+    commitments = [kzg.blob_to_kzg_commitment(b) for b in blobs]
+    proofs = [kzg.compute_blob_kzg_proof(b, c) for b, c in zip(blobs, commitments)]
+    log(f"[kzg] mainnet setup ({setup.width} G1 points) loaded in {t1 - t0:.1f} s; "
+        f"{KZG_BLOBS} blobs committed and proved on the host in {time.perf_counter() - t1:.1f} s")
+    return kzg, blobs, commitments, proofs
+
+
+def timed_kzg(label: str, fn, expect: bool, lanes: int) -> dict:
+    """Run one KZG batch; the host stage is the time outside the device
+    entry point's own stages (parsing, challenges, evaluations)."""
+    from lighthouse_tpu_torch.ops import kzg_device
+
+    t0 = time.perf_counter()
+    ok = fn()
+    seconds = time.perf_counter() - t0
+    if ok is not expect:
+        raise AssertionError(f"{label}: verdict {ok}, expected {expect}")
+    stages = dict(kzg_device.LAST_STAGES)
+    stages["host"] = seconds - sum(stages.values())
+    log(f"[kzg] {label}: verdict {ok} in {seconds:.3f} s (host {stages['host']:.3f} s, "
+        f"build {stages['build']:.3f} s, device {stages['device']:.3f} s, "
+        f"verdict {stages['verdict']:.3f} s); {lanes / seconds:.1f} blobs/s end to end, "
+        f"{lanes / stages['device']:.1f} blobs/s on the device program")
+    return {"seconds": seconds, "stages": stages, "lanes": lanes}
+
+
+def counted(cuda_fq, label: str, run) -> tuple:
+    """``run()`` with the launch counts set to 0 just before and read just
+    after; fails unless both kernels were launched."""
+    cuda_fq.reset_launch_counts()
+    out = run()
+    launches = dict(cuda_fq.LAUNCHES)
+    sizes = {name: dict(c) for name, c in cuda_fq.SIZES.items()}
+    log(f"[kzg] {label} kernel launches {launches}, "
+        f"distinct launch sizes { {name: len(s) for name, s in sizes.items()} }")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} was not launched in {label}")
+    return out, {"launches": launches, "sizes": sizes}
+
+
+def blob_lanes(kzg, blobs, commitments, proofs):
+    """The blobs' challenges z, evaluations y and parsed points, computed
+    once per blob, and a function that gives the device entry point's
+    arguments for the first ``n`` blobs tiled ``reps`` times (with lane
+    ``bad``'s y changed to y + 1 mod R if given), the r powers hashed from
+    those lanes as ``Kzg`` hashes them."""
+    from lighthouse_tpu_torch.crypto.bls.params import R
+    from lighthouse_tpu_torch.crypto.kzg import blob_to_polynomial
+    from lighthouse_tpu_torch.crypto.kzg.kzg import _bytes_to_g1, _g1_to_curve_point
+
+    t0 = time.perf_counter()
+    zs = [kzg.compute_challenge(b, c) for b, c in zip(blobs, commitments)]
+    ys = [kzg.evaluate_polynomial_in_evaluation_form(blob_to_polynomial(b), z)
+          for b, z in zip(blobs, zs)]
+    c_pts = [_g1_to_curve_point(_bytes_to_g1(c)) for c in commitments]
+    p_pts = [_g1_to_curve_point(_bytes_to_g1(p)) for p in proofs]
+    log(f"[kzg] host prep of {len(blobs)} distinct blobs (challenges, evaluations, "
+        f"parsing): {time.perf_counter() - t0:.3f} s")
+
+    def lanes(reps: int, n: int = len(blobs), bad=None) -> tuple:
+        lane_ys = ys[:n] * reps
+        if bad is not None:
+            lane_ys[bad] = (lane_ys[bad] + 1) % R
+        lane_zs = zs[:n] * reps
+        r_powers = kzg._compute_r_powers(commitments[:n] * reps, lane_zs, lane_ys,
+                                         proofs[:n] * reps)
+        return (c_pts[:n] * reps, p_pts[:n] * reps, r_powers, lane_zs, lane_ys,
+                kzg.setup.g2_monomial[1])
+
+    return lanes
+
+
+def phase_kzg(cuda_fq, kzg, blobs, commitments, proofs, lanes) -> dict:
+    import torch
+
+    from lighthouse_tpu_torch.ops import kzg_device
+    from lighthouse_tpu_torch.profile_verify import trace
+
+    # One block's blobs through the user's entry point, at the default device.
+    block, block_counts = counted(cuda_fq, f"{KZG_BLOBS} blobs", lambda: timed_kzg(
+        f"{KZG_BLOBS} blobs valid",
+        lambda: kzg.verify_blob_kzg_proof_batch(blobs, commitments, proofs), True, KZG_BLOBS))
+    swapped = [proofs[1], proofs[0], *proofs[2:]]
+    timed_kzg(f"{KZG_BLOBS} blobs, two proofs swapped",
+              lambda: kzg.verify_blob_kzg_proof_batch(blobs, commitments, swapped), False, KZG_BLOBS)
+
+    # The Deneb target: the six tiled over 32 blocks.
+    reps = KZG_LANES // KZG_BLOBS
+    wide, wide_counts = counted(cuda_fq, f"{KZG_LANES} lanes", lambda: timed_kzg(
+        f"{KZG_LANES} lanes valid",
+        lambda: kzg_device.verify_kzg_proof_batch_device(*lanes(reps)), True, KZG_LANES))
+    timed_kzg(f"{KZG_LANES} lanes, one y + 1",
+              lambda: kzg_device.verify_kzg_proof_batch_device(*lanes(reps, bad=KZG_LANES // 2)),
+              False, KZG_LANES)
+
+    # Where the device program's time goes: one traced run at each width.
+    def device_run(host_batch):
+        fe = kzg_device._device_kzg_batch(*kzg_device.batch_from_numpy(host_batch, "cuda"))
+        torch.cuda.synchronize()
+        return fe
+
+    traced = {}
+    for key, n_reps, timed in (("kzg6", 1, block), ("kzg192", reps, wide)):
+        host_batch = kzg_device._build_kzg_batch(*lanes(n_reps),
+                                                 kzg_device._bucket(n_reps * KZG_BLOBS))
+        t = traced[key] = trace(lambda: device_run(host_batch), timed["stages"]["device"])
+        log(f"[kzg] {timed['lanes']}-lane device program traced: {t['device_kernel_launches']} "
+            f"kernel launches, device busy {t['device_busy_s']:.4f} s = "
+            f"{t['device_busy_share_of_wall']:.1%} of the unprofiled device stage; Fq kernels "
+            f"{t['fq_kernel_device_s']}")
+        for k in t["top_kernels"][:6]:
+            log(f"[kzg]   {k['device_s'] * 1e3:9.3f} ms {k['count']:7d}x  {k['name']}")
+    return {"block": block, "wide": wide, "traced": traced,
+            "kzg6": block_counts, "kzg192": wide_counts}
+
+
+def phase_kzg_parity(lanes) -> None:
+    import torch
+
+    from lighthouse_tpu_torch.ops import kzg_device, pairing
+
+    host_batch = kzg_device._build_kzg_batch(*lanes(1, n=2), 2)
+    t0 = time.perf_counter()
+    fe_gpu = kzg_device._device_kzg_batch(*kzg_device.batch_from_numpy(host_batch, "cuda")).cpu()
+    t1 = time.perf_counter()
+    fe_cpu = kzg_device._device_kzg_batch(*kzg_device.batch_from_numpy(host_batch, "cpu"))
+    t2 = time.perf_counter()
+    if not torch.equal(fe_gpu, fe_cpu):
+        raise AssertionError("2-blob KZG parity: card fe != CPU fe")
+    if not pairing.fe_is_one(fe_gpu):
+        raise AssertionError("2-blob KZG parity: valid batch did not verify")
+    log(f"[kzg parity] 2-blob fe equal limb for limb on cuda ({t1 - t0:.3f} s) and cpu "
+        f"({t2 - t1:.3f} s); verdict True")
+
+
+def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, max_err: dict,
+                 clock_mhz: float) -> list:
     import torch
 
     from lighthouse_tpu_torch.bench_kernels import OPS, graph_ms, operands, ops_per_ms, time_library
 
     lib, _ = cuda_fq.library(torch.device("cuda"))
     timed = time_library(lib, verify_out["sizes"], clock_mhz)
+    per_kzg = {key: time_library(lib, kzg_out[key]["sizes"], clock_mhz) for key in ("kzg6", "kzg192")}
     out = []
     for name, spec in KERNELS.items():
         t = timed[name]
@@ -277,7 +445,7 @@ def phase_timing(cuda_fq, verify_out: dict, max_err: dict, clock_mhz: float) -> 
         log(f"[timing] {name} per {tag(MAIN)} verify: {t['verify_ms']:.4f} ms over "
             f"{t['launches']} launches of {len(t['ms_by_size'])} sizes, bound "
             f"{t['verify_bound_ms']:.4f} ms ({t['verify_bound_ms'] / t['verify_ms']:.1%})")
-        out.append({
+        row = {
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": spec["replaces"],
             "launches": verify_out["launches"][name],
@@ -288,7 +456,16 @@ def phase_timing(cuda_fq, verify_out: dict, max_err: dict, clock_mhz: float) -> 
             "library_ms": None,
             "rows": n, "mean_rows": t["mean_rows"], "mean_ms": mean_ms,
             "verify_ms": t["verify_ms"], "verify_bound_ms": t["verify_bound_ms"],
-        })
+        }
+        for key, label in (("kzg6", f"{KZG_BLOBS}-blob"), ("kzg192", f"{KZG_LANES}-lane")):
+            k = per_kzg[key][name]
+            log(f"[timing] {name} per {label} KZG batch: {k['verify_ms']:.4f} ms over "
+                f"{k['launches']} launches of {len(k['ms_by_size'])} sizes (largest "
+                f"{k['at_max'][0]} rows), bound {k['verify_bound_ms']:.4f} ms "
+                f"({k['verify_bound_ms'] / k['verify_ms']:.1%})")
+            row.update({f"{key}_launches": kzg_out[key]["launches"][name],
+                        f"{key}_ms": k["verify_ms"], f"{key}_bound_ms": k["verify_bound_ms"]})
+        out.append(row)
     return out
 
 
@@ -311,7 +488,11 @@ def main() -> int:
     max_err = phase_kernels(cuda_fq)
     verify_out = phase_verify(cuda_fq)
     phase_parity()
-    kernels = phase_timing(cuda_fq, verify_out, max_err, clock_mhz)
+    kzg_in = kzg_inputs()
+    lanes = blob_lanes(*kzg_in)
+    kzg_out = phase_kzg(cuda_fq, *kzg_in, lanes)
+    phase_kzg_parity(lanes)
+    kernels = phase_timing(cuda_fq, verify_out, kzg_out, max_err, clock_mhz)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

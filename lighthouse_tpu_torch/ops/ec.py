@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..crypto.bls import fields as hf
-from ..crypto.bls.params import P
+from ..crypto.bls.params import G1_X, G1_Y, G2_X_C0, G2_X_C1, G2_Y_C0, G2_Y_C1, P
 from . import fq as _fq
 from . import tower as _tw
 
@@ -99,6 +99,37 @@ def point_double(ops: FieldOps, p):
     t0 = t0 - (t2 + t2 + t2)
     (y3o, x3o), _ = ops.many([(t0, y3), (t0, xy)])
     return (x3o + x3o, x3 + y3o, z3o)
+
+
+def point_neg(p):
+    """-P: the Y limbs negated one by one (int32 negation, no reduction),
+    as the JAX package does, so the limbs stay identical."""
+    x, y, z = p
+    return (x, -y, z)
+
+
+def point_select(flag, p, q):
+    """flag ? p : q, broadcasting flag (bool, batch shape) over coords."""
+    def sel(a, b):
+        f = flag.reshape(tuple(flag.shape) + (1,) * (a.dim() - flag.dim()))
+        return torch.where(f, a, b)
+    return tuple(sel(a, b) for a, b in zip(p, q))
+
+
+def scalar_mul_bits(ops: FieldOps, p, bits):
+    """[k]P with k given MSB-first as an int32 bit tensor (..., NBITS).
+
+    Fixed-length left-to-right double-and-add with a select, every step
+    (double, complete add, select), as the JAX package's ``fori_loop``
+    does; here the loop runs on the host over the bit columns.  Every step
+    is row-wise, so rows of several scalar multiplications may be stacked
+    into one call."""
+    flags = bits.bool()
+    acc = identity(ops, tuple(bits.shape[:-1]), bits.device)
+    for i in range(bits.shape[-1]):
+        acc = point_double(ops, acc)
+        acc = point_select(flags[..., i], point_add(ops, acc, p), acc)
+    return acc
 
 
 def _window_digits(bits: torch.Tensor, window: int) -> torch.Tensor:
@@ -241,3 +272,6 @@ def g2_from_limbs(p):
 def bits_msb(k: int, nbits: int) -> np.ndarray:
     return np.array([(k >> (nbits - 1 - i)) & 1 for i in range(nbits)], np.int32)
 
+
+G1_GEN_LIMBS = g1_to_limbs((hf.Fq(G1_X), hf.Fq(G1_Y)))
+G2_GEN_LIMBS = g2_to_limbs((hf.Fq2(G2_X_C0, G2_X_C1), hf.Fq2(G2_Y_C0, G2_Y_C1)))

@@ -43,10 +43,7 @@ from . import ec, pairing, tower
 from .fq import L16, const
 
 _NEG_G1 = ec.g1_to_limbs((curve.G1[0], -curve.G1[1]))
-_G2_GEN_AFF = (
-    tower.fq2_to_limbs(curve.G2[0]),
-    tower.fq2_to_limbs(curve.G2[1]),
-)
+_G2_GEN_AFF = ec.G2_GEN_LIMBS[:2]
 
 #: Static set-axis and key-axis buckets (the JAX package's vocabulary).
 #: Batches larger than the top set bucket chunk through

@@ -7,7 +7,8 @@ hash-to-curve, limb packing), the device program's wall time (synchronised,
 best of ``--reps`` after a warm-up), and one run under ``torch.profiler``:
 device time by kernel, launches by kernel, and the device's busy share of
 the unprofiled wall time.  Prints one JSON object as its last line.  Needs a
-CUDA card; it fails without one.
+CUDA card; it fails without one.  :func:`trace` profiles any one run the
+same way (``chip_smoke.py`` traces the KZG program with it).
 """
 
 from __future__ import annotations
@@ -27,11 +28,8 @@ def _device_us(evt) -> float:
 
 
 def profile(n_sets: int, n_keys: int, reps: int) -> dict:
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
     from .crypto.bls.backends.host import _rand_scalars
-    from .ops import cuda_fq, pairing, verify
+    from .ops import pairing, verify
     from .workload import committee_sets
 
     device = verify.resolve_device("cuda")
@@ -55,6 +53,25 @@ def profile(n_sets: int, n_keys: int, reps: int) -> dict:
         raise AssertionError("valid batch did not verify")
     wall_s = min(walls)
 
+    return {
+        "shape": f"{n_sets}x{n_keys}",
+        "card": torch.cuda.get_device_name(0),
+        "build_s": build_s,
+        "device_wall_s": wall_s,
+        "device_wall_runs_s": walls,
+        **trace(run, wall_s),
+    }
+
+
+def trace(run, wall_s: float) -> dict:
+    """One ``run()`` under ``torch.profiler``: device time and launches by
+    kernel, and the device's busy share of ``wall_s`` (the unprofiled wall
+    time of the same run).  Resets the Fq kernels' launch counts."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from .ops import cuda_fq
+
     cuda_fq.reset_launch_counts()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -73,11 +90,6 @@ def profile(n_sets: int, n_keys: int, reps: int) -> dict:
     fq_us = {name: sum(us for key, _, us in kernels if f"{name}_kernel" in key)
              for name in ("fq_mul", "fq2_mul")}
     return {
-        "shape": f"{n_sets}x{n_keys}",
-        "card": torch.cuda.get_device_name(0),
-        "build_s": build_s,
-        "device_wall_s": wall_s,
-        "device_wall_runs_s": walls,
         "profiled_wall_s": profiled_s,
         "device_busy_s": busy_us / 1e6,
         "device_busy_share_of_wall": busy_us / 1e6 / wall_s,

@@ -23,6 +23,17 @@ from lighthouse_tpu_torch.ops import ec, fq, pairing, tower  # noqa: E402
 
 
 @pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run torch's CPU ops on one thread: on these tiny tensors its parallel
+    regions cost more than they save, and in a parallel test run every
+    worker's thread pool would compete for the same cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def jax_int32_backend():
     """Pin the JAX package's Fq lowering to the int32 path the port keeps
     (fresh jitted closures below trace with it)."""

@@ -36,6 +36,17 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = b"fixed"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run torch's CPU ops on one thread: on these tiny tensors its parallel
+    regions cost more than they save, and in a parallel test run every
+    worker's thread pool would compete for the same cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 class Spec:
     """One signature set, as secret scalars and messages."""
 
@@ -193,6 +204,8 @@ def test_import_isolation():
                 mod = rel.replace(os.sep, ".")
                 modules.append(mod[: -len(".__init__")] if mod.endswith(".__init__") else mod)
     assert "lighthouse_tpu_torch.ops.cuda_fq" in modules
+    assert "lighthouse_tpu_torch.ops.kzg_device" in modules
+    assert "lighthouse_tpu_torch.crypto.kzg.kzg" in modules
     script = (
         "import builtins, importlib, runpy, sys\n"
         "pre = set(sys.modules)\n"
