@@ -343,11 +343,31 @@ def verify_signature_sets(
 
     `device` is passed to the torch backend only; None leaves it at that
     backend's default, ``"cuda"``.  The host and fake backends take no device.
+
+    When the async device pipeline is enabled (``device_pipeline.enable()``,
+    by the caller), seedless calls whose `device` is None or the pipeline's
+    own submit their sets as ONE group to the persistent device worker and
+    block on a future — the pipeline coalesces groups across work types into
+    larger device batches.  Seeded calls, calls naming another device and
+    oversized batches keep the direct (supervised) backend path.
     """
-    from .backends import get_backend
+    from ... import device_pipeline, metrics, tracing
+    from .backends import backend_name, get_backend
 
     sets = list(signature_sets)
     backend = get_backend()
-    if device is None:
-        return backend.verify_signature_sets(sets, seed=seed)
-    return backend.verify_signature_sets(sets, seed=seed, device=device)
+    metrics.DEVICE_BATCH_INVOCATIONS.inc()
+    metrics.SIGNATURE_SETS_VERIFIED.inc(len(sets))
+    metrics.ATTESTATION_BATCH_SIZE.observe(len(sets))
+    with tracing.span(
+        "device_batch", hist=metrics.ATTESTATION_BATCH_SECONDS,
+        n_sets=len(sets), backend=backend_name(),
+    ):
+        if device_pipeline.routes(sets, seed, device):
+            try:
+                return device_pipeline.verify(sets)
+            except device_pipeline.PipelineShutdown:
+                pass  # racing a shutdown: the direct path still answers
+        if device is None:
+            return backend.verify_signature_sets(sets, seed=seed)
+        return backend.verify_signature_sets(sets, seed=seed, device=device)

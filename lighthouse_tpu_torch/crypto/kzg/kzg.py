@@ -245,8 +245,10 @@ class Kzg:
         the device program of ``ops/kzg_device.py`` there (on the CPU the
         Fq kernels run as their plain versions), and asking for CUDA where
         there is no card raises; ``None`` selects the host golden model
-        (:meth:`_verify_kzg_proof_batch_host`).  There is no fallback: a
-        failure on the card raises.  Commit, prove, single-blob verify and
+        (:meth:`_verify_kzg_proof_batch_host`).  The device program runs
+        under the device supervisor: a failure on the card raises into
+        the caller (counted and breaker-tracked); with ``"cpu"`` a failure
+        resolves on the host path.  Commit, prove, single-blob verify and
         point-evaluation verify (:meth:`verify_kzg_proof`) always run on
         the host."""
         if device is not None:
@@ -415,11 +417,17 @@ class Kzg:
         if self.device is not None:
             from ...ops.kzg_device import verify_kzg_proof_batch_device
 
+            # Supervised: off the card, the host MSM path below is the
+            # golden model a hung or failing device leg (or an OPEN
+            # kzg_batch breaker) resolves through; on the card they raise.
             return verify_kzg_proof_batch_device(
                 [_g1_to_curve_point(c) for c in c_pts],
                 [_g1_to_curve_point(p) for p in p_pts],
                 r_powers, zs, ys, self.setup.g2_monomial[1],
                 device=self.device,
+                host_fn=lambda: self._verify_kzg_proof_batch_host(
+                    c_pts, zs, ys, p_pts, r_powers
+                ),
             )
         return self._verify_kzg_proof_batch_host(c_pts, zs, ys, p_pts, r_powers)
 

@@ -1,0 +1,736 @@
+"""Async device pipeline: a persistent device-worker queue between the
+callers of ``verify_signature_sets`` and the card.
+
+The port of ``lighthouse_tpu/device_pipeline.py``.  Without it every
+caller of ``bls.verify_signature_sets`` — block import, a drained gossip
+attestation batch, a sync-committee contribution — blocks its own thread
+for the full build + dispatch + wait of its own batch, and many small,
+launch-bound batches reach the card one by one.
+
+Callers **submit** a group of ``SignatureSet``\\ s and receive a
+:class:`VerifyFuture`; one long-lived pipeline per op owns the card and
+
+- **coalesces** pending groups *across work types* into one batch up to
+  its target, with a small linger window so a lone attestation never
+  waits forever;
+- **double-buffers** the host build against the device stage: a builder
+  thread marshals batch N+1 (``ops/verify.py`` ``build_device_batch`` —
+  validation, hash-to-curve, limb packing, upload) while the executor
+  thread runs batch N, handing off through a depth-1 queue.  On the port
+  both threads are Python holding the GIL (the build is pure-Python
+  hash-to-G2, the device stage is Python issuing the eager program's
+  launches), so the overlap is whatever the GIL leaves; each pipeline
+  reports its builder-busy and executor-busy seconds;
+- **dispatches through the device supervisor** (``device_supervisor.py``):
+  watchdog, split-retry and circuit-breaker semantics are exactly those of
+  the direct path — on the card a failed, hung or breaker-OPEN batch
+  raises and every group's future gets the error (with ``device="cpu"``
+  the host golden model decides and the futures resolve); a build stage
+  that raises (an upload failing on the card) hands its error to the
+  futures the same way;
+- **attributes verdicts per group**: a passing batch resolves every group
+  True; a failing (or host-disclaimed) batch re-checks each group once on
+  the host golden model so only the actually-bad group fails — one host
+  re-check per group, never per set.
+
+The enrolment seam is ``crypto/bls/api.verify_signature_sets``.  The
+caller enables the pipeline (:func:`enable`, naming its card); seedless
+calls whose device is unset or the pipeline's own then ride it, while
+calls that pin ``seed=`` (reproducibility), name another device, or
+exceed the standard bucket keep the direct supervised path.
+
+The JAX package's ``HashPipeline`` (the ``sha256_pairs`` coalescer), its
+``JobPipeline`` for batch-global jobs and the ``DeviceArbiter`` slot they
+share with this pipeline come with the hashing slice, which brings their
+callers; its API-side arbiter turnstile comes with the HTTP API.
+
+**Adaptive linger**: unless pinned (env
+``LIGHTHOUSE_TPU_PIPELINE_LINGER_S`` or an explicit ``linger_s``), the
+effective linger follows the flight recorder's observed in-flight batch
+duration (``device_telemetry.recent_inflight_seconds``).
+
+Observability: ``device_pipeline_{pending_sets,depth,batch_fill_ratio,
+linger_seconds,wait_seconds,batches_total,groups_total}`` metrics, a
+``pipeline_batch`` trace root per coalesced dispatch, flight-recorder
+records carrying ``n_groups``/``work_mix``, and :func:`summary`.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import os
+import queue
+import threading
+import time
+from collections import deque
+from contextlib import contextmanager
+from typing import Callable, Dict, List, Optional
+
+from . import blackbox, metrics, tracing
+from .logs import get_logger
+from .scheduler.work import STANDARD_DEVICE_BATCH
+
+log = get_logger("device_pipeline")
+
+#: Groups larger than this bypass the pipeline entirely (the direct path
+#: chunks them through the standard bucket itself).  The scheduler's
+#: standard device batch, clamped to the device's single-dispatch ceiling
+#: (ops/verify.MAX_SETS_PER_DISPATCH == 4096 — kept as a literal here so
+#: importing the pipeline never pulls torch, same convention as work.py):
+#: a raised LIGHTHOUSE_TPU_STANDARD_BATCH must not let the pipeline build
+#: batches the device entry point refuses.
+MAX_GROUP_SETS = min(STANDARD_DEVICE_BATCH, 4096)
+
+#: Default linger: how long the builder waits for more groups once the FIRST
+#: pending group is older than this and the target bucket is not yet full.
+#: Small on purpose — while a batch is in flight the pending queue fills for
+#: free; the linger only bounds the latency of a lone set on an idle device.
+DEFAULT_LINGER_S = float(os.environ.get("LIGHTHOUSE_TPU_PIPELINE_LINGER_S", "0.02"))
+
+#: Default coalescing target (sets per dispatched batch).
+DEFAULT_TARGET_SETS = int(
+    os.environ.get("LIGHTHOUSE_TPU_PIPELINE_TARGET_SETS", str(STANDARD_DEVICE_BATCH))
+)
+
+#: Bounded ring of recent per-batch summaries for summary()/tests.
+RECENT_BATCHES = 64
+
+#: Adaptive linger clamps: the effective linger never exceeds the MAX (a
+#: pathological in-flight observation must not park gossip for seconds) and
+#: tracks ``FRACTION`` of the observed in-flight batch duration.
+ADAPTIVE_LINGER_MAX_S = 0.25
+ADAPTIVE_LINGER_FRACTION = 0.5
+
+#: An explicit env linger pins every pipeline (the operator override the
+#: adaptive default must never fight).
+_LINGER_ENV_PINNED = "LIGHTHOUSE_TPU_PIPELINE_LINGER_S" in os.environ
+
+# Injectable linger clock: how long a pending group has lingered is a
+# control-path decision — a harness may run it on a virtual clock so batch
+# cut points sit at virtual instants, not wall instants.
+# Telemetry spans (pipeline_wait, batch linger observations) deliberately
+# stay on ``submitted_pc``/``time.perf_counter``: an operator reading them
+# wants real latency.
+_linger_clock: Callable[[], float] = time.perf_counter
+
+
+def set_linger_clock(fn: Optional[Callable[[], float]] = None) -> None:
+    global _linger_clock
+    # process-boundary: ok(clock seam: harness-only install, restored in _cleanup)
+    _linger_clock = fn if fn is not None else time.perf_counter
+
+
+def effective_linger(op: str, base_s: float, pinned: bool) -> float:
+    """The linger actually applied to the next coalescing decision:
+    ``base_s`` when pinned or unobserved, else ~half the flight recorder's
+    median in-flight batch duration for ``op`` (clamped; never below the
+    configured base — a fast device should not erase the floor)."""
+    if pinned:
+        return base_s
+    from . import device_telemetry
+
+    observed = device_telemetry.recent_inflight_seconds(op)
+    if observed is None:
+        return base_s
+    return max(base_s, min(ADAPTIVE_LINGER_MAX_S,
+                           observed * ADAPTIVE_LINGER_FRACTION))
+
+
+_WORK_KIND: "contextvars.ContextVar[Optional[str]]" = contextvars.ContextVar(
+    "lighthouse_tpu_pipeline_work_kind", default=None
+)
+
+
+@contextmanager
+def work_context(kind: str):
+    """Tag pipeline submissions made inside this context with ``kind`` (the
+    ``work_mix`` attribution on coalesced batches)."""
+    token = _WORK_KIND.set(kind)
+    try:
+        yield
+    finally:
+        _WORK_KIND.reset(token)
+
+
+def current_work_kind() -> str:
+    return _WORK_KIND.get() or "other"
+
+
+class PipelineShutdown(RuntimeError):
+    """The pipeline was shut down without draining this group."""
+
+
+class VerifyFuture:
+    """Resolution handle for one submitted group (bool verdict out)."""
+
+    __slots__ = ("_done", "_result", "_error", "submitted_pc",
+                 "submitted_lc", "work", "n_sets")
+
+    def __init__(self, work: str, n_sets: int):
+        self._done = threading.Event()
+        self._result = None
+        self._error: Optional[BaseException] = None
+        # submitted_pc: real perf_counter, telemetry spans only.
+        # submitted_lc: the linger clock's reading, the coalescing
+        # decision's time base (virtual during scenarios).
+        self.submitted_pc = time.perf_counter()
+        self.submitted_lc = _linger_clock()
+        self.work = work
+        self.n_sets = n_sets
+
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    def set_result(self, value) -> None:
+        self._result = bool(value)
+        self._done.set()
+
+    def set_error(self, err: BaseException) -> None:
+        self._error = err
+        self._done.set()
+
+    def result(self, timeout: Optional[float] = None) -> bool:
+        """Block until resolution; raises the pipeline's error if the group
+        failed outside the verify's own semantics (a build or device
+        error)."""
+        if not self._done.wait(timeout):
+            raise TimeoutError("pipeline verdict not available in time")
+        if self._error is not None:
+            raise self._error
+        return bool(self._result)
+
+
+class _Group:
+    __slots__ = ("sets", "future")
+
+    def __init__(self, sets: list, future: VerifyFuture):
+        self.sets = sets
+        self.future = future
+
+
+class _BuiltBatch:
+    """One coalesced batch on its way to the executor."""
+
+    __slots__ = ("groups", "flat_sets", "built", "unbuilt", "error",
+                 "linger_s", "build_s", "work_mix")
+
+    def __init__(self, groups: List[_Group], flat_sets: list, built,
+                 unbuilt: bool, error: Optional[BaseException],
+                 linger_s: float, build_s: float, work_mix: Dict[str, int]):
+        self.groups = groups
+        self.flat_sets = flat_sets
+        self.built = built          # ops.verify.BuiltBatch | None (host modes)
+        #: device mode only: host-side validation decided False before any
+        #: upload, so no device batch exists — the batch verdict says only
+        #: that SOME group is bad, so EVERY group (even a lone one) resolves
+        #: via its own host re-check.
+        self.unbuilt = unbuilt
+        #: the build stage raised (an upload that failed on the card, an
+        #: unexpected host error): every group's future gets this error —
+        #: a failed build is neither a verdict nor answered by the host.
+        self.error = error
+        self.linger_s = linger_s
+        self.build_s = build_s
+        self.work_mix = work_mix
+
+
+class DevicePipeline:
+    """One persistent device-worker pipeline for one op (``bls_verify``).
+
+    ``device``: the card the torch backend's batches run on (``"cuda"`` by
+    default; ``"cpu"`` runs the kernels' plain versions).
+    ``verify_flat_fn``: test seam — replaces the whole batch-execution leg
+    (called with the flat set list, returns the combined verdict).
+    ``recheck_fn``: test seam — replaces the per-group host re-check.
+    """
+
+    def __init__(self, op: str = "bls_verify", *,
+                 device="cuda",
+                 target_sets: Optional[int] = None,
+                 linger_s: Optional[float] = None,
+                 verify_flat_fn=None, recheck_fn=None):
+        self.op = op
+        self.device = device
+        # clamped to the single-dispatch ceiling: one coalesced batch must
+        # stay buildable by ops/verify.build_device_batch
+        self.target_sets = max(1, min(int(target_sets or DEFAULT_TARGET_SETS),
+                                      MAX_GROUP_SETS))
+        # an explicit linger (ctor arg, later assignment, or the env var)
+        # PINS the value; otherwise the effective linger adapts to the
+        # observed in-flight batch duration (see effective_linger)
+        self._linger_pinned = linger_s is not None or _LINGER_ENV_PINNED
+        self._linger_s = (DEFAULT_LINGER_S if linger_s is None
+                          else float(linger_s))
+        self._verify_flat_fn = verify_flat_fn
+        self._recheck_fn = recheck_fn
+        self._cond = threading.Condition()
+        self._pending: deque = deque()          # _Group FIFO
+        self._pending_sets = 0
+        self._in_flight_groups = 0              # taken but not yet resolved
+        self._shutdown = False
+        self._idle = threading.Event()
+        self._idle.set()
+        # depth-1 handoff: the double buffer.  The builder blocks here while
+        # the executor still owns the previous batch, which is exactly when
+        # the pending queue should keep filling.
+        self._built_q: "queue.Queue[Optional[_BuiltBatch]]" = queue.Queue(maxsize=1)
+        self._recent: deque = deque(maxlen=RECENT_BATCHES)
+        self.batches_total = 0
+        self.groups_total = 0
+        self.sets_total = 0
+        # seconds each thread spent on its stage (taking a batch off the
+        # queue and waiting on the handoff excluded): their sum over the
+        # wall time of a busy stretch says how much of the two stages the
+        # GIL let overlap
+        self.builder_busy_s = 0.0
+        self.executor_busy_s = 0.0
+        self._builder = threading.Thread(
+            target=self._build_loop, name=f"device-pipeline-build-{op}", daemon=True
+        )
+        self._executor = threading.Thread(
+            target=self._execute_loop, name=f"device-pipeline-exec-{op}", daemon=True
+        )
+        self._builder.start()
+        self._executor.start()
+
+    # ------------------------------------------------------------- ingress
+
+    def submit(self, sets, work: Optional[str] = None,
+               ) -> VerifyFuture:
+        """Queue one group; returns its future.  Raises
+        :class:`PipelineShutdown` after :meth:`shutdown`."""
+        sets = list(sets)
+        work = work or current_work_kind()
+        fut = VerifyFuture(work, len(sets))
+        if not sets:
+            fut.set_result(False)  # empty batch fails (host-backend parity)
+            return fut
+        with self._cond:
+            if self._shutdown:
+                raise PipelineShutdown(f"{self.op}: pipeline is shut down")
+            self._pending.append(_Group(sets, fut))
+            self._pending_sets += len(sets)
+            self.groups_total += 1
+            self.sets_total += len(sets)
+            self._idle.clear()
+            metrics.DEVICE_PIPELINE_PENDING_SETS.set(self._pending_sets, op=self.op)
+            metrics.DEVICE_PIPELINE_DEPTH.set(
+                len(self._pending) + self._in_flight_groups, op=self.op)
+            self._cond.notify_all()
+        metrics.DEVICE_PIPELINE_GROUPS.inc(op=self.op, work=work)
+        # submit marker in the caller's trace: the submit→resolve interval is
+        # recorded by verify() as the pipeline_wait span.
+        tracing.annotate(pipeline_submitted=True, pipeline_work=work)
+        return fut
+
+    def verify(self, sets, work: Optional[str] = None) -> bool:
+        """Submit + block on the verdict (the drop-in form the bls api seam
+        uses).  The caller's thread waits on a cheap event — never inside
+        ``block_until_ready``."""
+        fut = self.submit(sets, work=work)
+        try:
+            ok = fut.result()
+        finally:
+            tracing.record_span(
+                "pipeline_wait", start_pc=fut.submitted_pc,
+                hist=metrics.DEVICE_PIPELINE_WAIT_SECONDS,
+                hist_labels={"op": self.op},
+                n_sets=fut.n_sets, work=fut.work,
+            )
+        return ok
+
+    # ------------------------------------------------------------- builder
+
+    @property
+    def linger_s(self) -> float:
+        return self._linger_s
+
+    @linger_s.setter
+    def linger_s(self, value: float) -> None:
+        # assigning a linger anywhere (tests, scenarios, bench) pins it —
+        # the adaptive default must never fight an explicit choice
+        self._linger_s = float(value)
+        self._linger_pinned = True
+
+    def _effective_linger(self) -> float:
+        return effective_linger(self.op, self._linger_s, self._linger_pinned)
+
+    def _effective_target(self) -> int:
+        """The coalescing target (the JAX package scales it to a degraded
+        device mesh; the port has no mesh yet)."""
+        return self.target_sets
+
+    def _take_batch(self) -> Optional[List[_Group]]:
+        """Block until a batch is worth dispatching (target fill reached, the
+        oldest group's linger expired, or shutdown-drain); pop and return it.
+        Returns None only when shut down AND drained."""
+        with self._cond:
+            # sampled once per take, at the moment the first group is seen:
+            # the adaptive signal only moves when a batch completes, so
+            # recomputing it (a flight-recorder scan) on every 50ms
+            # wait-loop wake under the lock is wasted work — but sampling
+            # at take ENTRY would bake a pre-pin value into a worker that
+            # was already parked on an empty queue when a test/scenario
+            # assigned linger_s
+            linger = None
+            frozen = 0
+            while True:
+                target = self._effective_target()
+                if self._pending:
+                    if self._shutdown or self._pending_sets >= target:
+                        break
+                    if linger is None:
+                        linger = self._effective_linger()
+                    now_lc = _linger_clock()
+                    oldest = self._pending[0].future.submitted_lc
+                    remaining = linger - (now_lc - oldest)
+                    # a reading BEHIND the stamp means the group straddled
+                    # a clock install/restore: dispatch rather than trust
+                    # cross-clock arithmetic
+                    if remaining <= 0 or now_lc < oldest:
+                        break
+                    # Stall-breaker: a linger clock frozen across
+                    # consecutive waits means the thread that advances it
+                    # (a virtual clock's runner) is blocked on one of OUR
+                    # futures — dispatch now instead of deadlocking.  A
+                    # wall clock always advances, so production coalescing
+                    # is untouched.
+                    if frozen >= 2:
+                        break
+                    self._cond.wait(timeout=min(remaining, 0.05))
+                    frozen = frozen + 1 if _linger_clock() == now_lc else 0
+                elif self._shutdown:
+                    return None
+                else:
+                    self._cond.wait(timeout=0.1)
+            groups: List[_Group] = []
+            n_sets = 0
+            while self._pending:
+                g = self._pending[0]
+                if groups and n_sets + len(g.sets) > target:
+                    break
+                self._pending.popleft()
+                groups.append(g)
+                n_sets += len(g.sets)
+            self._pending_sets -= n_sets
+            self._in_flight_groups += len(groups)
+            metrics.DEVICE_PIPELINE_PENDING_SETS.set(self._pending_sets, op=self.op)
+            return groups
+
+    def _build_loop(self) -> None:
+        while True:
+            try:
+                groups = self._take_batch()
+            except Exception:
+                log.error("pipeline builder take failed", exc_info=True)
+                continue
+            if groups is None:
+                self._built_q.put(None)  # drained: wake + stop the executor
+                return
+            oldest = min(g.future.submitted_pc for g in groups)
+            linger = max(0.0, time.perf_counter() - oldest)
+            flat = [s for g in groups for s in g.sets]
+            work_mix: Dict[str, int] = {}
+            for g in groups:
+                work_mix[g.future.work] = work_mix.get(g.future.work, 0) + len(g.sets)
+            built = None
+            unbuilt = False
+            error = None
+            t0 = time.perf_counter()
+            if self._device_mode():
+                try:
+                    with tracing.span("pipeline_build", n_sets=len(flat),
+                                      n_groups=len(groups)):
+                        from .ops import verify as verify_mod
+
+                        built = verify_mod.build_device_batch(
+                            flat, device=self.device)
+                    unbuilt = built is None
+                except Exception as err:  # noqa: BLE001 — marshalled to futures
+                    # The build raised (device OOM or a CUDA error mid-upload,
+                    # ...): the executor hands the error to every group's
+                    # future — never a host verdict, never "bad signature".
+                    log.error("pipeline batch build failed", op=self.op,
+                              error=f"{type(err).__name__}: {err}")
+                    error = err
+            build_s = time.perf_counter() - t0
+            self.builder_busy_s += build_s
+            self._built_q.put(_BuiltBatch(
+                groups, flat, built, unbuilt, error, linger, build_s, work_mix,
+            ))
+
+    # ------------------------------------------------------------ executor
+
+    def _device_mode(self) -> bool:
+        """True when the batch should run the staged device path (torch
+        backend); host/fake backends run their own verify over the flat
+        batch instead — same coalescing, no device."""
+        if self._verify_flat_fn is not None:
+            return False
+        from .crypto.bls.backends import backend_name
+
+        return backend_name() == "torch"
+
+    def _verify_flat(self, batch: _BuiltBatch) -> bool:
+        if self._verify_flat_fn is not None:
+            return bool(self._verify_flat_fn(batch.flat_sets))
+        from .crypto.bls.backends import backend_name, get_backend
+
+        if backend_name() == "torch":
+            from .ops import verify as verify_mod
+
+            # unbuilt batches never reach here (_execute_one re-checks
+            # every group on the host instead)
+            return verify_mod.execute_built_batch(
+                batch.built, n_groups=len(batch.groups), work_mix=batch.work_mix
+            )
+        return bool(get_backend().verify_signature_sets(batch.flat_sets))
+
+    def _recheck_group(self, sets: list) -> bool:
+        """ONE host re-check per group — the per-group verdict attribution
+        on a failed coalesced batch."""
+        if self._recheck_fn is not None:
+            return bool(self._recheck_fn(sets))
+        from .crypto.bls.backends import backend_name
+
+        if backend_name() == "fake":
+            from .crypto.bls.backends import fake
+
+            return bool(fake.verify_signature_sets(sets))
+        from .crypto.bls.backends import host
+
+        return bool(host.verify_signature_sets(sets))
+
+    def _execute_loop(self) -> None:
+        while True:
+            batch = self._built_q.get()
+            if batch is None:
+                with self._cond:
+                    if not self._pending and self._in_flight_groups == 0:
+                        self._idle.set()
+                return
+            t0 = time.perf_counter()
+            try:
+                self._execute_one(batch)
+            except Exception as err:  # noqa: BLE001 — marshalled to futures
+                log.error("pipeline batch execution failed",
+                          op=self.op, error=f"{type(err).__name__}: {err}")
+                for g in batch.groups:
+                    g.future.set_error(err)
+            finally:
+                self.executor_busy_s += time.perf_counter() - t0
+                with self._cond:
+                    self._in_flight_groups -= len(batch.groups)
+                    metrics.DEVICE_PIPELINE_DEPTH.set(
+                        len(self._pending) + self._in_flight_groups, op=self.op)
+                    if (not self._pending and self._in_flight_groups == 0
+                            and self._built_q.empty()):
+                        self._idle.set()
+                    self._cond.notify_all()
+
+    def _execute_one(self, batch: _BuiltBatch) -> None:
+        if batch.error is not None:
+            raise batch.error  # _execute_loop sets it on every group's future
+        n_sets = len(batch.flat_sets)
+        fill = min(1.0, n_sets / self.target_sets)
+        metrics.DEVICE_PIPELINE_BATCHES.inc(op=self.op)
+        metrics.DEVICE_PIPELINE_BATCH_FILL_RATIO.observe(fill, op=self.op)
+        metrics.DEVICE_PIPELINE_LINGER_SECONDS.observe(batch.linger_s, op=self.op)
+        with tracing.span(
+            "pipeline_batch", op=self.op, n_sets=n_sets,
+            n_groups=len(batch.groups), fill_ratio=round(fill, 4),
+            linger_s=round(batch.linger_s, 6), work_mix=dict(batch.work_mix),
+        ):
+            rechecked = 0
+            if batch.unbuilt:
+                # No device batch exists (host-side validation said False):
+                # EVERY group — lone ones included — gets its own host
+                # re-check, so only the bad group fails.
+                tracing.annotate(group_recheck=True, unbuilt=True)
+                verdict = True
+                for g in batch.groups:
+                    rechecked += 1
+                    ok = self._recheck_group(g.sets)
+                    verdict = verdict and ok
+                    g.future.set_result(ok)
+            else:
+                verdict = self._verify_flat(batch)
+                if verdict:
+                    for g in batch.groups:
+                        g.future.set_result(True)
+                elif len(batch.groups) == 1:
+                    # a single-group batch IS its own attribution
+                    batch.groups[0].future.set_result(False)
+                else:
+                    tracing.annotate(group_recheck=True)
+                    for g in batch.groups:
+                        rechecked += 1
+                        g.future.set_result(self._recheck_group(g.sets))
+        self.batches_total += 1
+        self._recent.append({
+            "t_ms": int(time.time() * 1000),
+            "n_sets": n_sets,
+            "n_groups": len(batch.groups),
+            "fill_ratio": round(fill, 4),
+            "linger_s": round(batch.linger_s, 6),
+            "build_s": round(batch.build_s, 6),
+            "work_mix": dict(batch.work_mix),
+            "verdict": bool(verdict),
+            "group_rechecks": rechecked,
+        })
+        blackbox.emit("pipeline", "batch", op=self.op, n_sets=n_sets,
+                      n_groups=len(batch.groups), verdict=bool(verdict),
+                      group_rechecks=rechecked or None,
+                      unbuilt=bool(batch.unbuilt) or None)
+
+    # ------------------------------------------------------------- control
+
+    def wait_idle(self, timeout: float = 10.0) -> bool:
+        """Block until no group is pending or in flight."""
+        return self._idle.wait(timeout)
+
+    def shutdown(self, timeout: float = 30.0) -> None:
+        """Drain: pending groups still execute (possibly as smaller final
+        batches) and every future resolves; then both threads exit."""
+        with self._cond:
+            if self._shutdown:
+                return
+            self._shutdown = True
+            self._cond.notify_all()
+        self._builder.join(timeout=timeout)
+        self._executor.join(timeout=timeout)
+        # anything still unresolved (thread died / join timed out) must not
+        # hang callers forever
+        with self._cond:
+            leftovers = list(self._pending)
+            self._pending.clear()
+            self._pending_sets = 0
+        for g in leftovers:
+            if not g.future.done():
+                g.future.set_error(PipelineShutdown(
+                    f"{self.op}: pipeline shut down before this group ran"))
+
+    def snapshot(self) -> dict:
+        with self._cond:
+            pending_groups = len(self._pending)
+            pending_sets = self._pending_sets
+            in_flight = self._in_flight_groups
+        return {
+            "op": self.op,
+            "target_sets": self.target_sets,
+            # identical to target_sets until the device mesh lands (it
+            # shrinks the fill target with a degraded mesh)
+            "effective_target_sets": self._effective_target(),
+            "linger_s": self._linger_s,
+            # the linger actually applied to the next take: adaptive
+            # (flight-recorder in-flight median) unless pinned
+            "effective_linger_s": round(self._effective_linger(), 6),
+            "linger_adaptive": not self._linger_pinned,
+            "pending_groups": pending_groups,
+            "pending_sets": pending_sets,
+            "in_flight_groups": in_flight,
+            "batches_total": self.batches_total,
+            "groups_total": self.groups_total,
+            "sets_total": self.sets_total,
+            "builder_busy_s": round(self.builder_busy_s, 6),
+            "executor_busy_s": round(self.executor_busy_s, 6),
+            "recent_batches": list(self._recent),
+        }
+
+
+# ----------------------------------------------------------- module wiring
+
+_LOCK = threading.Lock()
+_PIPELINE: Optional[DevicePipeline] = None
+_ENABLED = os.environ.get("LIGHTHOUSE_TPU_DEVICE_PIPELINE", "") == "1"
+#: The card the pipeline's batches run on (set by :func:`enable`).
+_DEVICE = "cuda"
+
+
+def _device_key(device) -> str:
+    import torch
+
+    return str(torch.device(device))
+
+
+def get_pipeline() -> DevicePipeline:
+    """The process-wide bls_verify pipeline (lazily started)."""
+    global _PIPELINE
+    with _LOCK:
+        if _PIPELINE is None:
+            _PIPELINE = DevicePipeline("bls_verify", device=_DEVICE)
+        return _PIPELINE
+
+
+def enabled() -> bool:
+    return _ENABLED
+
+
+def enable(device="cuda") -> None:
+    """Route ``bls.verify_signature_sets`` through the pipeline, its
+    batches on ``device``.  The port has no client builder yet, so the
+    caller enables it.  ``LIGHTHOUSE_TPU_DEVICE_PIPELINE=0`` wins over
+    callers.  A running pipeline keeps its card until :func:`shutdown`."""
+    global _ENABLED, _DEVICE
+    if os.environ.get("LIGHTHOUSE_TPU_DEVICE_PIPELINE", "") == "0":
+        return
+    _DEVICE = device
+    _ENABLED = True
+
+
+def disable() -> None:
+    global _ENABLED
+    _ENABLED = False
+
+
+def routes(sets: list, seed, device=None) -> bool:
+    """Should this verify_signature_sets call ride the pipeline?  Explicit
+    seeds (reproducibility contracts), another device than the pipeline's
+    and oversized batches keep the direct path; so does everything when
+    the pipeline is off."""
+    return (
+        _ENABLED
+        and seed is None
+        and 0 < len(sets) <= MAX_GROUP_SETS
+        and (device is None or _device_key(device) == _device_key(_DEVICE))
+    )
+
+
+def verify(sets: list) -> bool:
+    """The api-seam entry: resolve the live pipeline WITHOUT resurrecting
+    one that a racing ``shutdown()`` just tore down — a caller already past
+    ``routes()`` must fall back to the direct path (the api seam catches
+    :class:`PipelineShutdown`), not leak a fresh thread pair post-stop."""
+    global _PIPELINE
+    with _LOCK:
+        pipe = _PIPELINE
+        if pipe is None:
+            if not _ENABLED:
+                raise PipelineShutdown("pipeline disabled mid-call")
+            pipe = _PIPELINE = DevicePipeline("bls_verify", device=_DEVICE)
+    return pipe.verify(sets)
+
+
+def summary() -> Optional[dict]:
+    """The pipeline section of ``device_telemetry.summary()`` (None until
+    the pipeline has been started)."""
+    with _LOCK:
+        pipe = _PIPELINE
+    return None if pipe is None else pipe.snapshot()
+
+
+def shutdown(timeout: float = 30.0) -> None:
+    """Disable routing and drain the process pipeline.  New verify calls
+    fall back to the direct path immediately; in-flight futures still
+    resolve."""
+    global _PIPELINE
+    disable()
+    with _LOCK:
+        pipe, _PIPELINE = _PIPELINE, None
+    if pipe is not None:
+        pipe.shutdown(timeout=timeout)
+
+
+def reset_for_tests() -> None:
+    set_linger_clock(None)
+    shutdown(timeout=5.0)

@@ -1,0 +1,396 @@
+"""Process-wide metrics registry: counters, gauges, histograms, stage timers.
+
+Equivalent of the reference's ``common/lighthouse_metrics`` (lib.rs:1-18 —
+thin helpers over a global prometheus registry) plus the hot-path stage
+timers of batch verification
+(``beacon_node/beacon_chain/src/metrics.rs:247-271``).  The port keeps the
+JAX package's registry and, of its metrics, those the device runtime, the
+BLS API and the KZG path touch, with their names, labels and buckets; the
+chain's, the HTTP API's and the mesh's metrics come with those modules.
+
+Design: a plain-Python registry with lock-free-enough updates (single
+attribute stores under the GIL), rendered on demand in the Prometheus text
+exposition format by the HTTP server's ``/metrics`` route.  No external
+dependency; histograms use fixed log-spaced buckets like the reference's
+``exponential_buckets``.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+_REGISTRY_LOCK = threading.Lock()
+_REGISTRY: "Dict[str, _Metric]" = {}
+
+# Registration conflicts (same name, different kind or help), kept for
+# inspection — the registry itself stays first-wins.
+DUPLICATE_REGISTRATIONS: List[Tuple[str, str, str]] = []
+
+# Callbacks run before each render (sampled-on-scrape values register here;
+# see device_telemetry.py).
+_COLLECTORS: List[Callable[[], None]] = []
+
+
+def register_collector(fn: Callable[[], None]) -> None:
+    with _REGISTRY_LOCK:
+        if fn not in _COLLECTORS:
+            _COLLECTORS.append(fn)
+
+
+def _labels_key(labels: Optional[dict]) -> Tuple:
+    if not labels:
+        return ()
+    return tuple(sorted(labels.items()))
+
+
+class _Metric:
+    kind = "untyped"
+
+    def __init__(self, name: str, help_text: str):
+        self.name = name
+        self.help = help_text
+        self._series: Dict[Tuple, object] = {}
+        self._lock = threading.Lock()
+
+    def render(self) -> List[str]:  # pragma: no cover - overridden
+        raise NotImplementedError
+
+
+def _escape_label_value(v) -> str:
+    """Escape a label value per the Prometheus text exposition format:
+    backslash, double-quote, and line-feed must be escaped inside the
+    double-quoted value."""
+    return (
+        str(v).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+    )
+
+
+def _fmt_labels(key: Tuple) -> str:
+    if not key:
+        return ""
+    return "{" + ",".join(f'{k}="{_escape_label_value(v)}"' for k, v in key) + "}"
+
+
+class Counter(_Metric):
+    kind = "counter"
+
+    def inc(self, value: float = 1.0, **labels) -> None:
+        key = _labels_key(labels)
+        with self._lock:
+            self._series[key] = self._series.get(key, 0.0) + value
+
+    def get(self, **labels) -> float:
+        with self._lock:
+            return self._series.get(_labels_key(labels), 0.0)
+
+    def set_total(self, value: float, **labels) -> None:
+        """Overwrite the running total — for collectors mirroring an external
+        monotonic counter (e.g. /proc CPU seconds) onto the registry."""
+        with self._lock:
+            self._series[_labels_key(labels)] = float(value)
+
+    def snapshot(self) -> Dict[Tuple, float]:
+        """All series values right now — pair with :meth:`delta` so a check
+        inside one run of a long-lived process asserts on THAT run's
+        increments, not on the process-cumulative totals."""
+        with self._lock:
+            return dict(self._series)
+
+    def delta(self, baseline: Dict[Tuple, float], **labels) -> float:
+        """This label set's increment since ``baseline`` (a snapshot())."""
+        return self.get(**labels) - baseline.get(_labels_key(labels), 0.0)
+
+    def render(self) -> List[str]:
+        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} counter"]
+        with self._lock:
+            items = sorted(self._series.items())
+        for key, v in items:
+            out.append(f"{self.name}{_fmt_labels(key)} {v}")
+        return out
+
+
+class Gauge(_Metric):
+    kind = "gauge"
+
+    def set(self, value: float, **labels) -> None:
+        with self._lock:
+            self._series[_labels_key(labels)] = float(value)
+
+    def inc(self, value: float = 1.0, **labels) -> None:
+        key = _labels_key(labels)
+        with self._lock:
+            self._series[key] = self._series.get(key, 0.0) + value
+
+    def dec(self, value: float = 1.0, **labels) -> None:
+        self.inc(-value, **labels)
+
+    def get(self, **labels) -> float:
+        with self._lock:
+            return self._series.get(_labels_key(labels), 0.0)
+
+    def render(self) -> List[str]:
+        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} gauge"]
+        with self._lock:
+            items = sorted(self._series.items())
+        for key, v in items:
+            out.append(f"{self.name}{_fmt_labels(key)} {v}")
+        return out
+
+
+# Log-spaced from 1ms to ~65s — the reference's exponential_buckets shape.
+DEFAULT_BUCKETS = tuple(0.001 * (2.0 ** i) for i in range(17))
+
+
+class Histogram(_Metric):
+    kind = "histogram"
+
+    def __init__(self, name: str, help_text: str, buckets: Tuple[float, ...] = DEFAULT_BUCKETS):
+        super().__init__(name, help_text)
+        self.buckets = tuple(sorted(buckets))
+
+    def observe(self, value: float, **labels) -> None:
+        key = _labels_key(labels)
+        with self._lock:
+            series = self._series.get(key)
+            if series is None:
+                series = {"counts": [0] * len(self.buckets), "sum": 0.0, "n": 0}
+                self._series[key] = series
+            for i, ub in enumerate(self.buckets):
+                if value <= ub:
+                    series["counts"][i] += 1
+            series["sum"] += value
+            series["n"] += 1
+
+    def time(self, **labels) -> "_HistTimer":
+        return _HistTimer(self, labels)
+
+    def stats(self, **labels) -> Tuple[int, float]:
+        """(count, total_seconds) for a label set."""
+        with self._lock:
+            s = self._series.get(_labels_key(labels))
+            return (0, 0.0) if s is None else (s["n"], s["sum"])
+
+    def render(self) -> List[str]:
+        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} histogram"]
+        with self._lock:
+            snapshot = sorted(
+                (key, {"counts": list(s["counts"]), "sum": s["sum"], "n": s["n"]})
+                for key, s in self._series.items()
+            )
+        for key, s in snapshot:
+            for i, ub in enumerate(self.buckets):
+                lk = key + (("le", repr(ub)),)
+                out.append(f"{self.name}_bucket{_fmt_labels(lk)} {s['counts'][i]}")
+            lk = key + (("le", "+Inf"),)
+            out.append(f"{self.name}_bucket{_fmt_labels(lk)} {s['n']}")
+            out.append(f"{self.name}_sum{_fmt_labels(key)} {s['sum']}")
+            out.append(f"{self.name}_count{_fmt_labels(key)} {s['n']}")
+        return out
+
+
+class _HistTimer:
+    """``with HIST.time():`` stage timer (reference ``start_timer``)."""
+
+    def __init__(self, hist: Histogram, labels: dict):
+        self._hist = hist
+        self._labels = labels
+        self._t0 = 0.0
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self._hist.observe(time.perf_counter() - self._t0, **self._labels)
+        return False
+
+
+def _register(metric: _Metric) -> _Metric:
+    with _REGISTRY_LOCK:
+        existing = _REGISTRY.get(metric.name)
+        if existing is not None:
+            if existing.kind != metric.kind or (
+                metric.help and existing.help != metric.help
+            ):
+                DUPLICATE_REGISTRATIONS.append(
+                    (metric.name, existing.kind, metric.kind)
+                )
+            return existing
+        _REGISTRY[metric.name] = metric
+        return metric
+
+
+def counter(name: str, help_text: str = "") -> Counter:
+    return _register(Counter(name, help_text))  # type: ignore[return-value]
+
+
+def gauge(name: str, help_text: str = "") -> Gauge:
+    return _register(Gauge(name, help_text))  # type: ignore[return-value]
+
+
+def histogram(name: str, help_text: str = "", buckets: Tuple[float, ...] = DEFAULT_BUCKETS) -> Histogram:
+    return _register(Histogram(name, help_text, buckets))  # type: ignore[return-value]
+
+
+def render_prometheus() -> str:
+    """The full registry in Prometheus text exposition format."""
+    with _REGISTRY_LOCK:
+        collectors = list(_COLLECTORS)
+        metrics = list(_REGISTRY.values())
+    for fn in collectors:
+        try:
+            fn()
+        except Exception:
+            pass  # a broken collector must never take /metrics down
+    lines: List[str] = []
+    for m in metrics:
+        lines.extend(m.render())
+    return "\n".join(lines) + "\n"
+
+
+# ------------------------------------------------------------ batch verify
+# The BLS API seam (crypto/bls/api.py).
+
+ATTESTATION_BATCH_SECONDS = histogram(
+    "beacon_attestation_batch_verify_seconds", "device batch signature verification"
+)
+
+ATTESTATION_BATCH_SIZE = histogram(
+    "beacon_attestation_batch_size", "signature sets per device batch",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024),
+)
+
+SIGNATURE_SETS_VERIFIED = counter(
+    "beacon_signature_sets_verified_total", "signature sets through the batch verifier"
+)
+
+DEVICE_BATCH_INVOCATIONS = counter(
+    "beacon_device_batch_invocations_total", "batched device program invocations"
+)
+
+# Device batch stages (reference metrics.rs:247-271 batch setup / verify
+# timers): host marshalling vs dispatch vs device execution vs verdict.
+DEVICE_BATCH_SETUP_SECONDS = histogram(
+    "device_batch_setup_seconds",
+    "host-side batch marshalling (validation, hash-to-curve, limb packing)",
+)
+
+DEVICE_DISPATCH_SECONDS = histogram(
+    "device_batch_dispatch_seconds",
+    "async program dispatch (returns before execution completes)",
+)
+
+DEVICE_BLOCK_UNTIL_READY_SECONDS = histogram(
+    "device_batch_block_until_ready_seconds",
+    "wait for device results (the actual device execution window)",
+)
+
+DEVICE_VERDICT_SECONDS = histogram(
+    "device_batch_verdict_seconds",
+    "host-side verdict (W-at-infinity check + final-exp-is-one)",
+)
+
+# Device-layer telemetry (device_telemetry.py): first-dispatch mirror,
+# padding-waste accounting, host-fallback tracking, device memory gauges.
+DEVICE_PROGRAM_COMPILES = counter(
+    "device_program_compiles_total",
+    "first-seen (op, bucket shape) jit compilations, by op and shape",
+)
+
+DEVICE_PROGRAM_COMPILE_SECONDS = histogram(
+    "device_program_compile_seconds",
+    "trace+compile time of a first-seen bucket shape (the compiling dispatch)",
+)
+
+OCCUPANCY_BUCKETS = (0.0625, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
+
+DEVICE_BATCH_OCCUPANCY_RATIO = histogram(
+    "device_batch_occupancy_ratio",
+    "live/padded occupancy per device batch, by op and axis (sets|keys)",
+    buckets=OCCUPANCY_BUCKETS,
+)
+
+DEVICE_BATCH_WASTED_LANES = counter(
+    "device_batch_wasted_lanes_total",
+    "padding lanes dispatched with no live work, by op and axis (sets|keys)",
+)
+
+DEVICE_HOST_FALLBACK = counter(
+    "device_batch_host_fallback_total",
+    "device batches re-verified entirely on the host, by reason",
+)
+
+DEVICE_AOT_WARMUP = counter(
+    "device_aot_warmup_total",
+    "ahead-of-time bucket compilations at startup, by op, shape and outcome (hit|miss)",
+)
+
+DEVICE_AOT_WARMUP_SECONDS = histogram(
+    "device_aot_warmup_seconds",
+    "wall time of one ahead-of-time bucket warmup (lower+compile), by op",
+)
+
+DEVICE_MEMORY_BYTES = gauge(
+    "device_memory_bytes",
+    "device memory_stats() figures sampled on scrape, by device and stat",
+)
+
+# Device-execution supervisor (device_supervisor.py).
+DEVICE_BREAKER_STATE = gauge(
+    "device_breaker_state",
+    "per-op circuit breaker state (0=closed, 1=open, 2=half_open), by op",
+)
+
+DEVICE_BREAKER_TRANSITIONS = counter(
+    "device_breaker_transitions_total",
+    "circuit breaker state transitions, by op and destination state",
+)
+
+DEVICE_DISPATCH_TIMEOUTS = counter(
+    "device_dispatch_timeouts_total",
+    "device dispatches abandoned by the watchdog deadline, by op",
+)
+
+DEVICE_SPLIT_RETRIES = counter(
+    "device_batch_split_retries_total",
+    "split-batch retries after a transient device error, by op and outcome",
+)
+
+# Async device pipeline (device_pipeline.py).
+DEVICE_PIPELINE_PENDING_SETS = gauge(
+    "device_pipeline_pending_sets",
+    "signature sets queued in the device pipeline awaiting coalescing, by op",
+)
+
+DEVICE_PIPELINE_DEPTH = gauge(
+    "device_pipeline_depth",
+    "groups queued or in flight in the device pipeline, by op",
+)
+
+DEVICE_PIPELINE_BATCH_FILL_RATIO = histogram(
+    "device_pipeline_batch_fill_ratio",
+    "live sets dispatched / target batch size per coalesced pipeline batch, by op",
+    buckets=(0.0625, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0),
+)
+
+DEVICE_PIPELINE_LINGER_SECONDS = histogram(
+    "device_pipeline_linger_seconds",
+    "oldest-submit to batch-take wait per coalesced pipeline batch, by op",
+)
+
+DEVICE_PIPELINE_WAIT_SECONDS = histogram(
+    "device_pipeline_wait_seconds",
+    "submit to future-resolution wait per pipeline group, by op",
+)
+
+DEVICE_PIPELINE_BATCHES = counter(
+    "device_pipeline_batches_total",
+    "coalesced batches executed by the device pipeline, by op",
+)
+
+DEVICE_PIPELINE_GROUPS = counter(
+    "device_pipeline_groups_total",
+    "signature-set groups submitted to the device pipeline, by op and work kind",
+)

@@ -18,7 +18,9 @@ the same int32 pipeline as the JAX package's ``ops/fq.py:_fq_mul_int32``, so
 kernel, plain version and JAX package agree limb for limb.
 
 The library is built at first use into ``lighthouse_tpu_torch/build/`` (a
-file name keyed by the source's hash), or ahead of time by :func:`build`;
+file name keyed by the source's hash; through ``ops/compile_cache.py``,
+which notes the build in the device-telemetry mirror), or ahead of time by
+:func:`build`;
 :func:`build` and :func:`load_library` also take another source with the
 same C entry points (``lighthouse_tpu_torch/bench_kernels.py`` times an
 earlier version of the kernels that way).
@@ -193,7 +195,9 @@ def library(device: torch.device):
     global _lib
     with _load_lock:
         if _lib is None:
-            _lib = load_library(build().path)
+            from .compile_cache import build_kernels
+
+            _lib = load_library(build_kernels().path)
         index = device.index if device.index is not None else torch.cuda.current_device()
         if index not in _ready_devices:
             init_device(_lib, index)

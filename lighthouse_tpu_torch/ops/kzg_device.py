@@ -18,7 +18,11 @@ the host golden model this program must agree with):
 
     e(sum_i [r_i] P_i, [tau]G2) * e(-(sum_i [r_i](C_i - [y_i]G1 + [z_i]P_i)), G2) == 1
 
-No supervisor, mesh or fallback here: a failure on the card raises.
+Supervised like the BLS entry point (``device_supervisor.run("kzg_batch",
+...)``): the marshalling, dispatch and the ``fe == 1`` check run on the
+watchdog worker, and a hung or failing device resolves through the
+caller's ``host_fn`` (``Kzg``'s host MSM path).  ``kzg_batch`` reduces over
+the blob axis, so it never splits.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch
 from ..crypto.bls.params import R
 from . import ec, pairing, tower
 from .fq import const
-from .verify import resolve_device
+from .verify import on_device, resolve_device, wait_for
 
 #: Blob-axis buckets (the JAX package's vocabulary); larger batches raise.
 N_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
@@ -129,27 +133,89 @@ def batch_from_numpy(host_batch: tuple, device) -> tuple:
 def verify_kzg_proof_batch_device(
     c_pts: Sequence, p_pts: Sequence, r_powers: Sequence[int],
     zs: Sequence[int], ys: Sequence[int], g2_tau, device="cuda",
+    host_fn=None,
 ) -> bool:
-    """Run the device program on parsed host points and scalars.
+    """Run the device program on parsed host points and scalars, under the
+    device supervisor.
 
     ``c_pts``/``p_pts``: host affine G1 (Fq pairs, or None for infinity);
     ``g2_tau``: host Fq2 affine point ([tau]G2 from the trusted setup).
     ``device`` defaults to ``"cuda"``; ``"cpu"`` runs the kernels' plain
-    versions.  Asking for CUDA where there is none raises."""
+    versions.  Asking for CUDA where there is none raises.  On the card a
+    hung or failing device leg (or an OPEN ``kzg_batch`` breaker) raises
+    into the caller; off the card it resolves through ``host_fn``, the
+    golden model, where one is given (with ``host_fn=None`` failures
+    propagate there too)."""
+    from .. import device_supervisor, device_telemetry, fault_injection
+
     device = resolve_device(device)
     n = len(c_pts)
     if not n == len(p_pts) == len(r_powers) == len(zs) == len(ys):
         raise ValueError("kzg batch: argument lengths differ")
+    nb = _bucket(max(1, n))
+    holder: dict = {}
+
+    def device_fn() -> bool:
+        stages_local: dict = {}
+        state_local: dict = {}
+        try:
+            # Marshalling and upload happen INSIDE the supervised leg: an
+            # OPEN breaker must not touch the device at all, and an upload
+            # raising on a dead device resolves through the host fallback
+            # like any other device failure.
+            with on_device(device):
+                t0 = time.perf_counter()
+                batch = batch_from_numpy(
+                    _build_kzg_batch(c_pts, p_pts, r_powers, zs, ys, g2_tau, nb), device)
+                stages_local["setup"] = time.perf_counter() - t0
+                if fault_injection.ACTIVE:
+                    if not device_telemetry.COMPILE_CACHE.seen("kzg_batch", (nb,)):
+                        fault_injection.check("device.compile", op="kzg_batch")
+                    fault_injection.check("device.dispatch", op="kzg_batch")
+                t0 = time.perf_counter()
+                fe = _device_kzg_batch(*batch)
+                stages_local["dispatch"] = time.perf_counter() - t0
+                if device_telemetry.note_dispatch("kzg_batch", (nb,), stages_local["dispatch"]):
+                    state_local["compiled"] = True
+                t0 = time.perf_counter()
+                wait_for(device)
+                stages_local["wait"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ok = pairing.fe_is_one(fe)
+            stages_local["verdict"] = time.perf_counter() - t0
+            return ok
+        finally:
+            holder["stages"] = stages_local
+            holder["state"] = state_local
+
     LAST_STAGES.clear()
-    t0 = time.perf_counter()
-    host_batch = _build_kzg_batch(c_pts, p_pts, r_powers, zs, ys, g2_tau, _bucket(max(1, n)))
-    t1 = time.perf_counter()
-    LAST_STAGES["build"] = t1 - t0
-    fe = _device_kzg_batch(*batch_from_numpy(host_batch, device))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t2 = time.perf_counter()
-    LAST_STAGES["device"] = t2 - t1
-    ok = pairing.fe_is_one(fe)
-    LAST_STAGES["verdict"] = time.perf_counter() - t2
-    return ok
+    info: dict = {}
+    ok = device_supervisor.run("kzg_batch", device_fn, host_fn=host_fn, info=info,
+                               host_on_failure=device.type != "cuda")
+    reason = info.get("fallback_reason")
+    stages: dict = {}
+    state: dict = {}
+    if reason != "dispatch_timeout":
+        stages = holder.get("stages") or {}
+        state = holder.get("state") or {}
+    host_fallback = info.get("route") == "host"
+    if not host_fallback:
+        LAST_STAGES.update(
+            build=stages["setup"],
+            device=stages["dispatch"] + stages["wait"],
+            verdict=stages["verdict"],
+        )
+    device_telemetry.record_batch(
+        op="kzg_batch",
+        shape=(nb,),
+        n_live=n,
+        stages=stages or None,
+        verdict=bool(ok),
+        host_fallback=host_fallback,
+        fallback_reason=reason,
+        trace_id=device_telemetry.active_trace_id(),
+        compiled=state.get("compiled", False),
+        breaker_state=info.get("breaker_state"),
+        dispatched=reason != "breaker_open",
+    )
+    return bool(ok)

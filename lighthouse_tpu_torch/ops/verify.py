@@ -22,12 +22,26 @@ Edge cases (parity with the host backend):
  - aggregate pubkey at infinity -> its pair contributes only F_{p^6} factors,
    which the final exponentiation kills (no special-casing needed)
  - weighted-signature-sum W at infinity (adversarially unreachable): detected
-   from the returned W_z limbs and decided on the host golden model — part of
-   the verification algorithm, counted in ``COUNTERS["w_z_rechecks"]``.
+   from the returned W_z limbs; the device leg disclaims its verdict with
+   ``device_supervisor.HostFallback("w_at_infinity")`` and the host golden
+   model decides, counted in
+   ``device_batch_host_fallback_total{reason="w_at_infinity"}``.
+
+Execution is supervised (``device_supervisor.py``), in the reference's
+stages: :func:`build_device_batch` (host marshalling and upload) and
+:func:`execute_built_batch` (dispatch, wait and verdict on the
+supervisor's watchdog worker, one split-batch retry, the per-op circuit
+breaker, a flight-recorder entry).  On the card a batch whose device leg
+fails (and its retry too), hangs past the deadline or meets an OPEN
+breaker raises into the caller; with ``device="cpu"`` it resolves on the
+host golden model, as in the reference.
+``verify_signature_sets_device`` runs the two back to back; the async
+pipeline (``device_pipeline.py``) runs them on its own two threads.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional, Sequence
 
@@ -52,14 +66,13 @@ N_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 K_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 MAX_SETS_PER_DISPATCH = N_BUCKETS[-1]
 
-#: ``w_z_rechecks``: batches whose W was at infinity and were decided on the
-#: host golden model.
-COUNTERS = {"w_z_rechecks": 0}
-
 #: Seconds of each stage of the last batch through
-#: :func:`verify_signature_sets_device`: ``build`` (weights, validation,
-#: hash-to-curve, limb packing), ``device`` (upload + device program, to the
-#: end of its work on the card), ``verdict`` (the host check of the result).
+#: :func:`execute_built_batch` that the device decided: ``build`` (weights,
+#: validation, hash-to-curve, limb packing, upload), ``device`` (the device
+#: program, to the end of its work on the card), ``verdict`` (the host
+#: check of the result).  Written by the calling thread; the flight record
+#: (``device_telemetry``) is the per-batch source when batches run
+#: concurrently.
 LAST_STAGES: dict = {}
 
 
@@ -71,6 +84,29 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+@contextlib.contextmanager
+def on_device(device: torch.device):
+    """Make ``device`` the thread's current card for the block (a no-op on
+    the CPU): the supervisor's worker threads start on card 0."""
+    if device.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(device):
+        yield
+
+
+def wait_for(device: torch.device) -> None:
+    """Block until the work issued so far on ``device``'s current stream is
+    done: an event recorded after it, then waited on (the counterpart of
+    jax's ``block_until_ready``).  A no-op on the CPU."""
+    if device.type != "cuda":
+        return
+    with torch.cuda.device(device):
+        event = torch.cuda.Event()
+        event.record()
+        event.synchronize()
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -191,42 +227,251 @@ def batch_from_numpy(host_batch: tuple, device) -> tuple:
     )
 
 
+def _device_batch_verdict(built: "BuiltBatch", stages: dict, state: dict) -> bool:
+    """Dispatch + wait + verdict for one marshalled batch.
+
+    Runs on the supervisor's watchdog worker thread (the caller's trace
+    context is re-attached there), so a hung device strands the worker,
+    never the caller.  Raises ``device_supervisor.HostFallback(
+    "w_at_infinity")`` when the device disclaims its own Miller value — the
+    supervisor then re-verifies on the host through the one shared
+    fallback path.
+    """
+    from .. import device_supervisor, device_telemetry, fault_injection, metrics, tracing
+
+    nb, kb, device = built.nb, built.kb, built.device
+    with on_device(device):
+        if fault_injection.ACTIVE:
+            if not device_telemetry.COMPILE_CACHE.seen("bls_verify", (nb, kb)):
+                fault_injection.check("device.compile", op="bls_verify")
+            fault_injection.check("device.dispatch", op="bls_verify")
+        with tracing.span(
+            "device_batch_dispatch", hist=metrics.DEVICE_DISPATCH_SECONDS,
+            n_bucket=nb, k_bucket=kb,
+        ) as sp_dispatch:
+            fe, w_z = _device_verify(*built.batch)
+        # The first dispatch of a shape (and of the process: the kernel
+        # build) pays its one-time costs inside the call itself.
+        if device_telemetry.note_dispatch("bls_verify", (nb, kb), sp_dispatch.duration):
+            sp_dispatch.fields["compiled"] = True
+            state["compiled"] = True
+        stages["dispatch"] = sp_dispatch.duration
+        with tracing.span(
+            "device_batch_wait", hist=metrics.DEVICE_BLOCK_UNTIL_READY_SECONDS,
+            n_bucket=nb, k_bucket=kb,
+        ) as sp_wait:
+            wait_for(device)
+        stages["wait"] = sp_wait.duration
+        with tracing.span(
+            "device_batch_verdict", hist=metrics.DEVICE_VERDICT_SECONDS
+        ) as sp_verdict:
+            try:
+                if tower.fq2_from_limbs(w_z).is_zero():
+                    # W at infinity: the Miller value is poisoned; decide on
+                    # the host — via the supervisor, so every fallback
+                    # reason shares one mechanism and one counter.
+                    sp_verdict.fields["host_fallback"] = True
+                    raise device_supervisor.HostFallback("w_at_infinity")
+                ok = pairing.fe_is_one(fe)
+                if (
+                    fault_injection.ACTIVE
+                    and fault_injection.fire("device.result", op="bls_verify")
+                    == "corrupt"
+                ):
+                    tracing.annotate(corrupted_verdict=True)
+                    ok = False
+            finally:
+                stages["verdict"] = sp_verdict.duration
+    return ok
+
+
+def _device_verify_subset(subset, seed: Optional[bytes], device: torch.device) -> bool:
+    """One half of a split-batch retry: the raw device path at the half's
+    own bucket shape.  No stage spans (the parent batch's flight record
+    carries the split outcome); the dispatch still registers in the
+    first-dispatch mirror — a half bucket can be a first-seen shape."""
+    from .. import device_supervisor, device_telemetry, fault_injection
+
+    host_batch = build_batch(subset, _rand_scalars(len(subset), seed))
+    if host_batch is None:
+        return False
+    nb, kb = host_batch[0][0].shape[:2]
+    with on_device(device):
+        batch = batch_from_numpy(host_batch, device)
+        if fault_injection.ACTIVE:
+            fault_injection.check("device.dispatch", op="bls_verify")
+        t0 = time.perf_counter()
+        fe, w_z = _device_verify(*batch)
+        device_telemetry.note_dispatch("bls_verify", (nb, kb), time.perf_counter() - t0)
+        wait_for(device)
+    if tower.fq2_from_limbs(w_z).is_zero():
+        raise device_supervisor.HostFallback("w_at_infinity")
+    return pairing.fe_is_one(fe)
+
+
+class BuiltBatch:
+    """A marshalled batch between the build and dispatch stages.
+
+    The two stages are separately callable so the async device pipeline
+    (``device_pipeline.py``) can overlap the host build of batch N+1 (its
+    builder thread calls :func:`build_device_batch`) with the device stage
+    of batch N (its executor thread calls :func:`execute_built_batch`).
+    ``verify_signature_sets_device`` is the two stages run back to back —
+    the direct, non-pipelined path."""
+
+    __slots__ = ("sets", "seed", "device", "batch", "nb", "kb", "live_keys", "setup_s")
+
+    def __init__(self, sets, seed, device: torch.device, host_batch, setup_s: float):
+        self.sets = sets
+        self.seed = seed
+        self.device = device
+        with on_device(device):
+            self.batch = batch_from_numpy(host_batch, device)
+        self.nb, self.kb = (int(x) for x in host_batch[0][0].shape[:2])
+        self.live_keys = sum(len(s.signing_keys) for s in sets)
+        self.setup_s = setup_s
+
+
+def build_device_batch(sets, seed: Optional[bytes] = None,
+                       device="cuda") -> Optional[BuiltBatch]:
+    """Stage 1 — host-side marshalling (validation, hash-to-curve, limb
+    packing) into padded arrays, uploaded to ``device``.  Returns None when
+    host-side validation already decides False (bad/missing signature,
+    empty key list).  Safe to call from any thread; no device work happens
+    here beyond the uploads."""
+    from .. import metrics, tracing
+
+    device = resolve_device(device)
+    sets = list(sets)
+    if not sets or len(sets) > MAX_SETS_PER_DISPATCH:
+        raise ValueError(
+            f"build_device_batch takes 1..{MAX_SETS_PER_DISPATCH} sets, "
+            f"got {len(sets)}"
+        )
+    with tracing.span(
+        "device_batch_setup", hist=metrics.DEVICE_BATCH_SETUP_SECONDS,
+        n_sets=len(sets),
+    ) as sp_setup:
+        host_batch = build_batch(sets, _rand_scalars(len(sets), seed))
+        if host_batch is None:
+            return None
+        # The upload is part of the build stage, so the pipeline overlaps
+        # it with the in-flight batch like the rest of setup.
+        built = BuiltBatch(sets, seed, device, host_batch, 0.0)
+    built.setup_s = sp_setup.duration
+    return built
+
+
+def execute_built_batch(built: BuiltBatch, *, n_groups: int = 1,
+                        work_mix: Optional[dict] = None) -> bool:
+    """Stage 2 — supervised dispatch + wait + verdict for a built batch.
+
+    Runs under the device supervisor (watchdog, one split-batch retry, the
+    per-op circuit breaker) and records the batch in the flight recorder.
+    On the card a device failure raises (``DispatchTimeout``,
+    ``RequeueWork`` for an OPEN breaker, else the device's own error);
+    on the CPU it resolves on the host golden model.  ``n_groups``/``work_mix`` attribute
+    a pipeline-coalesced batch's composition in the flight record."""
+    from .. import device_supervisor, device_telemetry, tracing
+
+    sets, seed, device = built.sets, built.seed, built.device
+    LAST_STAGES.clear()
+    stages = {"setup": built.setup_s}
+    # The watchdog worker writes stage durations into dicts IT owns and
+    # publishes them via this one-slot holder when the device leg finishes.
+    # The caller merges only when the worker completed (never on a dispatch
+    # timeout, where the abandoned worker may still be writing).
+    holder: dict = {}
+
+    def device_fn():
+        stages_local: dict = {}
+        state_local = {"compiled": False}
+        try:
+            return _device_batch_verdict(built, stages_local, state_local)
+        finally:
+            holder["stages"] = stages_local
+            holder["state"] = state_local
+
+    def split_fn():
+        mid = len(sets) // 2
+        if mid == 0:
+            raise ValueError("single-set batch cannot split")
+        return [
+            lambda: _device_verify_subset(sets[:mid], seed, device),
+            lambda: _device_verify_subset(sets[mid:], seed, device),
+        ]
+
+    info: dict = {}
+    ok = device_supervisor.run(
+        "bls_verify",
+        device_fn,
+        host_fn=lambda: host.verify_signature_sets(sets, seed=seed),
+        split_fn=split_fn,
+        combine_fn=all,
+        info=info,
+        host_on_failure=device.type != "cuda",
+    )
+    host_fallback = info.get("route") == "host"
+    reason = info.get("fallback_reason")
+    compiled = False
+    if reason != "dispatch_timeout":
+        stages.update(holder.get("stages") or {})
+        compiled = (holder.get("state") or {}).get("compiled", False)
+    if not host_fallback and "split_retry" not in info:
+        LAST_STAGES.update(
+            build=stages["setup"],
+            device=stages.get("dispatch", 0.0) + stages.get("wait", 0.0),
+            verdict=stages.get("verdict", 0.0),
+        )
+    rec = device_telemetry.record_batch(
+        op="bls_verify",
+        shape=(built.nb, built.kb),
+        n_live=len(sets),
+        live_keys=built.live_keys,
+        n_groups=n_groups,
+        work_mix=work_mix,
+        stages=stages,
+        verdict=ok,
+        host_fallback=host_fallback,
+        fallback_reason=reason,
+        trace_id=device_telemetry.active_trace_id(),
+        compiled=compiled,
+        breaker_state=info.get("breaker_state"),
+        # breaker-OPEN batches never reached the device: keep them out of
+        # the occupancy/wasted-lane tuning data.
+        dispatched=reason != "breaker_open",
+    )
+    # Reverse link: the enclosing span (device_verify when routed through
+    # the backend) carries the flight-recorder seq of this batch.
+    tracing.annotate(flight_seq=rec["seq"])
+    if host_fallback:
+        tracing.annotate(host_fallback=True)
+    return ok
+
+
 def verify_signature_sets_device(sets, seed: Optional[bytes] = None,
                                  device="cuda") -> bool:
     """Batch verifier running the device program on ``device`` (default
-    ``"cuda"``; ``"cpu"`` runs the kernels' plain versions).  Asking for
-    CUDA where there is none raises."""
+    ``"cuda"``; ``"cpu"`` runs the kernels' plain versions), the build and
+    dispatch stages back to back on the calling thread, supervised.
+    Asking for CUDA where there is none raises (a caller's error, not a
+    device failure)."""
     device = resolve_device(device)
     sets = list(sets)
     if not sets:
         return False
     if len(sets) > MAX_SETS_PER_DISPATCH:
-        # Oversized batches chunk through the top bucket; verdicts AND
-        # together.  Each chunk is its own batch-verification equation, so
-        # the shared seed is harmless.
+        # Oversized batches chunk through the top bucket: each chunk is an
+        # independently supervised dispatch, verdicts AND together.  Each
+        # chunk is its own batch-verification equation, so the shared seed
+        # is harmless.
         return all(
             verify_signature_sets_device(
                 sets[i:i + MAX_SETS_PER_DISPATCH], seed=seed, device=device
             )
             for i in range(0, len(sets), MAX_SETS_PER_DISPATCH)
         )
-    LAST_STAGES.clear()
-    t0 = time.perf_counter()
-    host_batch = build_batch(sets, _rand_scalars(len(sets), seed))
-    t1 = time.perf_counter()
-    LAST_STAGES["build"] = t1 - t0
-    if host_batch is None:
+    built = build_device_batch(sets, seed=seed, device=device)
+    if built is None:
         return False
-    fe, w_z = _device_verify(*batch_from_numpy(host_batch, device))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t2 = time.perf_counter()
-    LAST_STAGES["device"] = t2 - t1
-    if tower.fq2_from_limbs(w_z).is_zero():
-        # W at infinity: the Miller value is poisoned; decide on the host.
-        COUNTERS["w_z_rechecks"] += 1
-        ok = host.verify_signature_sets(sets, seed=seed)
-    else:
-        ok = pairing.fe_is_one(fe)
-    LAST_STAGES["verdict"] = time.perf_counter() - t2
-    return ok
+    return execute_built_batch(built)

@@ -7,7 +7,8 @@ from the same secret scalars, once with each package's API.  A fixed-seed
 1-set batch goes through ``lighthouse_tpu.ops.verify._device_verify`` and the
 port's device program from the same host arrays, and the two ``fe`` outputs
 must be equal limb for limb.  Also: ``build_batch`` array equality,
-``batch_from_numpy``, the W-at-infinity re-check, the default device, and
+``batch_from_numpy``, the W-at-infinity re-check (one host fallback,
+counted under ``reason="w_at_infinity"``), the default device, and
 import isolation from ``jax`` / ``lighthouse_tpu``.
 """
 
@@ -171,9 +172,16 @@ def test_w_at_infinity_is_decided_on_host():
     pk = [papi.SecretKey(99).public_key()]
     sets = [papi.SignatureSet(papi.Signature(base), b"m1", pk),
             papi.SignatureSet(papi.Signature(other), b"m2", pk)]
-    before = pverify.COUNTERS["w_z_rechecks"]
+    from lighthouse_tpu_torch import device_supervisor, device_telemetry, metrics
+
+    before = metrics.DEVICE_HOST_FALLBACK.get(reason="w_at_infinity")
     assert pverify.verify_signature_sets_device(sets, seed=SEED, device="cpu") is False
-    assert pverify.COUNTERS["w_z_rechecks"] == before + 1
+    assert metrics.DEVICE_HOST_FALLBACK.get(reason="w_at_infinity") == before + 1
+    # a disclaimer, not a device failure: it counts as a breaker success
+    snap = device_supervisor.SUPERVISOR.breaker("bls_verify").snapshot()
+    assert snap["consecutive_failures"] == 0
+    rec = device_telemetry.FLIGHT_RECORDER.recent(op="bls_verify")[0]
+    assert rec["host_fallback"] is True and rec["fallback_reason"] == "w_at_infinity"
 
 
 def test_default_device_is_cuda():
