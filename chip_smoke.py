@@ -8,11 +8,18 @@ Run from the repository root with no arguments:
 Phases, each of which raises on a failed check:
 
 1. card    — the card's name and power limit, as nvidia-smi reports them;
-2. build   — nvcc builds csrc/fq_mul.cu for sm_90a (time and -Xptxas -v);
+2. build   — nvcc builds csrc/fq_mul.cu and csrc/sha256.cu for sm_90a, one
+             process per source started together (times and -Xptxas -v);
 3. kernels — both Fq kernels against their plain PyTorch versions on the
              card, limb for limb, on canonical, redundant, negative and edge
              inputs at n in KERNEL_NS (block edges of both kernels), with values checked
              against Python integers on a sample;
+   hash-kernels — both SHA-256 kernels against their plain versions on the
+             card, word for word: sha256_pairs at n in PAIR_NS (up to the
+             top bucket, 262,144 blocks, and the edges of its CUDA blocks),
+             tree_hash_subtrees at m in SUBTREE_MS (up to 32,768 subtrees,
+             a 2^20-leaf level); digests also against hashlib on every row
+             up to 1,000 and on 1,000 seeded rows above that;
 4. verify  — ``crypto.bls.api.verify_signature_sets`` through the torch
              backend (default device, supervised) at 128 sets x 32 keys (valid -> True,
              one tampered set -> False) and 64 sets x 1 key (-> True); the
@@ -41,7 +48,26 @@ Phases, each of which raises on a failed check:
              batch), for the wall time beside; then a 6-blob
              ``Kzg.verify_blob_kzg_proof_batch`` under the supervisor with
              the same checks;
-9. faults  — the supervisor's routes on the card at small size, each with
+9. hash-runtime — both pipelines on the card at once: eight threads each
+             bring a 2^18-leaf ``ops.tree_hash.DeviceLeafTree`` to a 1 %-dirty
+             version (dirty-path pair batches through the hash pipeline)
+             while a ninth verifies one 128 x 32 group through the bls
+             pipeline; every root equals ``golden_root``, the verdict is
+             True, at least one hash batch coalesced two or more groups,
+             the shared arbiter granted both ops, no host fallback;
+10. state  — BeaconState tree hashing at mainnet width on the default
+             device: a Deneb mainnet-preset state of 2^20 validators from a
+             seed; its root with ``tree_hash.configure(enabled=True)`` and
+             ``install_device_hash()``, then after one slot's changes in two
+             steps (1 % of balances and 64 effective balances; then 16
+             appended validators); each root equal to the root the host
+             engines compute on the native kernel, both kernels launched
+             (counts set to 0 just before the first root, read after the
+             last), no host fallback, breakers closed; blocks and seconds
+             per route (card via the subtree kernel, card via the pair
+             kernel, host below a threshold, host above the top bucket),
+             host and device seconds apart;
+11. faults — the supervisor's routes on the card at small size, each with
              its exact counter deltas and none with a host fallback (on
              the card a failure raises into the caller): a
              ``device.dispatch`` error on a 4-set batch (split retry, both
@@ -50,19 +76,28 @@ Phases, each of which raises on a failed check:
              threshold (each raised; OPEN, then ``RequeueWork`` raised
              without a launch, then HALF_OPEN probes on the card back to
              CLOSED), a ``corrupt`` verdict, and a ``kzg_batch`` dispatch
-             error on 2 blobs (no split, the error raised);
-10. timing — each kernel and its plain version at the largest shape the
+             error on 2 blobs (no split, the error raised); on the hashing
+             ops, a ``device.dispatch`` error on sha256_pairs and on
+             tree_hash (split retry, both halves on the card, bytes equal to
+             the golden), a hang on tree_hash (``DispatchTimeout`` raised),
+             and an error on every sha256_pairs dispatch under the hash
+             pipeline (both groups' futures raise, nothing re-hashed on the
+             host);
+12. timing — each kernel and its plain version at the largest shape the
              128 x 32 run gave it, beside the least time the card could take;
              then each kernel at every launch size of that run (the
              histogram ``cuda_fq.SIZES``), summed to its time per verify,
              beside its bound per verify, and likewise per 6-blob and per
-             192-lane KZG batch.  Kernel times are device times of
+             192-lane KZG batch; each SHA-256 kernel at its top bucket and
+             at every launch size of the [state] run, beside its bound and
+             plain version, its launches per state root, and the native
+             host pair hasher's rate.  Kernel times are device times of
              launches replayed from a CUDA graph, so the host's launch
              overhead does not count.
 
-Every verify and KZG batch of phases 4, 6 and 8 runs through the device
-supervisor (``device_supervisor.py``); the script fails if any of them
-took the host route or left a breaker open.  Per-batch stages come from
+Every verify, KZG and hash batch of phases 4, 6, 8, 9 and 10 runs through
+the device supervisor (``device_supervisor.py``); the script fails if any
+of them took the host route or left a breaker open.  Per-batch stages come from
 the flight recorder (``device_telemetry``).
 
 The line before the last is one JSON object naming every kernel with its
@@ -103,6 +138,43 @@ KZG_SETUP = Path(__file__).resolve().parent / "tests" / "vectors" / "mainnet_tru
 RUNTIME_LINGER_S = 0.1
 HANG_DEADLINE_S = 3.0
 HANG_SLEEP_S = 6.0
+#: The hashing slice's two kernels: bytes one row moves (a 64-byte block in
+#: and its 32-byte digest out; a subtree's 32 leaves in and its 31 interior
+#: nodes out) and the integer operations one row needs (csrc/sha256.cu: a
+#: round is 14 operations, a message schedule step 10, the padding block's
+#: schedule is constant: 64 x 14 + 48 x 10 + 8 + 64 x 14 + 8 a block).
+SHA_OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8 + 64 * 14 + 8
+SHA_KERNELS = {
+    "sha256_pairs": {"bytes": 64 + 32, "ops": SHA_OPS_PER_BLOCK,
+                     "replaces": "lighthouse_tpu/ops/sha256_device.py:135"},
+    "tree_hash_subtrees": {"bytes": 32 * 32 + 31 * 32, "ops": 31 * SHA_OPS_PER_BLOCK,
+                           "replaces": "lighthouse_tpu/ops/tree_hash.py:176"},
+}
+SHA_SOURCE = "lighthouse_tpu_torch/csrc/sha256.cu"
+#: The card's 32-bit integer issue rate: 64 operations per clock per SM.
+INT_OPS_PER_CLK_PER_SM = 64
+SMS = 132
+#: [hash-kernels] sizes: the pair kernel's block counts (its top bucket and
+#: the edges of its 256-thread CUDA blocks) and the subtree kernel's subtree
+#: counts (its top bucket, a 2^20-leaf level, and the edges of its
+#: 8-subtree CUDA blocks); hashlib checks every row up to HASHLIB_ALL rows
+#: and HASHLIB_ALL seeded rows above that.
+PAIR_NS = (1, 31, 255, 256, 257, 511, 512, 513, 1000, 65536, 262144)
+SUBTREE_MS = (1, 3, 7, 8, 9, 15, 16, 17, 128, 2048, 32768)
+HASHLIB_ALL = 1000
+#: [state]: validators in the registry (the order of mainnet's, the top of
+#: the JAX package's epoch buckets); the slot's changes (the JAX package's
+#: bench STATE_DIRTY_FRACTION of the balances, effective balances,
+#: deposits).
+STATE_VALIDATORS = 1 << 20
+STATE_DIRTY_FRACTION = 0.01
+STATE_EFFECTIVE = 64
+STATE_APPENDED = 16
+#: [hash-runtime]: threads updating their own tree, leaves a tree, dirty
+#: share of an update.
+HASH_THREADS = 8
+HASH_TREE_LEAVES = 1 << 18
+HASH_DIRTY_FRACTION = 0.01
 #: The supervisor's counters whose deltas each fault case asserts.
 SUPERVISOR_COUNTERS = {
     "host_fallbacks": "DEVICE_HOST_FALLBACK",
@@ -169,14 +241,19 @@ def sample_rows(n: int) -> list:
 # ------------------------------------------------------------------ phases
 
 
-def phase_build(cuda_fq) -> dict:
-    from lighthouse_tpu_torch.ops import compile_cache
+def phase_build() -> dict:
+    from lighthouse_tpu_torch.ops import compile_cache, cuda_build
 
-    res = compile_cache.build_kernels(force=True)
-    log(f"[build] nvcc {' '.join(cuda_fq.NVCC_FLAGS)}: {res.seconds:.1f} s -> {res.path.name}")
-    for line in cuda_fq.ptxas_summary(res.log):
-        log(f"[build] {line}")
-    return {"seconds": res.seconds}
+    t0 = time.perf_counter()
+    results = compile_cache.build_kernels(force=True)
+    wall = time.perf_counter() - t0
+    for name, res in results.items():
+        log(f"[build] {name}: nvcc {' '.join(cuda_build.NVCC_FLAGS)}: {res.seconds:.1f} s -> "
+            f"{res.path.name}")
+        for line in cuda_build.ptxas_summary(res.log):
+            log(f"[build] {name}: {line}")
+    log(f"[build] {len(results)} sources built at once in {wall:.1f} s")
+    return {"seconds": {name: res.seconds for name, res in results.items()}, "wall_s": wall}
 
 
 def phase_kernels(cuda_fq) -> dict:
@@ -252,7 +329,7 @@ def assert_on_device(label: str, mark: dict) -> list:
     if metrics.DEVICE_HOST_FALLBACK.snapshot() != mark["fallback"]:
         raise AssertionError(f"{label}: host-fallback counter rose: "
                              f"{metrics.DEVICE_HOST_FALLBACK.snapshot()}")
-    for op in ("bls_verify", "kzg_batch"):
+    for op in ("bls_verify", "kzg_batch", "sha256_pairs", "tree_hash"):
         if device_supervisor.breaker_state(op) != "closed":
             raise AssertionError(f"{label}: {op} breaker is {device_supervisor.breaker_state(op)}")
     return records
@@ -616,6 +693,266 @@ def phase_runtime(cuda_fq, card: str, kzg, blobs, commitments, proofs,
             "kzg_s": kzg_s}
 
 
+def sha_words(rng, shape) -> "np.ndarray":
+    import numpy as np
+
+    return rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+
+
+def phase_hash_kernels() -> dict:
+    """Both SHA-256 kernels against their plain versions on the card, word
+    for word, and against hashlib (see the module docstring)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from lighthouse_tpu_torch.ops import cuda_sha, tree_hash
+
+    rng = np.random.default_rng(0x5A256)
+    max_err = {"sha256_pairs": 0, "tree_hash_subtrees": 0}
+
+    def checked_rows(n: int) -> list:
+        return (list(range(n)) if n <= HASHLIB_ALL
+                else sorted(rng.choice(n, HASHLIB_ALL, replace=False).tolist()))
+
+    for n in PAIR_NS:
+        words = sha_words(rng, (n, 16))
+        x = torch.from_numpy(words.view(np.int32)).cuda()
+        k, p = cuda_sha.sha256_pairs(x), cuda_sha.sha256_pairs_plain(x)
+        torch.cuda.synchronize()
+        err = int((k.long() - p.long()).abs().max())
+        max_err["sha256_pairs"] = max(max_err["sha256_pairs"], err)
+        if not torch.equal(k, p):
+            raise AssertionError(f"sha256_pairs n={n}: kernel != plain (max err {err})")
+        digests = k.cpu().numpy().view(np.uint32).astype(">u4")
+        blocks = words.astype(">u4")
+        rows = checked_rows(n)
+        for i in rows:
+            if hashlib.sha256(blocks[i].tobytes()).digest() != digests[i].tobytes():
+                raise AssertionError(f"sha256_pairs n={n} row {i}: digest != hashlib")
+        log(f"[hash-kernels] sha256_pairs n={n}: kernel equals its plain version; "
+            f"{len(rows)} rows equal hashlib")
+    for m in SUBTREE_MS:
+        leaves = sha_words(rng, (m, 32, 8))
+        x = torch.from_numpy(leaves.view(np.int32)).cuda()
+        k, p = cuda_sha.tree_hash_subtrees(x), cuda_sha.tree_hash_subtrees_plain(x)
+        torch.cuda.synchronize()
+        for d, (kk, pp) in enumerate(zip(k, p)):
+            err = int((kk.long() - pp.long()).abs().max())
+            max_err["tree_hash_subtrees"] = max(max_err["tree_hash_subtrees"], err)
+            if not torch.equal(kk, pp):
+                raise AssertionError(f"tree_hash_subtrees m={m} level {d}: kernel != plain")
+        rows = checked_rows(m)
+        golden = tree_hash._host_subtree_levels(leaves[rows])
+        for d, (kk, g) in enumerate(zip(k, golden)):
+            if not np.array_equal(kk.cpu().numpy().view(np.uint32)[rows], g):
+                raise AssertionError(f"tree_hash_subtrees m={m} level {d}: != hashlib")
+        log(f"[hash-kernels] tree_hash_subtrees m={m}: all five levels equal the plain "
+            f"version; {len(rows)} subtrees equal hashlib")
+    return max_err
+
+
+def hash_records_since(mark: dict) -> list:
+    """The flight records of the two hashing ops since ``mark``."""
+    from lighthouse_tpu_torch import device_telemetry
+
+    rec = device_telemetry.FLIGHT_RECORDER
+    return [r for r in rec.recent(limit=rec.capacity)
+            if r["seq"] > mark["seq"] and r["op"] in ("sha256_pairs", "tree_hash")]
+
+
+def device_seconds(records: list) -> float:
+    return sum(r.get("stages_s", {}).get("dispatch", 0.0) + r.get("stages_s", {}).get("wait", 0.0)
+               for r in records)
+
+
+def phase_state(card: str, device: str = "cuda") -> dict:
+    """BeaconState tree hashing at mainnet width on the default device (see
+    the module docstring).  The launch counts are set to 0 just before the
+    device engines' first root and read just after their last."""
+    from lighthouse_tpu_torch.ops import cuda_sha
+    from lighthouse_tpu_torch.ops import sha256_device as sd
+    from lighthouse_tpu_torch.ops import tree_hash as th
+    from lighthouse_tpu_torch.workload import append_validators, mutate_balances, random_state
+
+    t0 = time.perf_counter()
+    state, types = random_state(STATE_VALIDATORS, seed=0x57A7E)
+    build_s = time.perf_counter() - t0
+    log(f"[state] Deneb mainnet-preset state with {len(state.validators)} validators built "
+        f"from a seed in {build_s:.2f} s")
+
+    host_cache = dev_cache = None
+
+    def golden(label: str) -> tuple:
+        """The root with the device engines off, on the native host kernel
+        (the state's host-engine cache, kept incremental across steps)."""
+        nonlocal host_cache, dev_cache
+        dev_cache = getattr(state, "_thc", None)
+        sd.uninstall_device_hash()
+        th.configure(enabled=False)
+        state._thc = host_cache
+        t = time.perf_counter()
+        root = state.hash_tree_root()
+        seconds = time.perf_counter() - t
+        host_cache = state._thc
+        log(f"[state] {label} golden root (host engines, native SHA) in {seconds:.2f} s")
+        return root, seconds
+
+    def device_root(label: str, mark: dict) -> dict:
+        nonlocal dev_cache
+        th.configure(enabled=True, device=device)
+        sd.install_device_hash(device=device)
+        state._thc = dev_cache
+        sd.reset_routes()
+        before = dict(cuda_sha.LAUNCHES)
+        t = time.perf_counter()
+        root = state.hash_tree_root()
+        wall = time.perf_counter() - t
+        dev_cache = state._thc
+        records = hash_records_since(mark)
+        mark["seq"] = max([mark["seq"]] + [r["seq"] for r in records])
+        dev_s = device_seconds(records)
+        launches = {k: v - before[k] for k, v in cuda_sha.LAUNCHES.items()}
+        out = {"root": root, "wall_s": wall, "device_s": dev_s, "host_s": wall - dev_s,
+               "launches": launches, "blocks": dict(sd.ROUTE_BLOCKS),
+               "route_s": {k: round(v, 4) for k, v in sd.ROUTE_SECONDS.items()},
+               "batches": len(records)}
+        log(f"[state] {label} root on {card}: {wall:.2f} s (host {wall - dev_s:.2f} s, device "
+            f"stages {dev_s:.3f} s over {len(records)} supervised batches); kernel launches "
+            f"{launches}")
+        log(f"[state] {label} blocks by route: card via the subtree kernel "
+            f"{out['blocks'].get('device_subtree', 0)}, card via the pair kernel "
+            f"{out['blocks'].get('device_pairs', 0)}, host below a threshold "
+            f"{out['blocks'].get('host_below', 0)}, host above the top bucket "
+            f"{out['blocks'].get('host_above', 0)}; seconds by route {out['route_s']}")
+        return out
+
+    golden_full, golden_full_s = golden("full")
+    start = runtime_mark()
+    mark = dict(start)
+    cuda_sha.reset_launch_counts()
+    full = device_root("full", mark)
+    if full["root"] != golden_full:
+        raise AssertionError("[state] full root on the card != host golden")
+    # One slot's changes in two steps: the balance side, then the deposits.
+    # Appended validators change the length of every registry-sized list,
+    # so each of their trees rebuilds through the subtree kernel (as in the
+    # JAX package); the dirty-path pair batches show in the balance step.
+    counts = mutate_balances(state, seed=0x5107, dirty_fraction=STATE_DIRTY_FRACTION,
+                             effective=STATE_EFFECTIVE)
+    golden_bal, golden_bal_s = golden("after the balance changes")
+    balances = device_root(f"incremental ({counts})", mark)
+    if balances["root"] != golden_bal:
+        raise AssertionError("[state] root after the balance changes != host golden")
+    counts = append_validators(state, types, seed=0xDE90, count=STATE_APPENDED)
+    golden_dep, golden_dep_s = golden("after the deposits")
+    deposits = device_root(f"incremental ({counts})", mark)
+    if deposits["root"] != golden_dep:
+        raise AssertionError("[state] root after the deposits != host golden")
+    launches = dict(cuda_sha.LAUNCHES)
+    sizes = {name: dict(c) for name, c in cuda_sha.SIZES.items()}
+    sd.uninstall_device_hash()
+    th.configure(enabled=False)
+    assert_on_device("[state]", start)
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} was not launched on the [state] path")
+    log(f"[state] {card}: full, balance-step and deposit-step roots equal the host golden; "
+        f"kernel launches {launches}, launch sizes {sizes}; no host fallback, breakers closed")
+    return {"launches": launches, "sizes": sizes, "build_s": build_s,
+            "roots": {"full": full, "balances": balances, "deposits": deposits},
+            "golden_s": {"full": golden_full_s, "balances": golden_bal_s,
+                         "deposits": golden_dep_s},
+            "validators": len(state.validators)}
+
+
+def phase_hash_runtime(card: str, device: str = "cuda") -> dict:
+    """Both pipelines on the card at once (see the module docstring)."""
+    import threading
+
+    import numpy as np
+
+    from lighthouse_tpu_torch import device_pipeline, device_telemetry
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.ops import tree_hash as th
+    from lighthouse_tpu_torch.workload import committee_sets
+
+    rng = np.random.default_rng(0x4A54)
+    t0 = time.perf_counter()
+    th.configure(enabled=True, device=device)
+    trees, targets, goldens = [], [], []
+    for _ in range(HASH_THREADS):
+        leaves = rng.integers(0, 256, (HASH_TREE_LEAVES, 32), dtype=np.uint8)
+        tree = th.DeviceLeafTree(HASH_TREE_LEAVES)
+        tree.update(leaves)
+        dirty = rng.choice(HASH_TREE_LEAVES, int(HASH_TREE_LEAVES * HASH_DIRTY_FRACTION),
+                           replace=False)
+        mutated = leaves.copy()
+        mutated[dirty] ^= 0xA5
+        trees.append(tree)
+        targets.append(mutated)
+        goldens.append(th.golden_root(mutated, HASH_TREE_LEAVES))
+    block = committee_sets(*MAIN, seed=61)
+    log(f"[hash-runtime] {HASH_THREADS} trees of {HASH_TREE_LEAVES} leaves built through the "
+        f"subtree kernel, their hashlib golden roots and one {tag(MAIN)} group prepared in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    device_pipeline.enable(device=device)
+    hash_pipe = device_pipeline.get_hash_pipeline()
+    hash_pipe.linger_s = RUNTIME_LINGER_S
+    bls_pipe = device_pipeline.get_pipeline()
+    bls_pipe.target_sets = MAIN[0]
+    bls_pipe.linger_s = RUNTIME_LINGER_S
+    roots: list = [None] * HASH_THREADS
+    verdict: list = [None]
+    start = threading.Barrier(HASH_THREADS + 1)
+
+    def update(i: int) -> None:
+        with device_pipeline.work_context("tree_hash"):
+            start.wait()
+            roots[i] = trees[i].update(targets[i])
+
+    def verify() -> None:
+        with device_pipeline.work_context("block_import"):
+            start.wait()
+            verdict[0] = api.verify_signature_sets(block, device=device)
+
+    threads = [threading.Thread(target=update, args=(i,), name=f"hash-runtime-{i}")
+               for i in range(HASH_THREADS)]
+    threads.append(threading.Thread(target=verify, name="hash-runtime-bls"))
+    mark = runtime_mark()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    snap = device_pipeline.summary()
+    device_pipeline.shutdown()
+    th.configure(enabled=False)
+    if roots != goldens:
+        raise AssertionError("[hash-runtime] a tree's root != golden_root")
+    if verdict[0] is not True:
+        raise AssertionError(f"[hash-runtime] {tag(MAIN)} verdict {verdict[0]}")
+    assert_on_device("[hash-runtime]", mark)
+    batches = snap["hash"]["recent_batches"]
+    if not any(b["n_groups"] >= 2 for b in batches):
+        raise AssertionError(f"[hash-runtime] no coalesced hash batch: {batches}")
+    grants = snap["arbiter"]["grants"]
+    if not (grants.get("sha256_pairs", 0) >= 1 and grants.get("bls_verify", 0) >= 1):
+        raise AssertionError(f"[hash-runtime] arbiter grants {grants}")
+    if any(b["group_rehashes"] or b["group_errors"] for b in batches):
+        raise AssertionError(f"[hash-runtime] groups re-hashed or failed: {batches}")
+    log(f"[hash-runtime] {card}: {HASH_THREADS} tree updates ({HASH_DIRTY_FRACTION:.0%} dirty) "
+        f"and one {tag(MAIN)} verify from {len(threads)} threads in {wall:.3f} s; every root "
+        f"equals golden_root, verdict True; hash batches {snap['hash']['batches_total']} "
+        f"(groups {[b['n_groups'] for b in batches]}, blocks {[b['n_blocks'] for b in batches]}), "
+        f"arbiter grants {grants}, waits {snap['arbiter']['wait_s']} s; host fallbacks "
+        f"{device_telemetry.host_fallback_counts()}")
+    return {"wall_s": wall, "hash": snap["hash"], "arbiter": snap["arbiter"]}
+
+
 def counter_deltas(before: dict) -> dict:
     """Every supervisor counter series that moved since ``before``, as
     ``{"metric": {labels: delta}}``."""
@@ -779,8 +1116,103 @@ def phase_faults(cuda_fq, kzg, blobs, commitments, proofs, device: str = "cuda")
                kzg_error, fi.InjectedFault, {})
     if kzg.verify_blob_kzg_proof_batch(blobs[:2], commitments[:2], proofs[:2]) is not True:
         raise AssertionError("[faults] the KZG batch after the faulted one did not verify")
-    if ds.breaker_state("bls_verify") != "closed" or ds.breaker_state("kzg_batch") != "closed":
-        raise AssertionError("[faults] a breaker is left open")
+    phase_hash_faults(device)
+    for op in ("bls_verify", "kzg_batch", "sha256_pairs", "tree_hash"):
+        if ds.breaker_state(op) != "closed":
+            raise AssertionError(f"[faults] the {op} breaker is left open")
+
+
+def phase_hash_faults(device: str = "cuda") -> None:
+    """The hashing ops' supervisor routes on the card, each with its exact
+    counter deltas, none reaching the host."""
+    import hashlib
+    import threading
+
+    import numpy as np
+
+    from lighthouse_tpu_torch import device_pipeline
+    from lighthouse_tpu_torch import device_supervisor as ds
+    from lighthouse_tpu_torch import fault_injection as fi
+    from lighthouse_tpu_torch.ops import sha256_device as sd
+    from lighthouse_tpu_torch.ops import tree_hash as th
+
+    rng = np.random.default_rng(0xFA17)
+    data = rng.integers(0, 256, 1000 * 64, dtype=np.uint8).tobytes()
+    digests = b"".join(hashlib.sha256(data[i:i + 64]).digest() for i in range(0, len(data), 64))
+    chunks = rng.integers(0, 256, (4 * th.SUBTREE_LEAVES, 32), dtype=np.uint8)
+    golden = [th._words_to_chunks(lv) for lv in th._host_subtree_levels(th._chunks_to_words(chunks))]
+    th.configure(device=device)
+    # first dispatch of each shape, unfaulted
+    if sd.hash_pairs_device(data, device=device) != digests:
+        raise AssertionError("[faults] sha256_pairs warm-up != hashlib")
+    th.hash_subtree_levels(chunks)
+
+    def levels_equal(levels) -> bool:
+        return all(np.array_equal(a, b) for a, b in zip(levels, golden))
+
+    def sha_split():
+        fi.install("device.dispatch", "error", op="sha256_pairs", first_n=1)
+        return sd.hash_pairs_device(data, device=device) == digests
+
+    fault_case("sha256_pairs device.dispatch error first_n=1 on 1,000 blocks: split retry on "
+               "the card, digests equal hashlib", sha_split, True,
+               {"split_retries": {"op=sha256_pairs,outcome=success": 1.0}})
+
+    def tree_split():
+        fi.install("device.dispatch", "error", op="tree_hash", first_n=1)
+        return levels_equal(th.hash_subtree_levels(chunks))
+
+    fault_case("tree_hash device.dispatch error first_n=1 on 4 subtrees: split retry on the "
+               "card, levels equal the golden", tree_split, True,
+               {"split_retries": {"op=tree_hash,outcome=success": 1.0}})
+
+    def tree_hang():
+        ds.SUPERVISOR.configure(deadlines={"tree_hash": HANG_DEADLINE_S})
+        fi.install("device.dispatch", "hang", op="tree_hash", sleep_s=HANG_SLEEP_S, first_n=1)
+        try:
+            return th.hash_subtree_levels(chunks)
+        finally:
+            ds.SUPERVISOR.configure(deadlines={"tree_hash": ds.DEFAULT_DEADLINES["tree_hash"]})
+            for t in threading.enumerate():
+                if t.name == "device-dispatch-tree_hash":
+                    t.join(60.0)
+
+    fault_case(f"tree_hash hang {HANG_SLEEP_S} s past a {HANG_DEADLINE_S} s deadline on 4 "
+               "subtrees: watchdog, DispatchTimeout raised to the caller", tree_hang,
+               ds.DispatchTimeout, {"dispatch_timeouts": {"op=tree_hash": 1.0}})
+
+    def pipeline_error():
+        device_pipeline.enable(device=device)
+        pipe = device_pipeline.get_hash_pipeline()
+        pipe.linger_s = RUNTIME_LINGER_S
+        host_calls = []
+        real_host = sd._host_hash_pairs
+        sd._host_hash_pairs = lambda d: host_calls.append(len(d)) or real_host(d)
+        fi.install("device.dispatch", "error", op="sha256_pairs")
+        try:
+            futures = [pipe.submit(data[:500 * 64]), pipe.submit(data[500 * 64:])]
+            raised = []
+            for fut in futures:
+                try:
+                    fut.result(timeout=120.0)
+                except fi.InjectedFault as err:
+                    raised.append(type(err).__name__)
+            batch = pipe.snapshot()["recent_batches"][-1]
+        finally:
+            sd._host_hash_pairs = real_host
+            device_pipeline.shutdown()
+        if (batch["n_groups"], batch["group_rehashes"], batch["group_errors"]) != (2, 0, 2):
+            raise AssertionError(f"[faults] hash pipeline batch {batch}")
+        if host_calls:
+            raise AssertionError(f"[faults] the host kernel re-hashed {host_calls}")
+        return raised
+
+    fault_case("sha256_pairs error on every dispatch under the hash pipeline (2 groups): the "
+               "split fails, both futures raise, nothing re-hashed on the host",
+               pipeline_error, ["InjectedFault", "InjectedFault"],
+               {"split_retries": {"op=sha256_pairs,outcome=failure": 1.0}})
+    if sd.hash_pairs_device(data, device=device) != digests:
+        raise AssertionError("[faults] the sha256_pairs batch after the faults != hashlib")
 
 
 def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, max_err: dict,
@@ -833,6 +1265,94 @@ def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, max_err: dict,
     return out
 
 
+def phase_hash_timing(state_out: dict, max_err: dict, clock_mhz: float) -> list:
+    """Each SHA-256 kernel at its top bucket and at every launch size of the
+    [state] run (device times replayed from a CUDA graph), beside its bound
+    and its plain version, and the native host kernel's rate."""
+    import numpy as np
+    import torch
+
+    from lighthouse_tpu_torch.bench_kernels import graph_ms
+    from lighthouse_tpu_torch.ops import cuda_sha
+    from lighthouse_tpu_torch.types import ssz
+
+    ops_per_ms = INT_OPS_PER_CLK_PER_SM * SMS * clock_mhz * 1e3
+    rng = np.random.default_rng(0x71)
+    inputs = {
+        "sha256_pairs": lambda n: torch.from_numpy(sha_words(rng, (n, 16)).view(np.int32)).cuda(),
+        "tree_hash_subtrees": lambda n: torch.from_numpy(
+            sha_words(rng, (n, 32, 8)).view(np.int32)).cuda(),
+    }
+    top = {"sha256_pairs": PAIR_NS[-1], "tree_hash_subtrees": SUBTREE_MS[-1]}
+
+    def bound(name: str, n: int) -> tuple:
+        spec = SHA_KERNELS[name]
+        ops_ms = n * spec["ops"] / ops_per_ms
+        bytes_ms = n * spec["bytes"] / HBM_BYTES_PER_S * 1e3
+        return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+    # The host kernel the routing thresholds weigh the card against.
+    blocks = top["sha256_pairs"]
+    data = rng.integers(0, 256, blocks * 64, dtype=np.uint8).tobytes()
+    ssz._hash_pairs(data)
+    t0 = time.perf_counter()
+    ssz._hash_pairs(data)
+    host_rate = blocks / (time.perf_counter() - t0)
+    log(f"[timing] native host pair hasher ({ssz._hash_pairs.__name__}): "
+        f"{host_rate:.0f} blocks/s on {blocks} blocks")
+
+    out = []
+    roots = len(state_out["roots"])
+    for name, spec in SHA_KERNELS.items():
+        wrapper = getattr(cuda_sha, name)
+        plain = getattr(cuda_sha, f"{name}_plain")
+        n = top[name]
+        x = inputs[name](n)
+        ms = graph_ms(lambda: wrapper(x))
+        plain_ms = graph_ms(lambda: plain(x), reps=3, rounds=2)
+        bound_ms, bound_by = bound(name, n)
+        sizes = state_out["sizes"][name]
+        by_size, plain_by_size = {}, {}
+        for m in sorted(sizes):
+            y = inputs[name](m)
+            got, want = wrapper(y), plain(y)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,))):
+                raise AssertionError(f"{name} at the [state] size {m}: kernel != plain")
+            by_size[m] = graph_ms(lambda: wrapper(y))
+            plain_by_size[m] = graph_ms(lambda: plain(y), reps=3, rounds=2)
+        state_ms = sum(by_size[m] * c for m, c in sizes.items())
+        state_plain_ms = sum(plain_by_size[m] * c for m, c in sizes.items())
+        state_bound_ms = sum(bound(name, m)[0] * c for m, c in sizes.items())
+        launches = state_out["launches"][name]
+        log(f"[timing] {name} at its top bucket n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}; SM clock {clock_mhz:.0f} MHz), "
+            f"{bound_ms / ms:.1%} of bound")
+        log(f"[timing] {name} over the [state] run's {launches} launches ({roots} roots, "
+            f"{launches / roots:.1f} a root; sizes {dict(sorted(sizes.items()))}): "
+            f"{state_ms:.4f} ms, bound {state_bound_ms:.4f} ms "
+            f"({state_bound_ms / state_ms:.1%}), plain {state_plain_ms:.4f} ms; equal to the "
+            f"plain version at each size; per size kernel "
+            f"{ {m: round(t, 4) for m, t in by_size.items()} }, plain "
+            f"{ {m: round(t, 4) for m, t in plain_by_size.items()} }")
+        out.append({
+            "name": name, "route": "cuda", "source": SHA_SOURCE,
+            "replaces": spec["replaces"],
+            "launches": launches,
+            "max_abs_err": max_err[name],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+            "rows": n, "state_ms": state_ms, "state_bound_ms": state_bound_ms,
+            "state_plain_ms": state_plain_ms,
+            "state_sizes": {str(m): c for m, c in sorted(sizes.items())},
+            "launches_per_root": launches / roots,
+            "host_blocks_per_s": host_rate,
+        })
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -849,8 +1369,9 @@ def main() -> int:
     log(f"[card] {torch.cuda.get_device_name(0)}, max SM clock {clock_mhz:.0f} MHz, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    phase_build(cuda_fq)
+    phase_build()
     max_err = phase_kernels(cuda_fq)
+    max_err.update(phase_hash_kernels())
     verify_out = phase_verify(cuda_fq)
     phase_parity()
     kzg_in = kzg_inputs()
@@ -858,10 +1379,13 @@ def main() -> int:
     kzg_out = phase_kzg(cuda_fq, *kzg_in, lanes)
     phase_kzg_parity(lanes)
     runtime_out = phase_runtime(cuda_fq, card, *kzg_in)
+    phase_hash_runtime(card)
+    state_out = phase_state(card)
     phase_faults(cuda_fq, *kzg_in)
     kernels = phase_timing(cuda_fq, verify_out, kzg_out, max_err, clock_mhz)
     for row in kernels:
         row["runtime_launches"] = runtime_out["launches"][row["name"]]
+    kernels += phase_hash_timing(state_out, max_err, clock_mhz)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -115,16 +115,17 @@ def variant_source(spec: str, out_dir: Path) -> Path:
 
 def build_all(sources: dict) -> dict:
     """nvcc on every source at once; label -> (library, seconds, ptxas lines)."""
-    from .ops import cuda_fq
+    from .ops import cuda_build, cuda_fq
 
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-        futures = {label: pool.submit(cuda_fq.build, True, path) for label, path in sources.items()}
+        futures = {label: pool.submit(cuda_build.build, path, True)
+                   for label, path in sources.items()}
         results = {label: f.result() for label, f in futures.items()}
     out = {}
     for label, res in results.items():
         lib = cuda_fq.load_library(res.path)
         cuda_fq.init_device(lib, torch.cuda.current_device())
-        out[label] = (lib, res.seconds, cuda_fq.ptxas_summary(res.log))
+        out[label] = (lib, res.seconds, cuda_build.ptxas_summary(res.log))
     return out
 
 
@@ -147,7 +148,7 @@ def verify_histogram(n_sets: int, n_keys: int) -> dict:
 def launcher(lib, name: str, n: int):
     """(launch, a, b, out): a closure that launches ``lib``'s kernel ``name``
     on n rows of fresh operands into ``out``."""
-    from .ops import cuda_fq
+    from .ops.cuda_build import check_cuda
 
     a, b = operands(name, n, seed=n)
     out = torch.empty_like(a)
@@ -155,8 +156,8 @@ def launcher(lib, name: str, n: int):
 
     def launch():
         stream = torch.cuda.current_stream().cuda_stream
-        cuda_fq.check_cuda(lib, entry(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, stream),
-                           ENTRY[name])
+        check_cuda(lib, entry(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, stream),
+                   ENTRY[name])
 
     return launch, a, b, out
 

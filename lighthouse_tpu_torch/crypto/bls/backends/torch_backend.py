@@ -14,7 +14,8 @@ from typing import Optional
 def verify_signature_sets(sets, seed: Optional[bytes] = None,
                           device: str = "cuda") -> bool:
     from .... import tracing
-    from ....ops.verify import resolve_device, verify_signature_sets_device
+    from ....ops.devices import resolve_device
+    from ....ops.verify import verify_signature_sets_device
 
     sets = list(sets)
     dev = resolve_device(device)

@@ -252,7 +252,7 @@ class Kzg:
         point-evaluation verify (:meth:`verify_kzg_proof`) always run on
         the host."""
         if device is not None:
-            from ...ops.verify import resolve_device
+            from ...ops.devices import resolve_device
 
             device = resolve_device(device)
         self.setup = setup

@@ -39,10 +39,19 @@ calls whose device is unset or the pipeline's own then ride it, while
 calls that pin ``seed=`` (reproducibility), name another device, or
 exceed the standard bucket keep the direct supervised path.
 
-The JAX package's ``HashPipeline`` (the ``sha256_pairs`` coalescer), its
-``JobPipeline`` for batch-global jobs and the ``DeviceArbiter`` slot they
-share with this pipeline come with the hashing slice, which brings their
-callers; its API-side arbiter turnstile comes with the HTTP API.
+Beside the bls pipeline, :class:`HashPipeline` coalesces ``sha256_pairs``
+pair-hash groups (``ops/tree_hash.py`` dirty-path batches) into one
+dispatch of the supervised pair-hash op and slices the digests back per
+group — 64-byte blocks are independent, so attribution is exact by
+construction.  Both pipelines take the one slot of the shared
+:class:`DeviceArbiter` around their device leg, so block import and
+tree-hash traffic contend for the card in one visible place.  One rule
+differs from the JAX package: where a hash batch fails past the
+supervisor, the JAX package re-hashes every group on the host; on the
+card the port hands the error to every group's future instead (with
+``device="cpu"`` the host still re-hashes).  The JAX package's
+``JobPipeline`` (batch-global epoch jobs) comes with the epoch programs
+that call it, its API-side arbiter turnstile with the HTTP API.
 
 **Adaptive linger**: unless pinned (env
 ``LIGHTHOUSE_TPU_PIPELINE_LINGER_S`` or an explicit ``linger_s``), the
@@ -50,9 +59,11 @@ effective linger follows the flight recorder's observed in-flight batch
 duration (``device_telemetry.recent_inflight_seconds``).
 
 Observability: ``device_pipeline_{pending_sets,depth,batch_fill_ratio,
-linger_seconds,wait_seconds,batches_total,groups_total}`` metrics, a
-``pipeline_batch`` trace root per coalesced dispatch, flight-recorder
-records carrying ``n_groups``/``work_mix``, and :func:`summary`.
+linger_seconds,wait_seconds,batches_total,groups_total}`` metrics (by op;
+the hash pipeline counts blocks where the bls one counts sets),
+``device_arbiter_{wait_seconds,grants_total}``, a ``pipeline_batch`` trace
+root per coalesced dispatch, flight-recorder records carrying
+``n_groups``/``work_mix``, and :func:`summary`.
 """
 
 from __future__ import annotations
@@ -95,6 +106,18 @@ DEFAULT_TARGET_SETS = int(
 #: Bounded ring of recent per-batch summaries for summary()/tests.
 RECENT_BATCHES = 64
 
+#: Hash groups larger than this many 64-byte blocks bypass the hash
+#: pipeline (the direct supervised op buckets them itself).  The top
+#: ``ops/sha256_device.N_BUCKETS`` bucket, kept as a literal so importing
+#: the pipeline never pulls torch (same convention as MAX_GROUP_SETS).
+MAX_HASH_GROUP_BLOCKS = 262144
+
+#: Default coalescing target for the hash pipeline (blocks per dispatched
+#: sha256_pairs batch).
+DEFAULT_HASH_TARGET_BLOCKS = int(
+    os.environ.get("LIGHTHOUSE_TPU_PIPELINE_HASH_TARGET_BLOCKS", "16384")
+)
+
 #: Adaptive linger clamps: the effective linger never exceeds the MAX (a
 #: pathological in-flight observation must not park gossip for seconds) and
 #: tracks ``FRACTION`` of the observed in-flight batch duration.
@@ -136,6 +159,67 @@ def effective_linger(op: str, base_s: float, pinned: bool) -> float:
                            observed * ADAPTIVE_LINGER_FRACTION))
 
 
+# ------------------------------------------------------------- the arbiter
+
+
+class DeviceArbiter:
+    """THE device-access gate for pipelined dispatch: every pipeline
+    (bls_verify batches, sha256_pairs hash batches) acquires one shared
+    slot around its device leg, so concurrent work types *contend here* —
+    visibly (``device_arbiter_wait_seconds{op}``) — instead of interleaving
+    dispatches blindly.  Direct (non-pipelined) callers are deliberately
+    not gated: the supervisor already serializes per-op dispatch through
+    its worker."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._stats = threading.Lock()
+        self._grants: Dict[str, int] = {}
+        self._wait_s: Dict[str, float] = {}
+        self._holder: Optional[str] = None
+
+    @contextmanager
+    def slot(self, op: str):
+        t0 = time.perf_counter()
+        with self._lock:
+            wait = time.perf_counter() - t0
+            with self._stats:
+                self._grants[op] = self._grants.get(op, 0) + 1
+                self._wait_s[op] = self._wait_s.get(op, 0.0) + wait
+                self._holder = op
+            metrics.DEVICE_ARBITER_WAIT_SECONDS.observe(wait, op=op)
+            metrics.DEVICE_ARBITER_GRANTS.inc(op=op)
+            try:
+                yield
+            finally:
+                with self._stats:
+                    self._holder = None
+
+    def snapshot(self) -> dict:
+        with self._stats:
+            return {
+                "holding": self._holder,
+                "grants": dict(self._grants),
+                "wait_s": {k: round(v, 6) for k, v in self._wait_s.items()},
+            }
+
+    def reset_for_tests(self) -> None:
+        with self._stats:
+            self._grants.clear()
+            self._wait_s.clear()
+            self._holder = None
+
+
+ARBITER = DeviceArbiter()
+
+
+def _on_card(device) -> bool:
+    """True when ``device`` names a CUDA card (torch imported lazily)."""
+    import torch
+
+    return torch.device(device).type == "cuda"
+
+
 _WORK_KIND: "contextvars.ContextVar[Optional[str]]" = contextvars.ContextVar(
     "lighthouse_tpu_pipeline_work_kind", default=None
 )
@@ -160,13 +244,18 @@ class PipelineShutdown(RuntimeError):
     """The pipeline was shut down without draining this group."""
 
 
-class VerifyFuture:
-    """Resolution handle for one submitted group (bool verdict out)."""
+class _FutureBase:
+    """Resolution handle for one submitted unit of pipeline work: the one
+    Event/result/error pattern both pipelines share (verify groups and
+    hash groups differ only in payload fields and result type)."""
 
     __slots__ = ("_done", "_result", "_error", "submitted_pc",
-                 "submitted_lc", "work", "n_sets")
+                 "submitted_lc", "work")
 
-    def __init__(self, work: str, n_sets: int):
+    #: result(timeout) message on expiry; subclasses name their unit.
+    _timeout_msg = "pipeline result not available in time"
+
+    def __init__(self, work: str):
         self._done = threading.Event()
         self._result = None
         self._error: Optional[BaseException] = None
@@ -176,28 +265,43 @@ class VerifyFuture:
         self.submitted_pc = time.perf_counter()
         self.submitted_lc = _linger_clock()
         self.work = work
-        self.n_sets = n_sets
 
     def done(self) -> bool:
         return self._done.is_set()
 
     def set_result(self, value) -> None:
-        self._result = bool(value)
+        self._result = value
         self._done.set()
 
     def set_error(self, err: BaseException) -> None:
         self._error = err
         self._done.set()
 
-    def result(self, timeout: Optional[float] = None) -> bool:
-        """Block until resolution; raises the pipeline's error if the group
-        failed outside the verify's own semantics (a build or device
-        error)."""
+    def result(self, timeout: Optional[float] = None):
+        """Block until resolution; raises the pipeline's error if the work
+        failed outside the op's own semantics (a build or device error)."""
         if not self._done.wait(timeout):
-            raise TimeoutError("pipeline verdict not available in time")
+            raise TimeoutError(self._timeout_msg)
         if self._error is not None:
             raise self._error
-        return bool(self._result)
+        return self._result
+
+
+class VerifyFuture(_FutureBase):
+    """Resolution handle for one submitted group (bool verdict out)."""
+
+    __slots__ = ("n_sets",)
+    _timeout_msg = "pipeline verdict not available in time"
+
+    def __init__(self, work: str, n_sets: int):
+        super().__init__(work)
+        self.n_sets = n_sets
+
+    def set_result(self, value) -> None:
+        super().set_result(bool(value))
+
+    def result(self, timeout: Optional[float] = None) -> bool:
+        return bool(super().result(timeout))
 
 
 class _Group:
@@ -554,7 +658,10 @@ class DevicePipeline:
                     verdict = verdict and ok
                     g.future.set_result(ok)
             else:
-                verdict = self._verify_flat(batch)
+                # the one shared device slot: bls batches contend with hash
+                # pipeline traffic here
+                with ARBITER.slot(self.op):
+                    verdict = self._verify_flat(batch)
                 if verdict:
                     for g in batch.groups:
                         g.future.set_result(True)
@@ -638,10 +745,309 @@ class DevicePipeline:
         }
 
 
+# ------------------------------------------------------------ hash pipeline
+
+
+class HashFuture(_FutureBase):
+    """Resolution handle for one submitted pair-hash group (bytes out)."""
+
+    __slots__ = ("n_blocks",)
+    _timeout_msg = "pipeline hash result not available in time"
+
+    def __init__(self, work: str, n_blocks: int):
+        super().__init__(work)
+        self.n_blocks = n_blocks
+
+
+class _HashGroup:
+    __slots__ = ("data", "future")
+
+    def __init__(self, data: bytes, future: HashFuture):
+        self.data = data
+        self.future = future
+
+
+class HashPipeline:
+    """One persistent pipeline for ``sha256_pairs`` pair-hash traffic.
+
+    Groups are byte buffers of independent 64-byte blocks (Merkle pair
+    batches from ``ops/tree_hash.py``), so coalescing is concatenation and
+    per-group result attribution is an exact slice of the output digests —
+    no re-check pass exists because none is needed.  The single worker
+    dispatches the joined batch through the SUPERVISED direct op
+    (``sha256_device.hash_pairs_device`` on ``device`` — watchdog,
+    split-retry, breaker) under the shared :data:`ARBITER` slot.  A failure
+    that escapes the supervisor reaches every group's future as an error
+    on the card (a failing card never answers from the host); with
+    ``device="cpu"`` each group is re-hashed on the host kernel instead,
+    as in the JAX package, so one poisoned group cannot corrupt another's
+    digest.
+
+    ``hash_flat_fn``: test seam — replaces the supervised device leg.
+    """
+
+    def __init__(self, *, device="cuda", target_blocks: Optional[int] = None,
+                 linger_s: Optional[float] = None, hash_flat_fn=None):
+        self.op = "sha256_pairs"
+        self.device = device
+        self.target_blocks = max(1, min(
+            int(target_blocks or DEFAULT_HASH_TARGET_BLOCKS),
+            MAX_HASH_GROUP_BLOCKS))
+        self._linger_pinned = linger_s is not None or _LINGER_ENV_PINNED
+        self._linger_s = (DEFAULT_LINGER_S if linger_s is None
+                          else float(linger_s))
+        self._hash_flat_fn = hash_flat_fn
+        self._cond = threading.Condition()
+        self._pending: deque = deque()          # _HashGroup FIFO
+        self._pending_blocks = 0
+        self._in_flight_groups = 0
+        self._shutdown = False
+        self._idle = threading.Event()
+        self._idle.set()
+        self._recent: deque = deque(maxlen=RECENT_BATCHES)
+        self.batches_total = 0
+        self.groups_total = 0
+        self.blocks_total = 0
+        self._worker = threading.Thread(
+            target=self._run_loop, name="device-pipeline-hash", daemon=True
+        )
+        self._worker.start()
+
+    # ------------------------------------------------------------- ingress
+
+    @property
+    def linger_s(self) -> float:
+        return self._linger_s
+
+    @linger_s.setter
+    def linger_s(self, value: float) -> None:
+        self._linger_s = float(value)
+        self._linger_pinned = True
+
+    def _effective_linger(self) -> float:
+        return effective_linger(self.op, self._linger_s, self._linger_pinned)
+
+    def submit(self, data: bytes, work: Optional[str] = None) -> HashFuture:
+        """Queue one pair-hash group (``len(data)`` a multiple of 64);
+        returns its future.  Raises :class:`PipelineShutdown` after
+        :meth:`shutdown`."""
+        n_blocks = len(data) // 64
+        if len(data) % 64:
+            raise ValueError("hash group must be a multiple of 64 bytes")
+        work = work or current_work_kind()
+        fut = HashFuture(work, n_blocks)
+        if n_blocks == 0:
+            fut.set_result(b"")
+            return fut
+        with self._cond:
+            if self._shutdown:
+                raise PipelineShutdown("sha256_pairs: pipeline is shut down")
+            self._pending.append(_HashGroup(data, fut))
+            self._pending_blocks += n_blocks
+            self.groups_total += 1
+            self.blocks_total += n_blocks
+            self._idle.clear()
+            metrics.DEVICE_PIPELINE_PENDING_SETS.set(
+                self._pending_blocks, op=self.op)
+            metrics.DEVICE_PIPELINE_DEPTH.set(
+                len(self._pending) + self._in_flight_groups, op=self.op)
+            self._cond.notify_all()
+        metrics.DEVICE_PIPELINE_GROUPS.inc(op=self.op, work=work)
+        return fut
+
+    # -------------------------------------------------------------- worker
+
+    def _take_batch(self) -> Optional[List[_HashGroup]]:
+        with self._cond:
+            # sampled once per take, at first-group observation — same
+            # rationale as DevicePipeline._take_batch
+            linger = None
+            frozen = 0
+            while True:
+                if self._pending:
+                    if (self._shutdown
+                            or self._pending_blocks >= self.target_blocks):
+                        break
+                    if linger is None:
+                        linger = self._effective_linger()
+                    now_lc = _linger_clock()
+                    oldest = self._pending[0].future.submitted_lc
+                    remaining = linger - (now_lc - oldest)
+                    # clock-straddle + stall-breaker — see
+                    # DevicePipeline._take_batch
+                    if remaining <= 0 or now_lc < oldest:
+                        break
+                    if frozen >= 2:
+                        break
+                    self._cond.wait(timeout=min(remaining, 0.05))
+                    frozen = frozen + 1 if _linger_clock() == now_lc else 0
+                elif self._shutdown:
+                    return None
+                else:
+                    self._cond.wait(timeout=0.1)
+            groups: List[_HashGroup] = []
+            n_blocks = 0
+            while self._pending:
+                g = self._pending[0]
+                if groups and n_blocks + g.future.n_blocks > self.target_blocks:
+                    break
+                self._pending.popleft()
+                groups.append(g)
+                n_blocks += g.future.n_blocks
+            self._pending_blocks -= n_blocks
+            self._in_flight_groups += len(groups)
+            metrics.DEVICE_PIPELINE_PENDING_SETS.set(
+                self._pending_blocks, op=self.op)
+            return groups
+
+    def _hash_flat(self, data: bytes) -> bytes:
+        if self._hash_flat_fn is not None:
+            return self._hash_flat_fn(data)
+        from .ops.sha256_device import hash_pairs_device
+
+        return hash_pairs_device(data, device=self.device)
+
+    def _run_loop(self) -> None:
+        while True:
+            try:
+                groups = self._take_batch()
+            except Exception:
+                log.error("hash pipeline take failed", exc_info=True)
+                continue
+            if groups is None:
+                with self._cond:
+                    if not self._pending and self._in_flight_groups == 0:
+                        self._idle.set()
+                return
+            try:
+                self._execute_one(groups)
+            finally:
+                with self._cond:
+                    self._in_flight_groups -= len(groups)
+                    metrics.DEVICE_PIPELINE_DEPTH.set(
+                        len(self._pending) + self._in_flight_groups,
+                        op=self.op)
+                    if not self._pending and self._in_flight_groups == 0:
+                        self._idle.set()
+                    self._cond.notify_all()
+
+    def _execute_one(self, groups: List[_HashGroup]) -> None:
+        oldest = min(g.future.submitted_pc for g in groups)
+        linger = max(0.0, time.perf_counter() - oldest)
+        n_blocks = sum(g.future.n_blocks for g in groups)
+        fill = min(1.0, n_blocks / self.target_blocks)
+        work_mix: Dict[str, int] = {}
+        for g in groups:
+            work_mix[g.future.work] = (
+                work_mix.get(g.future.work, 0) + g.future.n_blocks)
+        metrics.DEVICE_PIPELINE_BATCHES.inc(op=self.op)
+        metrics.DEVICE_PIPELINE_BATCH_FILL_RATIO.observe(fill, op=self.op)
+        metrics.DEVICE_PIPELINE_LINGER_SECONDS.observe(linger, op=self.op)
+        rehashed = 0
+        failed = 0
+        with tracing.span(
+            "pipeline_batch", op=self.op, n_blocks=n_blocks,
+            n_groups=len(groups), fill_ratio=round(fill, 4),
+            linger_s=round(linger, 6), work_mix=dict(work_mix),
+        ):
+            try:
+                joined = b"".join(g.data for g in groups)
+                with ARBITER.slot(self.op):
+                    out = self._hash_flat(joined)
+                offset = 0
+                for g in groups:
+                    size = g.future.n_blocks * 32
+                    g.future.set_result(out[offset: offset + size])
+                    offset += size
+            except Exception as err:  # noqa: BLE001 — marshalled to futures
+                if _on_card(self.device):
+                    # The card failed past the supervisor (a raised device
+                    # error, a watchdog timeout, an OPEN breaker): every
+                    # group's caller gets the error, never a host digest.
+                    log.error("hash pipeline batch failed on the card",
+                              error=f"{type(err).__name__}: {err}")
+                    tracing.annotate(group_error=True)
+                    for g in groups:
+                        failed += 1
+                        g.future.set_error(err)
+                else:
+                    # CPU runs keep the JAX package's per-group host rescue,
+                    # so one poisoned buffer cannot corrupt the others.
+                    log.error("hash pipeline batch failed; groups re-hash on "
+                              "the host kernel",
+                              error=f"{type(err).__name__}: {err}")
+                    tracing.annotate(group_rehash=True)
+                    from .ops.sha256_device import _host_hash_pairs
+
+                    for g in groups:
+                        rehashed += 1
+                        try:
+                            g.future.set_result(_host_hash_pairs(g.data))
+                        except Exception as host_err:  # noqa: BLE001
+                            g.future.set_error(host_err)
+        self.batches_total += 1
+        self._recent.append({
+            "t_ms": int(time.time() * 1000),
+            "n_blocks": n_blocks,
+            "n_groups": len(groups),
+            "fill_ratio": round(fill, 4),
+            "linger_s": round(linger, 6),
+            "work_mix": dict(work_mix),
+            "group_rehashes": rehashed,
+            "group_errors": failed,
+        })
+        blackbox.emit("pipeline", "batch", op=self.op, n_blocks=n_blocks,
+                      n_groups=len(groups),
+                      group_rehashes=rehashed or None,
+                      group_errors=failed or None)
+
+    # ------------------------------------------------------------- control
+
+    def wait_idle(self, timeout: float = 10.0) -> bool:
+        return self._idle.wait(timeout)
+
+    def shutdown(self, timeout: float = 30.0) -> None:
+        with self._cond:
+            if self._shutdown:
+                return
+            self._shutdown = True
+            self._cond.notify_all()
+        self._worker.join(timeout=timeout)
+        with self._cond:
+            leftovers = list(self._pending)
+            self._pending.clear()
+            self._pending_blocks = 0
+        for g in leftovers:
+            if not g.future.done():
+                g.future.set_error(PipelineShutdown(
+                    "sha256_pairs: pipeline shut down before this group ran"))
+
+    def snapshot(self) -> dict:
+        with self._cond:
+            pending_groups = len(self._pending)
+            pending_blocks = self._pending_blocks
+            in_flight = self._in_flight_groups
+        return {
+            "op": self.op,
+            "target_blocks": self.target_blocks,
+            "linger_s": self._linger_s,
+            "effective_linger_s": round(self._effective_linger(), 6),
+            "linger_adaptive": not self._linger_pinned,
+            "pending_groups": pending_groups,
+            "pending_blocks": pending_blocks,
+            "in_flight_groups": in_flight,
+            "batches_total": self.batches_total,
+            "groups_total": self.groups_total,
+            "blocks_total": self.blocks_total,
+            "recent_batches": list(self._recent),
+        }
+
+
 # ----------------------------------------------------------- module wiring
 
 _LOCK = threading.Lock()
 _PIPELINE: Optional[DevicePipeline] = None
+_HASH_PIPELINE: Optional[HashPipeline] = None
 _ENABLED = os.environ.get("LIGHTHOUSE_TPU_DEVICE_PIPELINE", "") == "1"
 #: The card the pipeline's batches run on (set by :func:`enable`).
 _DEVICE = "cuda"
@@ -667,10 +1073,11 @@ def enabled() -> bool:
 
 
 def enable(device="cuda") -> None:
-    """Route ``bls.verify_signature_sets`` through the pipeline, its
-    batches on ``device``.  The port has no client builder yet, so the
-    caller enables it.  ``LIGHTHOUSE_TPU_DEVICE_PIPELINE=0`` wins over
-    callers.  A running pipeline keeps its card until :func:`shutdown`."""
+    """Route ``bls.verify_signature_sets`` and the tree-hash seam's device
+    pair batches through the pipelines, their batches on ``device``.  The
+    port has no client builder yet, so the caller enables it.
+    ``LIGHTHOUSE_TPU_DEVICE_PIPELINE=0`` wins over callers.  A running
+    pipeline keeps its card until :func:`shutdown`."""
     global _ENABLED, _DEVICE
     if os.environ.get("LIGHTHOUSE_TPU_DEVICE_PIPELINE", "") == "0":
         return
@@ -711,26 +1118,83 @@ def verify(sets: list) -> bool:
     return pipe.verify(sets)
 
 
+def get_hash_pipeline() -> HashPipeline:
+    """The process-wide sha256_pairs hash pipeline (lazily started)."""
+    global _HASH_PIPELINE
+    with _LOCK:
+        if _HASH_PIPELINE is None:
+            _HASH_PIPELINE = HashPipeline(device=_DEVICE)
+        return _HASH_PIPELINE
+
+
+def routes_hash(n_blocks: int, device=None) -> bool:
+    """Should a pair-hash batch of ``n_blocks`` 64-byte blocks ride the
+    hash pipeline?  Oversized batches and batches for another device than
+    the pipeline's keep the direct supervised path; so does everything
+    when the pipeline is off."""
+    return (
+        _ENABLED
+        and 0 < n_blocks <= MAX_HASH_GROUP_BLOCKS
+        and (device is None or _device_key(device) == _device_key(_DEVICE))
+    )
+
+
+def hash_pairs(data: bytes, work: Optional[str] = None) -> bytes:
+    """Pair-hash ``data`` through the hash pipeline (the ``ops/tree_hash``
+    seam calls this after :func:`routes_hash`): same no-resurrection
+    discipline as :func:`verify` — a caller racing ``shutdown()`` gets
+    :class:`PipelineShutdown` and falls back to the direct path."""
+    global _HASH_PIPELINE
+    with _LOCK:
+        pipe = _HASH_PIPELINE
+        if pipe is None:
+            if not _ENABLED:
+                raise PipelineShutdown("pipeline disabled mid-call")
+            pipe = _HASH_PIPELINE = HashPipeline(device=_DEVICE)
+    fut = pipe.submit(data, work=work)
+    try:
+        return fut.result()
+    finally:
+        tracing.record_span(
+            "pipeline_wait", start_pc=fut.submitted_pc,
+            hist=metrics.DEVICE_PIPELINE_WAIT_SECONDS,
+            hist_labels={"op": "sha256_pairs"},
+            n_blocks=fut.n_blocks, work=fut.work,
+        )
+
+
 def summary() -> Optional[dict]:
     """The pipeline section of ``device_telemetry.summary()`` (None until
-    the pipeline has been started)."""
+    any pipeline has been started).  The bls pipeline's snapshot keys stay
+    top-level; the hash pipeline and the shared arbiter ride as
+    sub-sections."""
     with _LOCK:
         pipe = _PIPELINE
-    return None if pipe is None else pipe.snapshot()
+        hash_pipe = _HASH_PIPELINE
+    if pipe is None and hash_pipe is None:
+        return None
+    out = pipe.snapshot() if pipe is not None else {"op": "bls_verify"}
+    out["hash"] = hash_pipe.snapshot() if hash_pipe is not None else None
+    out["arbiter"] = ARBITER.snapshot()
+    return out
 
 
 def shutdown(timeout: float = 30.0) -> None:
-    """Disable routing and drain the process pipeline.  New verify calls
-    fall back to the direct path immediately; in-flight futures still
-    resolve."""
-    global _PIPELINE
+    """Disable routing and drain both process pipelines.  New verify and
+    hash calls fall back to the direct paths immediately; in-flight futures
+    still resolve."""
+    global _PIPELINE, _HASH_PIPELINE
     disable()
     with _LOCK:
         pipe, _PIPELINE = _PIPELINE, None
+        hash_pipe, _HASH_PIPELINE = _HASH_PIPELINE, None
     if pipe is not None:
         pipe.shutdown(timeout=timeout)
+    if hash_pipe is not None:
+        hash_pipe.shutdown(timeout=timeout)
 
 
 def reset_for_tests() -> None:
     set_linger_clock(None)
     shutdown(timeout=5.0)
+    ARBITER.reset_for_tests()

@@ -80,10 +80,12 @@ STATE_CODES = {STATE_CLOSED: 0, STATE_OPEN: 1, STATE_HALF_OPEN: 2}
 #: Per-op dispatch deadlines (seconds).  Generous: the first batch of a
 #: process pays the ``nvcc`` build of the kernels inside its dispatch, and
 #: the watchdog exists to catch a *hung* device, not a slow first batch.
-#: The JAX package's other ops (sha256, tree hash, epoch, shuffle,
-#: proposer, autotune) get their entries with their slices.
+#: The JAX package's other ops (epoch, shuffle, proposer, autotune) get
+#: their entries with their slices.
 DEFAULT_DEADLINES = {
     "bls_verify": 300.0,
+    "sha256_pairs": 120.0,
+    "tree_hash": 120.0,
     "kzg_batch": 300.0,
 }
 DEFAULT_DEADLINE_S = 300.0

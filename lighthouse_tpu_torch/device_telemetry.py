@@ -9,13 +9,14 @@ usual suspects each get their own accounting here:
 - **first dispatches and kernel builds** — the port's device programs are
   eager PyTorch, so there is no per-shape compile; the first dispatch of
   an ``(op, shape)`` still pays one-time costs (allocator growth, constant
-  uploads, and, for the first batch of the process, the ``nvcc`` build of
-  ``csrc/fq_mul.cu``).  Each entry point reports its dispatch through
+  uploads, and, for the first batch of the process, the ``nvcc`` builds
+  of ``csrc/fq_mul.cu`` and ``csrc/sha256.cu``).  Each entry point reports its dispatch through
   :func:`note_dispatch`, which keeps a mirror ``(op, shape)`` → inventory
   entry, increments ``device_program_compiles_total{op,shape}`` once per
   shape and feeds ``device_program_compile_seconds`` on that first call.
-  The kernel build is its own entry (``ops/compile_cache.py`` notes it
-  through :func:`note_warmup`, a hit when an up-to-date library was found).
+  Each kernel library's build is its own entry (``ops/compile_cache.py``
+  notes it through :func:`note_warmup`, a hit when an up-to-date library
+  was found).
 - **padding waste** — batches are padded up to bucket shapes;
   :func:`record_batch` accounts ``live/nb`` occupancy into
   ``device_batch_occupancy_ratio`` histograms plus wasted-lane counters.
@@ -424,8 +425,10 @@ def _percentiles(values: List[float]) -> Optional[dict]:
 
 def summary() -> dict:
     """The device section of the node's status: first-dispatch and build
-    inventory, occupancy percentiles over the flight-recorder window,
-    host-fallback tallies, device memory, pipeline and supervisor.
+    inventory, occupancy percentiles over the flight-recorder window (per
+    op: ``bls_verify``, ``kzg_batch``, ``sha256_pairs``, ``tree_hash``),
+    host-fallback tallies, device memory, pipelines (the bls and hash
+    pipelines and the shared arbiter's grants and waits) and supervisor.
 
     The JAX package's summary also carries ``autotune`` and ``mesh``
     sections; the port omits both until ``autotune.py`` and
@@ -454,9 +457,10 @@ def summary() -> dict:
         # Fused epoch boundary: duty-cache priming outcomes (empty until
         # the epoch programs are ported).
         "boundary_primes": boundary_prime_counts(),
-        # Async device pipeline (device_pipeline.py): pending depth, fill
-        # and linger of the coalescing layer feeding the batches above
-        # (None until a pipeline has started in this process).
+        # Async device pipelines (device_pipeline.py): pending depth, fill
+        # and linger of the coalescing layers feeding the batches above,
+        # the hash pipeline and the arbiter as sub-sections (None until a
+        # pipeline has started in this process).
         "pipeline": device_pipeline.summary(),
         "flight_recorder": {
             "capacity": FLIGHT_RECORDER.capacity,

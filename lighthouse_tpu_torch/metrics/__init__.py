@@ -358,7 +358,9 @@ DEVICE_SPLIT_RETRIES = counter(
     "split-batch retries after a transient device error, by op and outcome",
 )
 
-# Async device pipeline (device_pipeline.py).
+# Async device pipeline (device_pipeline.py): the bls_verify pipeline
+# counts signature sets, the sha256_pairs hash pipeline 64-byte blocks,
+# under the same series (label ``op``).
 DEVICE_PIPELINE_PENDING_SETS = gauge(
     "device_pipeline_pending_sets",
     "signature sets queued in the device pipeline awaiting coalescing, by op",
@@ -393,4 +395,17 @@ DEVICE_PIPELINE_BATCHES = counter(
 DEVICE_PIPELINE_GROUPS = counter(
     "device_pipeline_groups_total",
     "signature-set groups submitted to the device pipeline, by op and work kind",
+)
+
+# The shared device arbiter (device_pipeline.DeviceArbiter): every pipeline
+# takes its one slot around its device leg, so the bls and hash pipelines
+# contend here, visibly.
+DEVICE_ARBITER_WAIT_SECONDS = histogram(
+    "device_arbiter_wait_seconds",
+    "wait to acquire the shared device-dispatch arbiter slot, by op",
+)
+
+DEVICE_ARBITER_GRANTS = counter(
+    "device_arbiter_grants_total",
+    "device-dispatch slots granted by the shared pipeline arbiter, by op",
 )

@@ -25,6 +25,25 @@ BATCH_AXES = {
         "notes": "per-set pairing rows; the N+1'th (-g1, W) pair is "
                  "assembled inside the program from a batch-wide MSM",
     },
+    "lighthouse_tpu_torch/ops/sha256_device.py:_sha256_64byte_batch": {
+        "op": "sha256_pairs",
+        "batch_axis": 0,
+        "batched_args": ["words"],
+        "replicated_args": [],
+        "reduces_over_batch": False,
+        "out_batched": True,
+        "notes": "embarrassingly parallel over 64-byte blocks",
+    },
+    "lighthouse_tpu_torch/ops/tree_hash.py:_tree_hash_subtrees": {
+        "op": "tree_hash",
+        "batch_axis": 0,
+        "batched_args": ["leaves"],
+        "replicated_args": [],
+        "reduces_over_batch": False,
+        "out_batched": True,
+        "notes": "fused depth-5 Merkle subtrees; embarrassingly parallel "
+                 "over the subtree axis (every output level keeps it)",
+    },
     "lighthouse_tpu_torch/ops/kzg_device.py:_device_kzg_batch": {
         "op": "kzg_batch",
         "batch_axis": 0,

@@ -18,9 +18,10 @@ the same int32 pipeline as the JAX package's ``ops/fq.py:_fq_mul_int32``, so
 kernel, plain version and JAX package agree limb for limb.
 
 The library is built at first use into ``lighthouse_tpu_torch/build/`` (a
-file name keyed by the source's hash; through ``ops/compile_cache.py``,
-which notes the build in the device-telemetry mirror), or ahead of time by
-:func:`build`;
+file name keyed by the source's hash; ``ops/cuda_build.py``, through
+``ops/compile_cache.py``, which builds every CUDA source of the port at
+once and notes the builds in the device-telemetry mirror), or ahead of
+time by :func:`build`;
 :func:`build` and :func:`load_library` also take another source with the
 same C entry points (``lighthouse_tpu_torch/bench_kernels.py`` times an
 earlier version of the kernels that way).
@@ -29,29 +30,20 @@ earlier version of the kernels that way).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-import time
 from collections import Counter
 from pathlib import Path
-from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import cuda_build
+from .cuda_build import check_cuda
 from .fq import CONV8, L16, RED_IN, RED_OUT, REDMAT8, SPLIT8, fold8_2, fold16_2, reduce8, split16_to_8
 
-PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCE = PACKAGE_DIR / "csrc" / "fq_mul.cu"
-BUILD_DIR = PACKAGE_DIR / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = cuda_build.CSRC_DIR / "fq_mul.cu"
+BUILD_DIR = cuda_build.BUILD_DIR
 
 #: Kernel launches per wrapper, bumped where each kernel is launched and
 #: nowhere else; ``SIZES`` holds the number of those launches at each row
@@ -107,49 +99,6 @@ def fq2_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------------- build
 
 
-class BuildResult(NamedTuple):
-    path: Path
-    seconds: float  # 0.0 when an up-to-date library was found
-    log: str        # nvcc's output, -Xptxas -v included ("" when reused)
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def library_path(source: Path = SOURCE) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libfq_mul-{digest.hexdigest()[:12]}.so"
-
-
-def build(force: bool = False, source: Path = SOURCE) -> BuildResult:
-    """Compile ``source`` (by default ``csrc/fq_mul.cu``) with nvcc for
-    sm_90a, unless a library built from the same source and flags is
-    already there."""
-    path = library_path(source)
-    if path.exists() and not force:
-        return BuildResult(path, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-    os.replace(tmp, path)  # atomic: a concurrent loader sees old or new, whole
-    return BuildResult(path, seconds, log)
-
-
 _RED_W = 64  # table rows RED_OUT..RED_IN-1, zero padded, as in the CUDA source
 _lib = None
 _ready_devices: set = set()
@@ -197,18 +146,12 @@ def library(device: torch.device):
         if _lib is None:
             from .compile_cache import build_kernels
 
-            _lib = load_library(build_kernels().path)
+            _lib = load_library(build_kernels()["fq_mul"].path)
         index = device.index if device.index is not None else torch.cuda.current_device()
         if index not in _ready_devices:
             init_device(_lib, index)
             _ready_devices.add(index)
     return _lib, index
-
-
-def check_cuda(lib, err: int, what: str) -> None:
-    if err != 0:
-        msg = lib.lt_error_string(err).decode() if lib is not None else ""
-        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
 # ---------------------------------------------------------------- wrappers
@@ -266,10 +209,3 @@ def fq2_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return fq2_mul_plain(a, b)
     return _launch("fq2_mul", "lt_fq2_mul", a, b)
-
-
-def ptxas_summary(log: str) -> list:
-    """The lines of an nvcc log that give each kernel's registers and spills."""
-    return [ln.strip() for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-

@@ -36,7 +36,7 @@ import torch
 from ..crypto.bls.params import R
 from . import ec, pairing, tower
 from .fq import const
-from .verify import on_device, resolve_device, wait_for
+from .devices import on_device, resolve_device, wait_for
 
 #: Blob-axis buckets (the JAX package's vocabulary); larger batches raise.
 N_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)

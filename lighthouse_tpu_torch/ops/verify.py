@@ -41,7 +41,6 @@ pipeline (``device_pipeline.py``) runs them on its own two threads.
 
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import Optional, Sequence
 
@@ -54,6 +53,7 @@ from ..crypto.bls.backends.host import _rand_scalars
 from ..crypto.bls.hash_to_curve import hash_to_g2
 from ..crypto.bls.params import DST
 from . import ec, pairing, tower
+from .devices import on_device, resolve_device, wait_for
 from .fq import L16, const
 
 _NEG_G1 = ec.g1_to_limbs((curve.G1[0], -curve.G1[1]))
@@ -74,39 +74,6 @@ MAX_SETS_PER_DISPATCH = N_BUCKETS[-1]
 #: (``device_telemetry``) is the per-batch source when batches run
 #: concurrently.
 LAST_STAGES: dict = {}
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; asking for CUDA where there is none raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but torch.cuda.is_available() is False")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
-
-
-@contextlib.contextmanager
-def on_device(device: torch.device):
-    """Make ``device`` the thread's current card for the block (a no-op on
-    the CPU): the supervisor's worker threads start on card 0."""
-    if device.type != "cuda":
-        yield
-        return
-    with torch.cuda.device(device):
-        yield
-
-
-def wait_for(device: torch.device) -> None:
-    """Block until the work issued so far on ``device``'s current stream is
-    done: an event recorded after it, then waited on (the counterpart of
-    jax's ``block_until_ready``).  A no-op on the CPU."""
-    if device.type != "cuda":
-        return
-    with torch.cuda.device(device):
-        event = torch.cuda.Event()
-        event.record()
-        event.synchronize()
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:

@@ -30,9 +30,10 @@ def _device_us(evt) -> float:
 def profile(n_sets: int, n_keys: int, reps: int) -> dict:
     from .crypto.bls.backends.host import _rand_scalars
     from .ops import pairing, verify
+    from .ops.devices import resolve_device
     from .workload import committee_sets
 
-    device = verify.resolve_device("cuda")
+    device = resolve_device("cuda")
     sets = committee_sets(n_sets, n_keys, seed=21)
     t0 = time.perf_counter()
     host_batch = verify.build_batch(sets, _rand_scalars(n_sets, None))

@@ -365,14 +365,14 @@ def test_registry_agrees_with_jax():
     assert literal == batch_axes.BATCH_AXES
     keys = ("op", "batch_axis", "batched_args", "replicated_args",
             "reduces_over_batch", "out_batched")
-    for entry in ("ops/verify.py:_device_verify", "ops/kzg_device.py:_device_kzg_batch"):
+    entries = ("ops/verify.py:_device_verify", "ops/kzg_device.py:_device_kzg_batch",
+               "ops/sha256_device.py:_sha256_64byte_batch",
+               "ops/tree_hash.py:_tree_hash_subtrees")
+    for entry in entries:
         ours = batch_axes.BATCH_AXES[f"lighthouse_tpu_torch/{entry}"]
         theirs = jbatch_axes.BATCH_AXES[f"lighthouse_tpu/{entry}"]
         assert {k: ours[k] for k in keys} == {k: theirs[k] for k in keys}
-    assert set(batch_axes.BATCH_AXES) == {
-        "lighthouse_tpu_torch/ops/verify.py:_device_verify",
-        "lighthouse_tpu_torch/ops/kzg_device.py:_device_kzg_batch",
-    }
+    assert set(batch_axes.BATCH_AXES) == {f"lighthouse_tpu_torch/{e}" for e in entries}
 
 
 # -------------------------------------------------------- (g) on the card

@@ -26,7 +26,7 @@ from lighthouse_tpu.crypto.bls.backends import host as jhost  # noqa: E402
 from lighthouse_tpu_torch import device_pipeline, device_supervisor, device_telemetry, metrics  # noqa: E402
 from lighthouse_tpu_torch.crypto.bls import api  # noqa: E402
 from lighthouse_tpu_torch.crypto.bls.backends import set_backend  # noqa: E402
-from lighthouse_tpu_torch.device_pipeline import DevicePipeline, PipelineShutdown  # noqa: E402
+from lighthouse_tpu_torch.device_pipeline import DevicePipeline, HashPipeline, PipelineShutdown  # noqa: E402
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -447,3 +447,126 @@ def test_device_summary_carries_pipeline_section():
     device_pipeline.get_pipeline()
     section = device_telemetry.summary()["pipeline"]
     assert section is not None and section["op"] == "bls_verify"
+
+
+# ------------------------------------------------------------ hash pipeline
+# tests/test_device_pipeline.py::TestHashPipeline, re-pointed at the port.
+
+
+def _golden_pairs(data):
+    from lighthouse_tpu.ops.tree_hash import golden_hash_pairs
+
+    return golden_hash_pairs(data)
+
+
+def test_hash_groups_coalesce_with_exact_slice_attribution():
+    """Unequal-size groups coalesce into one batch; each future's digests
+    are the exact slice for its blocks, and the batch record equals the
+    JAX package's on the same sequence."""
+    groups = [bytes([i]) * (64 * k) for i, k in ((1, 1), (2, 3), (3, 2))]
+    records = []
+    for pkg in (device_pipeline, j_pipeline):
+        pipe = pkg.HashPipeline(target_blocks=64, linger_s=0.5, hash_flat_fn=_golden_pairs)
+        try:
+            futs = [pipe.submit(g, work=f"w{i}") for i, g in enumerate(groups)]
+            for g, fut in zip(groups, futs):
+                assert fut.result(timeout=30.0) == _golden_pairs(g)
+            snap = pipe.snapshot()
+            assert (snap["batches_total"], snap["groups_total"], snap["blocks_total"]) == (1, 3, 6)
+            rec = snap["recent_batches"][-1]
+            records.append({k: rec[k] for k in ("n_groups", "n_blocks", "work_mix",
+                                                "group_rehashes")})
+        finally:
+            pipe.shutdown()
+    assert records[0] == records[1] == {"n_groups": 3, "n_blocks": 6,
+                                        "work_mix": {"w0": 1, "w1": 3, "w2": 2},
+                                        "group_rehashes": 0}
+
+
+def test_hash_flat_failure_rescues_each_group_on_host_on_cpu():
+    """With ``device="cpu"`` a failure escaping the supervised leg re-hashes
+    per group on the host kernel, as in the JAX package."""
+    def poisoned(data):
+        raise RuntimeError("flat leg poisoned")
+
+    pipe = HashPipeline(device="cpu", target_blocks=64, linger_s=0.2, hash_flat_fn=poisoned)
+    try:
+        groups = [b"\xaa" * 64, b"\xbb" * 128]
+        futs = [pipe.submit(g) for g in groups]
+        for g, fut in zip(groups, futs):
+            assert fut.result(timeout=30.0) == _golden_pairs(g)
+        rec = pipe.snapshot()["recent_batches"][-1]
+        assert (rec["group_rehashes"], rec["group_errors"]) == (2, 0)
+    finally:
+        pipe.shutdown()
+
+
+def test_hash_flat_failure_on_the_card_reaches_every_future():
+    """On the card (the one rule that differs from the JAX package) a
+    failure escaping the supervised leg is every group's error: nothing is
+    re-hashed on the host."""
+    from lighthouse_tpu_torch.ops import sha256_device
+
+    def poisoned(data):
+        raise RuntimeError("card leg failed")
+
+    host_calls = []
+    real_host = sha256_device._host_hash_pairs
+    sha256_device._host_hash_pairs = lambda data: host_calls.append(data) or real_host(data)
+    pipe = HashPipeline(device="cuda", target_blocks=64, linger_s=0.2, hash_flat_fn=poisoned)
+    try:
+        futs = [pipe.submit(g) for g in (b"\xaa" * 64, b"\xbb" * 128)]
+        for fut in futs:
+            with pytest.raises(RuntimeError, match="card leg failed"):
+                fut.result(timeout=30.0)
+        rec = pipe.snapshot()["recent_batches"][-1]
+        assert (rec["group_rehashes"], rec["group_errors"]) == (0, 2)
+        assert host_calls == []
+    finally:
+        pipe.shutdown()
+        sha256_device._host_hash_pairs = real_host
+
+
+def test_hash_misaligned_group_rejected_and_empty_resolves():
+    pipe = HashPipeline(target_blocks=8, linger_s=0.01, hash_flat_fn=_golden_pairs)
+    try:
+        with pytest.raises(ValueError):
+            pipe.submit(b"x" * 63)
+        fut = pipe.submit(b"")
+        assert fut.done() and fut.result(0.0) == b""
+    finally:
+        pipe.shutdown()
+
+
+def test_module_hash_seam_and_shutdown_fallback():
+    assert not device_pipeline.routes_hash(16)  # disabled
+    device_pipeline.enable(device="cpu")
+    assert device_pipeline.routes_hash(16)
+    assert device_pipeline.routes_hash(16, device="cpu")
+    assert not device_pipeline.routes_hash(16, device="cuda")
+    assert not device_pipeline.routes_hash(device_pipeline.MAX_HASH_GROUP_BLOCKS + 1)
+    assert device_pipeline.MAX_HASH_GROUP_BLOCKS == j_pipeline.MAX_HASH_GROUP_BLOCKS
+    data = b"\x5a" * 256
+    # module-level hash_pairs lazily starts the pipeline (on the CPU: the
+    # pair kernel's plain version) and resolves
+    assert device_pipeline.hash_pairs(data) == _golden_pairs(data)
+    snap = device_pipeline.summary()
+    assert snap["hash"]["groups_total"] >= 1
+    assert snap["arbiter"]["grants"].get("sha256_pairs", 0) >= 1
+    reference = j_pipeline.HashPipeline(hash_flat_fn=_golden_pairs)
+    try:
+        assert set(snap["hash"]) == set(reference.snapshot())
+    finally:
+        reference.shutdown()
+    device_pipeline.shutdown()
+    with pytest.raises(PipelineShutdown):
+        device_pipeline.hash_pairs(data)
+
+
+def test_bls_batches_take_the_arbiter_slot():
+    set_backend("fake")
+    device_pipeline.enable(device="cpu")
+    assert api.verify_signature_sets([_StubSet()]) is True
+    grants = device_pipeline.summary()["arbiter"]["grants"]
+    assert grants.get("bls_verify", 0) >= 1
+    assert metrics.DEVICE_ARBITER_GRANTS.get(op="bls_verify") >= 1

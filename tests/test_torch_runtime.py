@@ -250,6 +250,9 @@ def _run_script(pkg):
                                 probe_successes=2),
         deadlines={"bls_verify": 0.2, "kzg_batch": 5.0})
     before = _counter_values(metrics)
+    # The recorder's sequence counts records since the process started;
+    # earlier test files in the same worker may have recorded batches.
+    seq0 = dt.FLIGHT_RECORDER.recorded_total
     steps, hangs = [], []
     for op, kind in SCRIPT:
         if op == "cooldown":
@@ -272,7 +275,9 @@ def _run_script(pkg):
         steps.append((op, kind, out, info, ds.SUPERVISOR.breaker(op).snapshot()))
     for leg in hangs:
         leg.release.set()
-    return steps, _deltas(before, _counter_values(metrics)), dt.summary()
+    summary = dt.summary()
+    summary["flight_recorder"]["recorded_total"] -= seq0
+    return steps, _deltas(before, _counter_values(metrics)), summary
 
 
 def test_scripted_supervisor_sequence_matches_reference():
@@ -298,11 +303,12 @@ def test_scripted_supervisor_sequence_matches_reference():
     port_summary.pop("memory")
     jax_deadlines = jax_summary["supervisor"].pop("deadlines_s")
     port_deadlines = port_summary["supervisor"].pop("deadlines_s")
-    assert port_deadlines == {op: jax_deadlines[op] for op in ("bls_verify", "kzg_batch")}
+    assert port_deadlines == {op: jax_deadlines[op] for op in
+                              ("bls_verify", "sha256_pairs", "tree_hash", "kzg_batch")}
     assert port_summary == jax_summary
 
 
-@pytest.mark.parametrize("op", ["bls_verify", "kzg_batch"])
+@pytest.mark.parametrize("op", ["bls_verify", "kzg_batch", "sha256_pairs", "tree_hash"])
 def test_deadlines_and_split_policy_match_reference(op):
     assert p_ds.DEFAULT_DEADLINES[op] == j_ds.DEFAULT_DEADLINES[op]
     assert (op in p_ds.NO_SPLIT_OPS) == (op in j_ds.NO_SPLIT_OPS)
