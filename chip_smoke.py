@@ -8,8 +8,9 @@ Run from the repository root with no arguments:
 Phases, each of which raises on a failed check:
 
 1. card    — the card's name and power limit, as nvidia-smi reports them;
-2. build   — nvcc builds csrc/fq_mul.cu and csrc/sha256.cu for sm_90a, one
-             process per source started together (times and -Xptxas -v);
+2. build   — nvcc builds csrc/fq_mul.cu, csrc/sha256.cu and csrc/shuffle.cu
+             for sm_90a, one process per source started together (times and
+             -Xptxas -v);
 3. kernels — both Fq kernels against their plain PyTorch versions on the
              card, limb for limb, on canonical, redundant, negative and edge
              inputs at n in KERNEL_NS (block edges of both kernels), with values checked
@@ -20,6 +21,12 @@ Phases, each of which raises on a failed check:
              tree_hash_subtrees at m in SUBTREE_MS (up to 32,768 subtrees,
              a 2^20-leaf level); digests also against hashlib on every row
              up to 1,000 and on 1,000 seeded rows above that;
+   epoch-kernels — both epoch kernels against their plain versions on the
+             card at each registry bucket up to 2^20 and one below it
+             (EPOCH_NS): shuffle_round over the mainnet preset's 90 rounds,
+             also against the host ``shuffle_list`` up to 65,536 lanes and
+             at 2^20; proposer_walk over 32 slots x 64 candidates, against
+             the host ``compute_shuffled_index`` at every size;
 4. verify  — ``crypto.bls.api.verify_signature_sets`` through the torch
              backend (default device, supervised) at 128 sets x 32 keys (valid -> True,
              one tampered set -> False) and 64 sets x 1 key (-> True); the
@@ -67,7 +74,22 @@ Phases, each of which raises on a failed check:
              per route (card via the subtree kernel, card via the pair
              kernel, host below a threshold, host above the top bucket),
              host and device seconds apart;
-11. faults — the supervisor's routes on the card at small size, each with
+11. epoch  — the epoch boundary at mainnet width on the card: a Deneb
+             mainnet-preset state of 2^20 validators one slot before a
+             boundary, from a seed (``workload.boundary_state``: ejections,
+             the activation queue, pending activations, slashed
+             validators); the staged ``epoch_deltas_device`` once on its
+             registry against the numpy pass; then it crosses the boundary
+             through ``per_slot.process_slots``
+             with the fused boundary on the card, once in an inactivity
+             leak and once not; each result equals a numpy-backend run of
+             the port on a copy of the state in balances, inactivity,
+             validator fields, committees, proposers and state root, with
+             no host fallback; host seconds, device seconds (flight record)
+             and the kernels' launches (counts set to 0 just before the
+             first boundary, read after the last; both kernels must have
+             run);
+12. faults — the supervisor's routes on the card at small size, each with
              its exact counter deltas and none with a host fallback (on
              the card a failure raises into the caller): a
              ``device.dispatch`` error on a 4-set batch (split retry, both
@@ -82,8 +104,10 @@ Phases, each of which raises on a failed check:
              the golden), a hang on tree_hash (``DispatchTimeout`` raised),
              and an error on every sha256_pairs dispatch under the hash
              pipeline (both groups' futures raise, nothing re-hashed on the
-             host);
-12. timing — each kernel and its plain version at the largest shape the
+             host); and an ``epoch_boundary`` dispatch error on a 4,096-
+             validator boundary (no split, raised, the numpy composite never
+             runs);
+13. timing — each kernel and its plain version at the largest shape the
              128 x 32 run gave it, beside the least time the card could take;
              then each kernel at every launch size of that run (the
              histogram ``cuda_fq.SIZES``), summed to its time per verify,
@@ -91,11 +115,16 @@ Phases, each of which raises on a failed check:
              192-lane KZG batch; each SHA-256 kernel at its top bucket and
              at every launch size of the [state] run, beside its bound and
              plain version, its launches per state root, and the native
-             host pair hasher's rate.  Kernel times are device times of
+             host pair hasher's rate; each epoch kernel at its [epoch]
+             launch (a round of the 2^20 shuffle; the 32 x 64-lane walk)
+             beside its bound and plain version, and the two epoch PyTorch
+             programs (deltas, the fused boundary) at 2^20, the boundary
+             also on the kernels' plain versions and once under
+             torch.profiler.  Kernel times are device times of
              launches replayed from a CUDA graph, so the host's launch
              overhead does not count.
 
-Every verify, KZG and hash batch of phases 4, 6, 8, 9 and 10 runs through
+Every verify, KZG, hash and epoch batch of phases 4, 6, 8, 9, 10 and 11 runs through
 the device supervisor (``device_supervisor.py``); the script fails if any
 of them took the host route or left a breaker open.  Per-batch stages come from
 the flight recorder (``device_telemetry``).
@@ -175,6 +204,27 @@ STATE_APPENDED = 16
 HASH_THREADS = 8
 HASH_TREE_LEAVES = 1 << 18
 HASH_DIRTY_FRACTION = 0.01
+#: The epoch slice's two kernels (csrc/shuffle.cu).  A shuffle round moves
+#: 4 bytes in and 4 out a lane plus its digest row (one bit a lane); the
+#: proposer walk does one compression a lane a round (csrc/sha256_compress.cuh:
+#: 64 x 14 + 48 x 10 + 8 operations) on a few bytes of seeds and pivots.
+SHUFFLE_SOURCE = "lighthouse_tpu_torch/csrc/shuffle.cu"
+WALK_OPS_PER_ROUND = 64 * 14 + 48 * 10 + 8
+EPOCH_KERNELS = {
+    "shuffle_round": {"replaces": "lighthouse_tpu/ops/shuffle_device.py:112"},
+    "proposer_walk": {"replaces": "lighthouse_tpu/ops/shuffle_device.py:186"},
+}
+#: [epoch-kernels] and [epoch]: the mainnet preset's shuffle rounds, slots
+#: and proposer candidates; registry sizes checked (each bucket and one
+#: below it); the [epoch] registry (the top of the JAX package's epoch
+#: buckets, the order of mainnet's) and the [faults] epoch registry.
+SHUFFLE_ROUNDS = 90
+EPOCH_SLOTS = 32
+EPOCH_NS = (1, 2, 63, 64, 255, 256, 1023, 1024, 4095, 4096, 16384, 65536, 262144,
+            1048575, 1048576)
+EPOCH_HOST_MAX = 65536
+EPOCH_VALIDATORS = 1 << 20
+EPOCH_FAULT_VALIDATORS = 4096
 #: The supervisor's counters whose deltas each fault case asserts.
 SUPERVISOR_COUNTERS = {
     "host_fallbacks": "DEVICE_HOST_FALLBACK",
@@ -329,7 +379,8 @@ def assert_on_device(label: str, mark: dict) -> list:
     if metrics.DEVICE_HOST_FALLBACK.snapshot() != mark["fallback"]:
         raise AssertionError(f"{label}: host-fallback counter rose: "
                              f"{metrics.DEVICE_HOST_FALLBACK.snapshot()}")
-    for op in ("bls_verify", "kzg_batch", "sha256_pairs", "tree_hash"):
+    for op in ("bls_verify", "kzg_batch", "sha256_pairs", "tree_hash", "epoch_deltas",
+               "epoch_boundary", "epoch_boundary_leak"):
         if device_supervisor.breaker_state(op) != "closed":
             raise AssertionError(f"{label}: {op} breaker is {device_supervisor.breaker_state(op)}")
     return records
@@ -1117,7 +1168,8 @@ def phase_faults(cuda_fq, kzg, blobs, commitments, proofs, device: str = "cuda")
     if kzg.verify_blob_kzg_proof_batch(blobs[:2], commitments[:2], proofs[:2]) is not True:
         raise AssertionError("[faults] the KZG batch after the faulted one did not verify")
     phase_hash_faults(device)
-    for op in ("bls_verify", "kzg_batch", "sha256_pairs", "tree_hash"):
+    phase_epoch_faults(device)
+    for op in ("bls_verify", "kzg_batch", "sha256_pairs", "tree_hash", "epoch_boundary"):
         if ds.breaker_state(op) != "closed":
             raise AssertionError(f"[faults] the {op} breaker is left open")
 
@@ -1213,6 +1265,482 @@ def phase_hash_faults(device: str = "cuda") -> None:
                {"split_retries": {"op=sha256_pairs,outcome=failure": 1.0}})
     if sd.hash_pairs_device(data, device=device) != digests:
         raise AssertionError("[faults] the sha256_pairs batch after the faults != hashlib")
+
+
+# ------------------------------------------------------------ the epoch slice
+
+
+def walk_reference(seeds, m: int, k: int) -> "np.ndarray":
+    """The spec's compute_shuffled_index of each (slot, candidate) lane's
+    start, host Python: the positions the proposer walk must end at."""
+    import numpy as np
+
+    from lighthouse_tpu_torch.consensus.shuffling import compute_shuffled_index
+
+    return np.array([[compute_shuffled_index(c % m, m, seed, SHUFFLE_ROUNDS) for c in range(k)]
+                     for seed in seeds], dtype=np.int32)
+
+
+def phase_epoch_kernels() -> dict:
+    """Both epoch kernels against their plain versions on the card at each
+    registry bucket up to 2^20 (and one below it), and against the host:
+    the shuffle against ``shuffle_list`` up to EPOCH_HOST_MAX lanes and at
+    the top bucket, the walk against the scalar ``compute_shuffled_index``
+    at every size."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from lighthouse_tpu_torch.consensus.shuffling import shuffle_list
+    from lighthouse_tpu_torch.ops import cuda_epoch
+    from lighthouse_tpu_torch.ops import shuffle_device as psd
+
+    max_err = {"shuffle_round": 0, "proposer_walk": 0}
+    k = psd.PROPOSER_CANDIDATES
+    for n in EPOCH_NS:
+        t0 = time.perf_counter()
+        nb = psd._bucket(n)
+        seed = hashlib.sha256(b"epoch-kernels-%d" % n).digest()
+        values = np.random.default_rng(n).permutation(nb).astype(np.int32)
+        pivots, digests = psd.shuffle_tables(seed, SHUFFLE_ROUNDS, n, nb)
+        x, pv, dg = (torch.from_numpy(a).cuda() for a in (values, pivots, digests))
+        got = cuda_epoch.shuffle_rounds(x, pv, dg, n)
+        want = cuda_epoch.shuffle_rounds_plain(x, pv, dg, n)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        max_err["shuffle_round"] = max(max_err["shuffle_round"], err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"shuffle_round n={n}: kernel != plain (max err {err})")
+        host = ""
+        if n <= EPOCH_HOST_MAX or n == nb == EPOCH_NS[-1]:
+            if not np.array_equal(got[:n].cpu().numpy(), shuffle_list(values[:n], seed,
+                                                                       SHUFFLE_ROUNDS)):
+                raise AssertionError(f"shuffle_round n={n}: != shuffle_list")
+            host = "; equals shuffle_list"
+        seeds = [hashlib.sha256(b"walk-%d-%d" % (n, s)).digest() for s in range(EPOCH_SLOTS)]
+        seed_words, walk_pivots, _ = psd.proposer_tables(seeds, SHUFFLE_ROUNDS, n)
+        sw = torch.from_numpy(seed_words.view(np.int32)).cuda()
+        wp = torch.from_numpy(walk_pivots).cuda()
+        walk = cuda_epoch.proposer_walk(sw, wp, k, n)
+        torch.cuda.synchronize()
+        ref = walk_reference(seeds, n, k)
+        err = int(np.abs(walk.cpu().numpy().astype(np.int64) - ref).max())
+        max_err["proposer_walk"] = max(max_err["proposer_walk"], err)
+        if err:
+            raise AssertionError(f"proposer_walk m={n}: != compute_shuffled_index (max err {err})")
+        plain = ""
+        if n in (EPOCH_NS[2], EPOCH_NS[-1]):
+            if not torch.equal(walk, cuda_epoch.proposer_walk_plain(sw, wp, k, n)):
+                raise AssertionError(f"proposer_walk m={n}: kernel != plain")
+            plain = " and its plain version"
+        log(f"[epoch-kernels] n={n} (bucket {nb}): shuffle_round x{SHUFFLE_ROUNDS} equals its "
+            f"plain version{host}; proposer_walk {EPOCH_SLOTS} x {k} lanes equals "
+            f"compute_shuffled_index{plain}; {time.perf_counter() - t0:.2f} s")
+    return max_err
+
+
+def reference_duties(state, spec, epoch: int) -> tuple:
+    """(shuffling, proposers) of ``epoch`` by the spec's host functions:
+    the committee cache's numpy shuffle and the scalar proposer walk over
+    the active set computed once."""
+    from lighthouse_tpu_torch.consensus import helpers as h
+
+    cache = h.CommitteeCache(state, epoch, spec)
+    base = h.get_seed(state, epoch, h.DOMAIN_BEACON_PROPOSER, spec)
+    proposers = [h.compute_proposer_index(state, cache.active_indices,
+                                          h.hash(base + h.uint_to_bytes(slot)), spec)
+                 for slot in range(epoch * spec.slots_per_epoch,
+                                   (epoch + 1) * spec.slots_per_epoch)]
+    return cache, proposers
+
+
+def phase_epoch(card: str, device: str = "cuda", validators: int = EPOCH_VALIDATORS) -> dict:
+    """The epoch boundary at mainnet width: a Deneb mainnet-preset state
+    one slot before a boundary crosses it through ``process_slots`` on the
+    card with the fused boundary, in both leak modes; each result equals a
+    numpy-backend run of the port on a copy of the state (balances,
+    inactivity, validator fields, proposers, committees, state root), with
+    no host fallback.  First the staged deltas program once against the
+    numpy pass; the kernels' launch counts are set to 0 just before the
+    first boundary on the card and read just after the last."""
+    import copy
+
+    import numpy as np
+
+    from lighthouse_tpu_torch import device_telemetry
+    from lighthouse_tpu_torch.consensus import helpers as h
+    from lighthouse_tpu_torch.consensus import per_epoch as pe
+    from lighthouse_tpu_torch.consensus import per_slot
+    from lighthouse_tpu_torch.ops import cuda_epoch
+    from lighthouse_tpu_torch.ops import tree_hash as th
+    from lighthouse_tpu_torch.types.spec import mainnet_spec
+    from lighthouse_tpu_torch.workload import boundary_state, set_finality
+
+    spec = mainnet_spec()
+    t0 = time.perf_counter()
+    base, types = boundary_state(validators, seed=0xE90C, leak=False)
+    build_s = time.perf_counter() - t0
+    target = base.slot + 1
+    next_epoch = target // spec.slots_per_epoch
+    log(f"[epoch] Deneb mainnet-preset state with {len(base.validators)} validators one slot "
+        f"before epoch {next_epoch} built from a seed in {build_s:.2f} s")
+    fields = ("effective_balance", "activation_eligibility_epoch", "activation_epoch",
+              "exit_epoch", "withdrawable_epoch", "slashed")
+    before = {name: [getattr(v, name) for v in base.validators] for name in fields}
+    staged_out = staged_deltas(base, spec, next_epoch, device)
+    plans = []
+    real_run = pe._run_boundary
+
+    def recording_run(plan, *, in_leak):
+        plans.append((plan, in_leak))
+        return real_run(plan, in_leak=in_leak)
+
+    pe._run_boundary = recording_run
+    runs = {}
+    start = runtime_mark()
+    cuda_epoch.reset_launch_counts()
+    try:
+        for leak in (False, True):
+            label = "leak" if leak else "no leak"
+            t = time.perf_counter()
+            card_state = copy.deepcopy(base)
+            set_finality(card_state, types, leak)
+            # The last mode's numpy run takes the base state itself.
+            ref_state = base if leak else copy.deepcopy(base)
+            set_finality(ref_state, types, leak)
+            copy_s = time.perf_counter() - t
+
+            th.configure(enabled=True, device=device)
+            pe.configure(backend="device", fused_boundary=True, device=device)
+            mark = runtime_mark()
+            t = time.perf_counter()
+            card_out = per_slot.process_slots(card_state, target, types, spec)
+            card_s = time.perf_counter() - t
+            records = assert_on_device(f"[epoch] {label}", mark)
+            ops = [r["op"] for r in records]
+            op = "epoch_boundary_leak" if leak else "epoch_boundary"
+            boundary = [r for r in records if r["op"] == op]
+            if len(boundary) != 1:
+                raise AssertionError(f"[epoch] {label}: flight records {ops}")
+            st = boundary[0]["stages_s"]
+            dev_s = st["dispatch"] + st["wait"]
+            hash_s = device_seconds([r for r in records if r["op"] in ("sha256_pairs", "tree_hash")])
+            if pe.is_in_inactivity_leak(card_out, spec) is not leak:
+                raise AssertionError(f"[epoch] {label}: leak mode is not {leak}")
+            t = time.perf_counter()
+            card_root = card_out.hash_tree_root()
+            card_root_s = time.perf_counter() - t
+
+            th.configure(enabled=False)
+            pe.configure(backend="numpy")
+            t = time.perf_counter()
+            ref_out = per_slot.process_slots(ref_state, target, types, spec)
+            ref_s = time.perf_counter() - t
+            t = time.perf_counter()
+            ref_root = ref_out.hash_tree_root()
+            ref_root_s = time.perf_counter() - t
+
+            t = time.perf_counter()
+            if list(card_out.balances) != list(ref_out.balances):
+                raise AssertionError(f"[epoch] {label}: balances != numpy run")
+            if list(card_out.inactivity_scores) != list(ref_out.inactivity_scores):
+                raise AssertionError(f"[epoch] {label}: inactivity != numpy run")
+            changed = {}
+            for name in fields:
+                a = [getattr(v, name) for v in card_out.validators]
+                if a != [getattr(v, name) for v in ref_out.validators]:
+                    raise AssertionError(f"[epoch] {label}: validator {name} != numpy run")
+                changed[name] = sum(x != y for x, y in zip(a, before[name]))
+            cache, proposers = reference_duties(ref_out, spec, next_epoch)
+            primed = h._caches(card_out)
+            card_cache = primed["committees"][next_epoch]
+            if not (np.array_equal(card_cache.shuffling, cache.shuffling)
+                    and np.array_equal(card_cache.active_indices, cache.active_indices)
+                    and card_cache.committees_per_slot == cache.committees_per_slot):
+                raise AssertionError(f"[epoch] {label}: committees != numpy run")
+            card_proposers = [h.get_beacon_proposer_index(card_out, spec, slot)
+                              for slot in range(target, target + spec.slots_per_epoch)]
+            if card_proposers != proposers:
+                raise AssertionError(f"[epoch] {label}: proposers != numpy run")
+            if card_root != ref_root:
+                raise AssertionError(f"[epoch] {label}: state root != numpy run")
+            check_s = time.perf_counter() - t
+            runs[label] = {
+                "card_s": card_s, "device_s": dev_s, "host_s": card_s - dev_s - hash_s,
+                "hash_device_s": hash_s, "numpy_s": ref_s, "card_root_s": card_root_s,
+                "numpy_root_s": ref_root_s, "copy_s": copy_s, "check_s": check_s,
+                "stages_s": st, "changed": changed, "records": ops,
+                "primed_proposers": len(primed.get("proposers", {})),
+            }
+            log(f"[epoch] {card}, {label}: process_slots across the boundary on the card "
+                f"{card_s:.2f} s (boundary program {dev_s:.4f} s on the flight record: dispatch "
+                f"{st['dispatch']:.4f} s, wait {st['wait']:.4f} s; tree hashing "
+                f"{hash_s:.3f} s of device stages; host Python the rest), numpy-backend run "
+                f"{ref_s:.2f} s; post-state roots {card_root_s:.2f} s (card) / {ref_root_s:.2f} s "
+                f"(host); copies {copy_s:.2f} s, checks {check_s:.2f} s")
+            log(f"[epoch] {label}: balances, inactivity, validator fields (changed {changed}), "
+                f"{len(cache.shuffling)}-validator committees, {len(proposers)} proposers "
+                f"({runs[label]['primed_proposers']} primed from the card) and the state root "
+                f"equal the numpy run; flight records {ops}; no host fallback")
+            del card_state, ref_state, card_out, ref_out
+        del base
+    finally:
+        pe._run_boundary = real_run
+        th.configure(enabled=False)
+        pe.configure(backend="device", fused_boundary=True, device="cuda")
+    launches = dict(cuda_epoch.LAUNCHES)
+    sizes = {name: dict(c) for name, c in cuda_epoch.SIZES.items()}
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} was not launched on the [epoch] path")
+    assert_on_device("[epoch]", start)
+    log(f"[epoch] kernel launches over both boundaries {launches}, launch sizes {sizes}; "
+        f"duty-cache priming {device_telemetry.boundary_prime_counts()}")
+
+    return {"validators": len(before["slashed"]), "build_s": build_s, "runs": runs,
+            "launches": launches, "sizes": sizes, "plans": plans, **staged_out}
+
+
+def staged_deltas(state, spec, next_epoch: int, device: str) -> dict:
+    """The staged seam once: ``epoch_deltas_device`` on the card against the
+    numpy pass, on ``state``'s registry as the boundary into ``next_epoch``
+    sees it."""
+    import numpy as np
+
+    from lighthouse_tpu_torch.consensus import per_epoch as pe
+    from lighthouse_tpu_torch.ops import epoch_device
+
+    arrays = pe.EpochArrays(state, spec)
+    n = arrays.n
+    prev_part = np.asarray(state.previous_epoch_participation, dtype=np.int64)
+    inactivity = np.asarray(state.inactivity_scores, dtype=np.int64)
+    total = max(spec.effective_balance_increment, int(
+        arrays.effective_balance[arrays.active_mask(next_epoch - 1)].sum()))
+    kwargs = dict(previous_epoch=next_epoch - 2, in_leak=False,
+                  base_reward_per_increment=spec.effective_balance_increment
+                  * spec.base_reward_factor // spec.integer_squareroot(total),
+                  total_active_balance=total,
+                  quotient=spec.inactivity_penalty_quotient_bellatrix, spec=spec)
+    t = time.perf_counter()
+    staged = epoch_device.epoch_deltas_device(arrays, prev_part, inactivity, device=device,
+                                              **kwargs)
+    staged_s = time.perf_counter() - t
+    t = time.perf_counter()
+    golden = pe._epoch_deltas_numpy(arrays, prev_part, inactivity, **kwargs)
+    numpy_s = time.perf_counter() - t
+    if not all(np.array_equal(a, b) for a, b in zip(staged, golden)):
+        raise AssertionError("[epoch] staged epoch_deltas_device != _epoch_deltas_numpy")
+    log(f"[epoch] staged epoch_deltas_device on {n} validators: {staged_s:.4f} s on the card, "
+        f"equal to the numpy pass ({numpy_s:.4f} s on the host)")
+    return {"deltas_args": (arrays, prev_part, inactivity, kwargs), "staged_s": staged_s,
+            "deltas_numpy_s": numpy_s}
+
+
+def phase_epoch_faults(device: str = "cuda") -> None:
+    """One epoch_boundary fault on the card: a ``device.dispatch`` error on
+    a 4,096-validator boundary raises into the caller, the numpy composite
+    never runs, no counter moves (the op is never split), and the next
+    boundary on the card equals the numpy run."""
+    import copy
+
+    from lighthouse_tpu_torch import fault_injection as fi
+    from lighthouse_tpu_torch.consensus import per_epoch as pe
+    from lighthouse_tpu_torch.consensus import per_slot
+    from lighthouse_tpu_torch.ops import tree_hash as th
+    from lighthouse_tpu_torch.types.spec import mainnet_spec
+    from lighthouse_tpu_torch.workload import boundary_state
+
+    spec = mainnet_spec()
+    base, types = boundary_state(EPOCH_FAULT_VALIDATORS, seed=0xFA0C, leak=False)
+    target = base.slot + 1
+    th.configure(enabled=False)
+    host_calls = []
+    real_numpy = pe._epoch_boundary_numpy
+
+    def spy(plan, **kw):
+        host_calls.append(plan.n)
+        return real_numpy(plan, **kw)
+
+    def boundary(state):
+        return per_slot.process_slots(state, target, types, spec)
+
+    pe._epoch_boundary_numpy = spy
+    try:
+        pe.configure(backend="device", fused_boundary=True, device=device)
+        boundary(copy.deepcopy(base))  # first dispatch of the shape, unfaulted
+
+        def faulted():
+            fi.install("device.dispatch", "error", op="epoch_boundary")
+            return boundary(copy.deepcopy(base))
+
+        fault_case(f"epoch_boundary device.dispatch error on a {EPOCH_FAULT_VALIDATORS}-validator "
+                   "boundary: no split, raised to the caller, no numpy answer",
+                   faulted, fi.InjectedFault, {})
+        if host_calls:
+            raise AssertionError(f"[faults] the numpy boundary answered on the card: {host_calls}")
+        after = boundary(copy.deepcopy(base)).as_ssz_bytes()
+        pe.configure(backend="numpy")
+        if after != boundary(copy.deepcopy(base)).as_ssz_bytes():
+            raise AssertionError("[faults] the boundary after the fault != the numpy run")
+    finally:
+        pe._epoch_boundary_numpy = real_numpy
+        pe.configure(backend="device", fused_boundary=True, device="cuda")
+
+
+def phase_epoch_timing(epoch_out: dict, max_err: dict, clock_mhz: float,
+                       device: str = "cuda") -> tuple:
+    """Each epoch kernel at its largest launch of the [epoch] run (device
+    time of graph replays), beside its bound and its plain version; the
+    two PyTorch programs (deltas, the fused boundary) at 2^20 the same way,
+    the boundary also with the kernels' plain versions, and one boundary
+    under torch.profiler for its kernel launches and device busy time.
+    Returns (kernel rows, program rows)."""
+    import numpy as np
+    import torch
+
+    from lighthouse_tpu_torch.bench_kernels import graph_ms
+    from lighthouse_tpu_torch.consensus import per_epoch as pe
+    from lighthouse_tpu_torch.ops import cuda_epoch, epoch_device
+    from lighthouse_tpu_torch.ops import shuffle_device as psd
+    from lighthouse_tpu_torch.profile_verify import trace
+
+    def profiled(run, wall_s: float) -> dict:
+        """``trace`` of one ``run()``; a profiler that records no device
+        kernel leaves the launch count and busy time not measured."""
+        try:
+            return trace(run, wall_s)
+        except RuntimeError as err:
+            log(f"[timing] torch.profiler: {err}; launches and busy time not measured")
+            return {"device_kernel_launches": None, "device_busy_s": None, "top_kernels": []}
+
+    ops_per_ms = INT_OPS_PER_CLK_PER_SM * SMS * clock_mhz * 1e3
+    dev = torch.device(device)
+    plan, leak = epoch_out["plans"][0]
+    args, nb = psd.boundary_inputs(plan, dev)
+    m = plan.m
+    (values, sh_pivots, sh_digests, seed_words, prop_pivots) = (args[10], args[11], args[12],
+                                                                 args[13], args[14])
+    k = psd.PROPOSER_CANDIDATES
+
+    def bound(ops: float, nbytes: float) -> tuple:
+        ops_ms, bytes_ms = ops / ops_per_ms, nbytes / HBM_BYTES_PER_S * 1e3
+        return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+    rows = []
+    # shuffle_round: one launch of the 90, at the [epoch] bucket.
+    one = (sh_pivots[:1].contiguous(), sh_digests[:1].contiguous())
+    ms = graph_ms(lambda: cuda_epoch.shuffle_rounds(values, *one, m))
+    plain_ms = graph_ms(lambda: cuda_epoch.shuffle_rounds_plain(values, *one, m), reps=3)
+    shuffle_ms = graph_ms(lambda: cuda_epoch.shuffle_rounds(values, sh_pivots, sh_digests, m),
+                          reps=3)
+    shuffle_plain_ms = graph_ms(
+        lambda: cuda_epoch.shuffle_rounds_plain(values, sh_pivots, sh_digests, m),
+        reps=1, rounds=2)
+    row_bytes = sh_digests.shape[1]
+    b_ms, b_by = bound(8 * nb, 8 * nb + row_bytes + 4)
+    whole_b_ms, _ = bound(8 * nb * SHUFFLE_ROUNDS, 8 * nb + row_bytes * SHUFFLE_ROUNDS)
+    log(f"[timing] shuffle_round at {nb} lanes: kernel {ms:.4f} ms a round, plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound; the {SHUFFLE_ROUNDS}-round "
+        f"shuffle {shuffle_ms:.4f} ms (plain {shuffle_plain_ms:.4f} ms), "
+        f"{SHUFFLE_ROUNDS} x the round bound {b_ms * SHUFFLE_ROUNDS:.4f} ms, one-pass bound "
+        f"{whole_b_ms:.4f} ms")
+    rows.append({"name": "shuffle_round", "route": "cuda", "source": SHUFFLE_SOURCE,
+                 "replaces": EPOCH_KERNELS["shuffle_round"]["replaces"],
+                 "launches": epoch_out["launches"]["shuffle_round"],
+                 "max_abs_err": max_err["shuffle_round"], "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "rows": nb,
+                 "shuffle_ms": shuffle_ms, "shuffle_plain_ms": shuffle_plain_ms,
+                 "shuffle_bound_ms": b_ms * SHUFFLE_ROUNDS, "shuffle_one_pass_bound_ms": whole_b_ms,
+                 "launches_per_boundary": epoch_out["launches"]["shuffle_round"]
+                 / len(epoch_out["plans"])})
+    # proposer_walk: the [epoch] launch (32 slots x 64 candidates x 90 rounds).
+    s = seed_words.shape[0]
+    ms = graph_ms(lambda: cuda_epoch.proposer_walk(seed_words, prop_pivots, k, m))
+    plain_ms = graph_ms(lambda: cuda_epoch.proposer_walk_plain(seed_words, prop_pivots, k, m),
+                        reps=1, rounds=2)
+    b_ms, b_by = bound(s * k * SHUFFLE_ROUNDS * WALK_OPS_PER_ROUND,
+                       s * 32 + s * SHUFFLE_ROUNDS * 4 + s * k * 4)
+    log(f"[timing] proposer_walk at {s} x {k} lanes x {SHUFFLE_ROUNDS} rounds: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; SM clock "
+        f"{clock_mhz:.0f} MHz), {b_ms / ms:.1%} of bound ({s * k} lanes cannot fill the card)")
+    rows.append({"name": "proposer_walk", "route": "cuda", "source": SHUFFLE_SOURCE,
+                 "replaces": EPOCH_KERNELS["proposer_walk"]["replaces"],
+                 "launches": epoch_out["launches"]["proposer_walk"],
+                 "max_abs_err": max_err["proposer_walk"], "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "rows": s * k,
+                 "launches_per_boundary": epoch_out["launches"]["proposer_walk"]
+                 / len(epoch_out["plans"])})
+
+    # The PyTorch programs at 2^20.
+    programs = {}
+    boundary_ms = graph_ms(lambda: psd._boundary_kernel(*args, in_leak=leak), reps=2, rounds=3)
+    real = (cuda_epoch.shuffle_rounds, cuda_epoch.proposer_walk)
+    cuda_epoch.shuffle_rounds = cuda_epoch.shuffle_rounds_plain
+    cuda_epoch.proposer_walk = cuda_epoch.proposer_walk_plain
+    try:
+        boundary_plain_ms = graph_ms(lambda: psd._boundary_kernel(*args, in_leak=leak),
+                                     reps=1, rounds=2)
+    finally:
+        cuda_epoch.shuffle_rounds, cuda_epoch.proposer_walk = real
+    t = time.perf_counter()
+    pe._epoch_boundary_numpy(plan, in_leak=leak)
+    boundary_numpy_s = time.perf_counter() - t
+    t = time.perf_counter()
+    psd._boundary_kernel(*args, in_leak=leak)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    prof = profiled(lambda: (psd._boundary_kernel(*args, in_leak=leak), torch.cuda.synchronize()),
+                    wall_s)
+    # Bytes: 9 int64 and 1 bool batched inputs, active_idx, the shuffle and
+    # walk tables; 3 int64, 3 bool and the int32 shuffling out.
+    b_bytes = nb * (9 * 8 + 1 + 4) + sum(int(a.numel() * a.element_size()) for a in args[11:16]) \
+        + nb * (3 * 8 + 3 + 4)
+    b_ms, b_by = bound(s * k * SHUFFLE_ROUNDS * WALK_OPS_PER_ROUND, b_bytes)
+    programs["_boundary_kernel"] = {
+        "replaces": "lighthouse_tpu/ops/shuffle_device.py:192", "rows": nb, "ms": boundary_ms,
+        "plain_kernels_ms": boundary_plain_ms, "numpy_host_s": boundary_numpy_s,
+        "bound_ms": b_ms, "bound_by": b_by, "launches_per_boundary": 1,
+        "device_kernel_launches": prof["device_kernel_launches"],
+        "device_busy_s": prof["device_busy_s"], "wall_s": wall_s,
+        "top_kernels": prof["top_kernels"][:6]}
+    log(f"[timing] _boundary_kernel at {nb} validators ({'leak' if leak else 'no leak'}): "
+        f"{boundary_ms:.4f} ms (graph replay), with the kernels' plain versions "
+        f"{boundary_plain_ms:.4f} ms, numpy composite {boundary_numpy_s:.3f} s on the host; "
+        f"bound {b_ms:.4f} ms ({b_by}), {b_ms / boundary_ms:.1%} of bound; "
+        f"{prof['device_kernel_launches']} kernel launches, device busy "
+        f"{(prof['device_busy_s'] or 0.0) * 1e3:.3f} ms of a {wall_s * 1e3:.3f} ms eager call; top "
+        f"{[(k_['name'][:40], k_['count']) for k_ in prof['top_kernels'][:6]]}")
+    arrays, prev_part, inactivity, kwargs = epoch_out["deltas_args"]
+    n = arrays.n
+    dnb = epoch_device._bucket(n)
+    dev_in = [torch.from_numpy(epoch_device.grow_rows(np.asarray(a), dnb, f)).to(dev)
+              for a, f in zip((arrays.effective_balance, arrays.activation_epoch,
+                               arrays.exit_epoch, arrays.withdrawable_epoch, arrays.slashed,
+                               prev_part, inactivity), epoch_device._PAD_FILLS)]
+    spec = kwargs["spec"]
+    scalars = (kwargs["previous_epoch"], kwargs["base_reward_per_increment"],
+               kwargs["total_active_balance"], spec.effective_balance_increment,
+               spec.inactivity_score_bias, spec.inactivity_score_recovery_rate, kwargs["quotient"])
+    deltas_ms = graph_ms(lambda: epoch_device._deltas_kernel(*dev_in, *scalars, in_leak=False),
+                         reps=3, rounds=3)
+    t = time.perf_counter()
+    epoch_device._deltas_kernel(*dev_in, *scalars, in_leak=False)
+    torch.cuda.synchronize()
+    d_wall = time.perf_counter() - t
+    dprof = profiled(lambda: (epoch_device._deltas_kernel(*dev_in, *scalars, in_leak=False),
+                              torch.cuda.synchronize()), d_wall)
+    d_ms, d_by = bound(0, dnb * (6 * 8 + 1 + 2 * 8))
+    programs["_deltas_kernel"] = {
+        "replaces": "lighthouse_tpu/ops/epoch_device.py:128", "rows": dnb, "ms": deltas_ms,
+        "numpy_host_s": epoch_out["deltas_numpy_s"], "bound_ms": d_ms, "bound_by": d_by,
+        "launches_per_boundary": 1, "device_kernel_launches": dprof["device_kernel_launches"],
+        "device_busy_s": dprof["device_busy_s"], "wall_s": d_wall}
+    log(f"[timing] _deltas_kernel at {dnb} validators: {deltas_ms:.4f} ms (graph replay), "
+        f"numpy pass {epoch_out['deltas_numpy_s']:.3f} s on the host; bound {d_ms:.4f} ms "
+        f"(bytes), {d_ms / deltas_ms:.1%} of bound; {dprof['device_kernel_launches']} kernel "
+        f"launches (the fused boundary runs this body too; the staged seam runs it alone)")
+    return rows, programs
 
 
 def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, max_err: dict,
@@ -1372,6 +1900,7 @@ def main() -> int:
     phase_build()
     max_err = phase_kernels(cuda_fq)
     max_err.update(phase_hash_kernels())
+    max_err.update(phase_epoch_kernels())
     verify_out = phase_verify(cuda_fq)
     phase_parity()
     kzg_in = kzg_inputs()
@@ -1381,11 +1910,15 @@ def main() -> int:
     runtime_out = phase_runtime(cuda_fq, card, *kzg_in)
     phase_hash_runtime(card)
     state_out = phase_state(card)
+    epoch_out = phase_epoch(card)
     phase_faults(cuda_fq, *kzg_in)
     kernels = phase_timing(cuda_fq, verify_out, kzg_out, max_err, clock_mhz)
     for row in kernels:
         row["runtime_launches"] = runtime_out["launches"][row["name"]]
     kernels += phase_hash_timing(state_out, max_err, clock_mhz)
+    epoch_rows, programs = phase_epoch_timing(epoch_out, max_err, clock_mhz)
+    kernels += epoch_rows
+    log(f"[timing] epoch programs {json.dumps(programs)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

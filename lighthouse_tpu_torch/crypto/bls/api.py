@@ -365,7 +365,7 @@ def verify_signature_sets(
     ):
         if device_pipeline.routes(sets, seed, device):
             try:
-                return device_pipeline.verify(sets)
+                return device_pipeline.verify(sets, device=device)
             except device_pipeline.PipelineShutdown:
                 pass  # racing a shutdown: the direct path still answers
         if device is None:

@@ -37,7 +37,11 @@ The enrolment seam is ``crypto/bls/api.verify_signature_sets``.  The
 caller enables the pipeline (:func:`enable`, naming its card); seedless
 calls whose device is unset or the pipeline's own then ride it, while
 calls that pin ``seed=`` (reproducibility), name another device, or
-exceed the standard bucket keep the direct supervised path.
+exceed the standard bucket keep the direct supervised path.  Routing
+compares the caller's device with the device of the pipeline that would
+take the call (the live one, read under the module lock), and
+:func:`enable` naming another device retires the pipelines running on
+the old one, so a call never runs on a device it did not ask for.
 
 Beside the bls pipeline, :class:`HashPipeline` coalesces ``sha256_pairs``
 pair-hash groups (``ops/tree_hash.py`` dirty-path batches) into one
@@ -49,9 +53,11 @@ tree-hash traffic contend for the card in one visible place.  One rule
 differs from the JAX package: where a hash batch fails past the
 supervisor, the JAX package re-hashes every group on the host; on the
 card the port hands the error to every group's future instead (with
-``device="cpu"`` the host still re-hashes).  The JAX package's
-``JobPipeline`` (batch-global epoch jobs) comes with the epoch programs
-that call it, its API-side arbiter turnstile with the HTTP API.
+``device="cpu"`` the host still re-hashes).  :class:`JobPipeline` runs
+batch-global jobs (the epoch programs: registry-wide sums, nothing to
+coalesce) FIFO under the same arbiter; the supervised call inside the job
+keeps the direct path's failure rules.  The JAX package's API-side
+arbiter turnstile comes with the HTTP API.
 
 **Adaptive linger**: unless pinned (env
 ``LIGHTHOUSE_TPU_PIPELINE_LINGER_S`` or an explicit ``linger_s``), the
@@ -1043,13 +1049,121 @@ class HashPipeline:
         }
 
 
+# ------------------------------------------------------------- job pipeline
+
+
+class JobFuture(_FutureBase):
+    """Resolution handle for one pipelined device job (arbitrary result)."""
+
+    __slots__ = ()
+    _timeout_msg = "pipeline job result not available in time"
+
+
+class JobPipeline:
+    """FIFO pipeline for batch-global device jobs (the epoch ops) on one
+    device.
+
+    An epoch transition is one registry-wide dispatch — its sums span the
+    whole batch (``device_supervisor.NO_SPLIT_OPS``), so there is nothing
+    to coalesce; what enrolment buys is the ARBITER: an epoch boundary
+    queues for the same device slot block import and tree-hash traffic use,
+    instead of dispatching into their middle.  The submitted thunk is the
+    caller's full supervised call (watchdog, breaker and failure rules run
+    inside it), so results and errors are exactly the direct path's."""
+
+    def __init__(self, op: str, device="cuda"):
+        self.op = op
+        self.device = device
+        self._q: "queue.SimpleQueue[Optional[tuple]]" = queue.SimpleQueue()
+        self._shutdown = False
+        self._pending = 0
+        self._lock = threading.Lock()
+        self.jobs_total = 0
+        self._worker = threading.Thread(
+            target=self._run_loop, name=f"device-pipeline-job-{op}",
+            daemon=True)
+        self._worker.start()
+
+    def submit(self, fn, work: Optional[str] = None) -> JobFuture:
+        work = work or current_work_kind()
+        fut = JobFuture(work)
+        with self._lock:
+            if self._shutdown:
+                raise PipelineShutdown(f"{self.op}: pipeline is shut down")
+            self._pending += 1
+            self.jobs_total += 1
+            # enqueue under the lock (SimpleQueue.put never blocks): a job
+            # can then never land BEHIND shutdown's poison pill, which sets
+            # _shutdown under this same lock before putting None
+            self._q.put((fn, fut))
+        metrics.DEVICE_PIPELINE_GROUPS.inc(op=self.op, work=work)
+        metrics.DEVICE_PIPELINE_DEPTH.set(self._pending, op=self.op)
+        return fut
+
+    def _run_loop(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            fn, fut = item
+            try:
+                with ARBITER.slot(self.op):
+                    fut.set_result(fn())
+            except BaseException as err:  # noqa: BLE001 — marshalled
+                fut.set_error(err)
+            finally:
+                with self._lock:
+                    self._pending -= 1
+                metrics.DEVICE_PIPELINE_DEPTH.set(self._pending, op=self.op)
+                metrics.DEVICE_PIPELINE_BATCHES.inc(op=self.op)
+
+    def shutdown(self, timeout: float = 30.0) -> None:
+        with self._lock:
+            if self._shutdown:
+                return
+            self._shutdown = True
+            self._q.put(None)
+        self._worker.join(timeout=timeout)
+        # The lock-ordered put above guarantees every accepted job precedes
+        # the poison pill, so a clean worker exit leaves nothing behind;
+        # this sweep only matters if the join TIMED OUT on a hung worker —
+        # resolve whatever it abandoned so no caller blocks forever.
+        while True:
+            try:
+                item = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if item is None:
+                # leave the pill in place: a worker stuck past the join
+                # timeout may yet unstick, and swallowing its exit signal
+                # would park that thread on _q.get() forever
+                self._q.put(None)
+                break
+            _, fut = item
+            with self._lock:
+                self._pending -= 1
+            if not fut.done():
+                fut.set_error(PipelineShutdown(
+                    f"{self.op}: pipeline shut down before this job ran"))
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "op": self.op,
+                "device": str(self.device),
+                "pending_jobs": self._pending,
+                "jobs_total": self.jobs_total,
+            }
+
+
 # ----------------------------------------------------------- module wiring
 
 _LOCK = threading.Lock()
 _PIPELINE: Optional[DevicePipeline] = None
 _HASH_PIPELINE: Optional[HashPipeline] = None
+_JOB_PIPELINES: Dict[str, JobPipeline] = {}
 _ENABLED = os.environ.get("LIGHTHOUSE_TPU_DEVICE_PIPELINE", "") == "1"
-#: The card the pipeline's batches run on (set by :func:`enable`).
+#: The device new pipelines run on (set by :func:`enable`).
 _DEVICE = "cuda"
 
 
@@ -1057,6 +1171,16 @@ def _device_key(device) -> str:
     import torch
 
     return str(torch.device(device))
+
+
+def _takes(pipe, device) -> bool:
+    """Would a call for ``device`` (None: unset) run where it asked on
+    ``pipe``, the live pipeline (None: the one a call would start, on
+    ``_DEVICE``)?  Called under ``_LOCK``."""
+    if device is None:
+        return True
+    target = pipe.device if pipe is not None else _DEVICE
+    return _device_key(device) == _device_key(target)
 
 
 def get_pipeline() -> DevicePipeline:
@@ -1073,16 +1197,29 @@ def enabled() -> bool:
 
 
 def enable(device="cuda") -> None:
-    """Route ``bls.verify_signature_sets`` and the tree-hash seam's device
-    pair batches through the pipelines, their batches on ``device``.  The
-    port has no client builder yet, so the caller enables it.
-    ``LIGHTHOUSE_TPU_DEVICE_PIPELINE=0`` wins over callers.  A running
-    pipeline keeps its card until :func:`shutdown`."""
-    global _ENABLED, _DEVICE
+    """Route ``bls.verify_signature_sets``, the tree-hash seam's device
+    pair batches and the epoch jobs through the pipelines, their batches on
+    ``device``.  The port has no client builder yet, so the caller enables
+    it.  ``LIGHTHOUSE_TPU_DEVICE_PIPELINE=0`` wins over callers.  Pipelines
+    running on another device are shut down (their in-flight work still
+    resolves there); the next routed call starts its pipeline on
+    ``device``."""
+    global _ENABLED, _DEVICE, _PIPELINE, _HASH_PIPELINE, _JOB_PIPELINES
     if os.environ.get("LIGHTHOUSE_TPU_DEVICE_PIPELINE", "") == "0":
         return
-    _DEVICE = device
-    _ENABLED = True
+    key = _device_key(device)
+    with _LOCK:
+        _DEVICE = device
+        _ENABLED = True
+        stale = [p for p in (_PIPELINE, _HASH_PIPELINE, *_JOB_PIPELINES.values())
+                 if p is not None and _device_key(p.device) != key]
+        if _PIPELINE in stale:
+            _PIPELINE = None
+        if _HASH_PIPELINE in stale:
+            _HASH_PIPELINE = None
+        _JOB_PIPELINES = {op: p for op, p in _JOB_PIPELINES.items() if p not in stale}
+    for pipe in stale:
+        pipe.shutdown()
 
 
 def disable() -> None:
@@ -1095,19 +1232,19 @@ def routes(sets: list, seed, device=None) -> bool:
     seeds (reproducibility contracts), another device than the pipeline's
     and oversized batches keep the direct path; so does everything when
     the pipeline is off."""
-    return (
-        _ENABLED
-        and seed is None
-        and 0 < len(sets) <= MAX_GROUP_SETS
-        and (device is None or _device_key(device) == _device_key(_DEVICE))
-    )
+    if not (_ENABLED and seed is None and 0 < len(sets) <= MAX_GROUP_SETS):
+        return False
+    with _LOCK:
+        return _takes(_PIPELINE, device)
 
 
-def verify(sets: list) -> bool:
+def verify(sets: list, device=None) -> bool:
     """The api-seam entry: resolve the live pipeline WITHOUT resurrecting
     one that a racing ``shutdown()`` just tore down — a caller already past
     ``routes()`` must fall back to the direct path (the api seam catches
-    :class:`PipelineShutdown`), not leak a fresh thread pair post-stop."""
+    :class:`PipelineShutdown`), not leak a fresh thread pair post-stop.  A
+    live pipeline on another device than ``device`` (a racing
+    :func:`enable`) raises :class:`PipelineShutdown` too."""
     global _PIPELINE
     with _LOCK:
         pipe = _PIPELINE
@@ -1115,6 +1252,8 @@ def verify(sets: list) -> bool:
             if not _ENABLED:
                 raise PipelineShutdown("pipeline disabled mid-call")
             pipe = _PIPELINE = DevicePipeline("bls_verify", device=_DEVICE)
+        if not _takes(pipe, device):
+            raise PipelineShutdown("the pipeline runs on another device")
     return pipe.verify(sets)
 
 
@@ -1132,18 +1271,18 @@ def routes_hash(n_blocks: int, device=None) -> bool:
     hash pipeline?  Oversized batches and batches for another device than
     the pipeline's keep the direct supervised path; so does everything
     when the pipeline is off."""
-    return (
-        _ENABLED
-        and 0 < n_blocks <= MAX_HASH_GROUP_BLOCKS
-        and (device is None or _device_key(device) == _device_key(_DEVICE))
-    )
+    if not (_ENABLED and 0 < n_blocks <= MAX_HASH_GROUP_BLOCKS):
+        return False
+    with _LOCK:
+        return _takes(_HASH_PIPELINE, device)
 
 
-def hash_pairs(data: bytes, work: Optional[str] = None) -> bytes:
+def hash_pairs(data: bytes, work: Optional[str] = None, device=None) -> bytes:
     """Pair-hash ``data`` through the hash pipeline (the ``ops/tree_hash``
-    seam calls this after :func:`routes_hash`): same no-resurrection
-    discipline as :func:`verify` — a caller racing ``shutdown()`` gets
-    :class:`PipelineShutdown` and falls back to the direct path."""
+    seam calls this after :func:`routes_hash`): same no-resurrection and
+    same-device discipline as :func:`verify` — a caller racing
+    ``shutdown()`` or ``enable()`` gets :class:`PipelineShutdown` and falls
+    back to the direct path."""
     global _HASH_PIPELINE
     with _LOCK:
         pipe = _HASH_PIPELINE
@@ -1151,6 +1290,8 @@ def hash_pairs(data: bytes, work: Optional[str] = None) -> bytes:
             if not _ENABLED:
                 raise PipelineShutdown("pipeline disabled mid-call")
             pipe = _HASH_PIPELINE = HashPipeline(device=_DEVICE)
+        if not _takes(pipe, device):
+            raise PipelineShutdown("the hash pipeline runs on another device")
     fut = pipe.submit(data, work=work)
     try:
         return fut.result()
@@ -1163,35 +1304,76 @@ def hash_pairs(data: bytes, work: Optional[str] = None) -> bytes:
         )
 
 
+def routes_job(device) -> bool:
+    """Should a batch-global device job (the epoch ops) for ``device`` ride
+    a job pipeline — i.e. queue for the shared arbiter slot?  Only where
+    the job pipelines run on ``device``."""
+    if not _ENABLED:
+        return False
+    with _LOCK:
+        live = next(iter(_JOB_PIPELINES.values()), None)
+        return _takes(live, device)
+
+
+def run_job(op: str, fn, work: Optional[str] = None, device=None):
+    """Run ``fn`` (a full supervised device call for ``device``) on
+    ``op``'s job pipeline and return its result.  Raises
+    :class:`PipelineShutdown` when racing a shutdown, or an
+    :func:`enable` that moved the pipelines to another device — callers
+    fall back to running ``fn`` directly."""
+    with _LOCK:
+        pipe = _JOB_PIPELINES.get(op)
+        if pipe is None:
+            if not _ENABLED:
+                raise PipelineShutdown("pipeline disabled mid-call")
+            pipe = _JOB_PIPELINES[op] = JobPipeline(op, device=_DEVICE)
+        if not _takes(pipe, device):
+            raise PipelineShutdown(f"{op}: the job pipeline runs on another device")
+    fut = pipe.submit(fn, work=work)
+    try:
+        return fut.result()
+    finally:
+        tracing.record_span(
+            "pipeline_wait", start_pc=fut.submitted_pc,
+            hist=metrics.DEVICE_PIPELINE_WAIT_SECONDS,
+            hist_labels={"op": op}, work=fut.work,
+        )
+
+
 def summary() -> Optional[dict]:
     """The pipeline section of ``device_telemetry.summary()`` (None until
     any pipeline has been started).  The bls pipeline's snapshot keys stay
-    top-level; the hash pipeline and the shared arbiter ride as
+    top-level; the hash and job pipelines and the shared arbiter ride as
     sub-sections."""
     with _LOCK:
         pipe = _PIPELINE
         hash_pipe = _HASH_PIPELINE
-    if pipe is None and hash_pipe is None:
+        jobs = dict(_JOB_PIPELINES)
+    if pipe is None and hash_pipe is None and not jobs:
         return None
     out = pipe.snapshot() if pipe is not None else {"op": "bls_verify"}
     out["hash"] = hash_pipe.snapshot() if hash_pipe is not None else None
+    out["jobs"] = {op: p.snapshot() for op, p in sorted(jobs.items())} or None
     out["arbiter"] = ARBITER.snapshot()
     return out
 
 
 def shutdown(timeout: float = 30.0) -> None:
-    """Disable routing and drain both process pipelines.  New verify and
-    hash calls fall back to the direct paths immediately; in-flight futures
-    still resolve."""
-    global _PIPELINE, _HASH_PIPELINE
+    """Disable routing and drain every process pipeline.  New verify, hash
+    and job calls fall back to the direct paths immediately; in-flight
+    futures still resolve."""
+    global _PIPELINE, _HASH_PIPELINE, _JOB_PIPELINES
     disable()
     with _LOCK:
         pipe, _PIPELINE = _PIPELINE, None
         hash_pipe, _HASH_PIPELINE = _HASH_PIPELINE, None
+        jobs, _JOB_PIPELINES = _JOB_PIPELINES, {}
     if pipe is not None:
         pipe.shutdown(timeout=timeout)
     if hash_pipe is not None:
         hash_pipe.shutdown(timeout=timeout)
+    for job_pipe in jobs.values():
+        job_pipe.shutdown(timeout=timeout)
 
 
 def reset_for_tests() -> None:

@@ -80,23 +80,37 @@ STATE_CODES = {STATE_CLOSED: 0, STATE_OPEN: 1, STATE_HALF_OPEN: 2}
 #: Per-op dispatch deadlines (seconds).  Generous: the first batch of a
 #: process pays the ``nvcc`` build of the kernels inside its dispatch, and
 #: the watchdog exists to catch a *hung* device, not a slow first batch.
-#: The JAX package's other ops (epoch, shuffle, proposer, autotune) get
-#: their entries with their slices.
+#: The JAX package's autotune probe gets its entry with autotune.
 DEFAULT_DEADLINES = {
     "bls_verify": 300.0,
     "sha256_pairs": 120.0,
     "tree_hash": 120.0,
+    "epoch_deltas": 300.0,
+    "epoch_deltas_leak": 300.0,
+    # the fused boundary composes deltas + shuffle + proposer walk into one
+    # job; its first dispatch also builds the shuffle kernels
+    "epoch_boundary": 600.0,
+    "epoch_boundary_leak": 600.0,
+    "shuffle": 300.0,
+    "proposer_select": 300.0,
     "kzg_batch": 300.0,
 }
 DEFAULT_DEADLINE_S = 300.0
 
 #: Ops whose device programs compute batch-GLOBAL reductions (the kzg
-#: program tree-sums its random linear combination over the blob axis):
-#: the halves of a split are not independent sub-problems, so split-batch
+#: program tree-sums its random linear combination over the blob axis; the
+#: epoch deltas sum participating increments over the registry): the
+#: halves of a split are not independent sub-problems, so split-batch
 #: retry is forbidden for them no matter what a caller passes.  Failures
-#: for these ops go straight to the host fallback.  Must stay in sync with
+#: for these ops go straight to the failure route.  Must stay in sync with
 #: the ``reduces_over_batch`` entries in ``ops/batch_axes.py``.
-NO_SPLIT_OPS = frozenset({"kzg_batch"})
+NO_SPLIT_OPS = frozenset({
+    "epoch_deltas", "epoch_deltas_leak", "kzg_batch",
+    # the fused boundary embeds the same registry-wide sums; the shuffle
+    # and proposer walks are whole-permutation computations — no half of
+    # a swap-or-not network is a smaller swap-or-not network
+    "epoch_boundary", "epoch_boundary_leak", "shuffle", "proposer_select",
+})
 
 
 class DispatchTimeout(RequeueWork):

@@ -314,10 +314,9 @@ def host_fallback_counts() -> Dict[str, int]:
         return dict(_FALLBACKS)
 
 
-# Fused-epoch duty-cache priming tally (the JAX package's
-# per_epoch._prime_duty_caches): how often the fused boundary's precomputed
+# Fused-epoch duty-cache priming tally (``consensus/per_epoch.
+# _prime_duty_caches``): how often the fused boundary's precomputed
 # shuffling/proposers seeded the caches vs. were discarded, by reason.
-# Empty until the port's epoch programs land and report here.
 _BOUNDARY_PRIMES: Dict[str, int] = {}
 _BOUNDARY_PRIMES_LOCK = threading.Lock()
 
@@ -454,8 +453,7 @@ def summary() -> dict:
         "programs": COMPILE_CACHE.inventory(),
         "occupancy": occ,
         "host_fallbacks": host_fallback_counts(),
-        # Fused epoch boundary: duty-cache priming outcomes (empty until
-        # the epoch programs are ported).
+        # Fused epoch boundary: duty-cache priming outcomes.
         "boundary_primes": boundary_prime_counts(),
         # Async device pipelines (device_pipeline.py): pending depth, fill
         # and linger of the coalescing layers feeding the batches above,

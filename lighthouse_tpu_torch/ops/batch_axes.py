@@ -54,4 +54,71 @@ BATCH_AXES = {
         "notes": "tree-sum lincombs reduce the blob axis into one "
                  "2-pairing",
     },
+    "lighthouse_tpu_torch/ops/epoch_device.py:_deltas_kernel": {
+        "op": "epoch_deltas",
+        "batch_axis": 0,
+        "batched_args": [
+            "eff_bal", "activation_epoch", "exit_epoch",
+            "withdrawable_epoch", "slashed", "prev_part", "inactivity",
+        ],
+        "replicated_args": [
+            "previous_epoch", "base_reward_per_increment",
+            "total_active_balance", "increment", "inactivity_score_bias",
+            "inactivity_score_recovery_rate", "quotient",
+        ],
+        "reduces_over_batch": True,
+        "out_batched": True,
+        "notes": "participating-increment sums span the whole registry "
+                 "(NO_SPLIT_OPS)",
+    },
+    "lighthouse_tpu_torch/ops/shuffle_device.py:_shuffle_kernel": {
+        "op": "shuffle",
+        "batch_axis": 0,
+        "batched_args": ["values"],
+        "replicated_args": ["pivots", "digests", "n_live"],
+        "reduces_over_batch": True,
+        "out_batched": True,
+        "notes": "swap-or-not rounds gather partner lanes across the whole "
+                 "index array (a[flip]): the batch is never split "
+                 "(NO_SPLIT_OPS)",
+    },
+    "lighthouse_tpu_torch/ops/shuffle_device.py:_proposer_kernel": {
+        "op": "proposer_select",
+        "batch_axis": 0,
+        "batched_args": ["eff_act"],
+        "replicated_args": [
+            "seed_words", "pivots", "rbytes", "m_live", "max_eb",
+        ],
+        "reduces_over_batch": True,
+        "out_batched": False,
+        "notes": "the candidate walk gathers effective balances at "
+                 "shuffle-derived positions spanning the whole active "
+                 "list; outputs are (S,) per-slot scalars",
+    },
+    "lighthouse_tpu_torch/ops/shuffle_device.py:_boundary_kernel": {
+        "op": "epoch_boundary",
+        "batch_axis": 0,
+        "batched_args": [
+            "eff_bal", "activation_epoch", "exit_epoch",
+            "withdrawable_epoch", "slashed", "prev_part", "inactivity",
+            "balance", "act_elig_epoch", "eb_cap", "active_idx",
+        ],
+        "replicated_args": [
+            "sh_pivots", "sh_digests", "seed_words", "prop_pivots",
+            "rbytes", "previous_epoch", "base_reward_per_increment",
+            "total_active_balance", "increment", "inactivity_score_bias",
+            "inactivity_score_recovery_rate", "quotient", "current_epoch",
+            "downward", "upward", "ejection_balance", "far_future",
+            "finalized_epoch", "max_eb", "queue_lo", "queue_hi", "m_live",
+        ],
+        "reduces_over_batch": True,
+        "out_batched": [
+            True, True, True, True, True, True,  # per-validator arrays
+            True,          # shuffled active list (same padded batch axis)
+            False, False,  # per-slot proposer table + found flags
+        ],
+        "notes": "fused boundary: deltas sums span the registry AND the "
+                 "shuffle/proposer stages gather across lanes — "
+                 "NO_SPLIT_OPS",
+    },
 }

@@ -10,8 +10,9 @@ source of ``KERNEL_SOURCES`` at once, one process per source
 by each source's hash), and notes each build in the device-telemetry
 mirror through ``device_telemetry.note_warmup`` as its own entry: a
 **hit** when an up-to-date library was found, a **miss** when ``nvcc``
-ran.  ``cuda_fq.library`` and ``cuda_sha.library`` build through here on
-first use, so the first kernel either of them needs builds both.
+ran.  ``cuda_fq.library``, ``cuda_sha.library`` and ``cuda_epoch.library``
+build through here on first use, so the first kernel any of them needs
+builds all three.
 
 The JAX package's opt-in bucket warmup (``LIGHTHOUSE_TPU_AOT_WARMUP``) is
 not ported: no first-dispatch cost of a bucket that a warmup would remove
@@ -29,6 +30,7 @@ from .cuda_build import CSRC_DIR, build
 KERNEL_SOURCES = {
     "fq_mul": (CSRC_DIR / "fq_mul.cu", "cuda_fq_build"),
     "sha256": (CSRC_DIR / "sha256.cu", "cuda_sha_build"),
+    "shuffle": (CSRC_DIR / "shuffle.cu", "cuda_epoch_build"),
 }
 
 

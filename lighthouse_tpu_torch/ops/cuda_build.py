@@ -1,11 +1,12 @@
 """The nvcc build of the port's hand-written CUDA sources.
 
 Each source under ``lighthouse_tpu_torch/csrc/`` (``fq_mul.cu``,
-``sha256.cu``) has a plain-C interface and is compiled by ``nvcc`` for
-``sm_90a`` into its own shared library in ``lighthouse_tpu_torch/build/``
-(gitignored), named by the source's stem and the hash of its text and
-flags, then loaded with ``ctypes`` by its wrapper module (``cuda_fq.py``,
-``cuda_sha.py``).  ``ops/compile_cache.build_kernels`` builds every source
+``sha256.cu``, ``shuffle.cu``) has a plain-C interface and is compiled by
+``nvcc`` for ``sm_90a`` into its own shared library in
+``lighthouse_tpu_torch/build/`` (gitignored), named by the source's stem
+and the hash of its text, its headers' and the flags, then loaded with
+``ctypes`` by its wrapper module (``cuda_fq.py``, ``cuda_sha.py``,
+``cuda_epoch.py``).  ``ops/compile_cache.build_kernels`` builds every source
 at once, one ``nvcc`` per source.
 """
 
@@ -46,7 +47,12 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library built from ``source``, named by the hash of its text,
+    the text of the headers beside it (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:12]}.so"
 
 

@@ -1,0 +1,274 @@
+"""Epoch-processing deltas on the card: the fused per-validator pass.
+
+The port of ``lighthouse_tpu/ops/epoch_device.py``.  The altair+ epoch
+transition's per-validator math — inactivity-score updates,
+participation-flag rewards, penalties, inactivity penalties — as one
+elementwise PyTorch program over the ``EpochArrays`` contract
+(``consensus/per_epoch.py``): the analog of the reference's
+``single_pass.rs`` fused epoch loop.  At 2^20 validators the pass is
+memory-bound vector arithmetic that torch has a CUDA op for at every step
+(``where``, ``minimum``, floor division and sums on int64), so it has no
+hand-written kernel.
+
+Epoch math needs 64-bit integers (effective balances are ~3.2e10 gwei and
+reward intermediates reach ~1e13): every tensor is int64 (``bool`` for
+masks), and every division floors (``torch.div(..., rounding_mode=
+"floor")``), as ``jnp``'s ``//`` does.
+
+Shape discipline: registries dispatch at the JAX package's power-of-two
+**registry buckets** (:data:`N_BUCKETS`, through 2^20 validators), padded
+with never-active rows (far-future activation epoch, zero balance) that
+are ineligible for every flag mask and therefore contribute exactly zero
+to the registry-wide participating-increment sums.
+
+Semantics are bit-identical to the numpy path and to the JAX program (same
+floor divisions, same masks; ``tests/test_torch_epoch.py``).  Not ported:
+the JAX package's device-mesh branch and its autotune vocabulary
+enrolment (ROADMAP A4.1).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..types.spec import (
+    PARTICIPATION_FLAG_WEIGHTS,
+    TIMELY_HEAD_FLAG_INDEX,
+    TIMELY_TARGET_FLAG_INDEX,
+    WEIGHT_DENOMINATOR,
+)
+from .devices import on_device, resolve_device, wait_for
+
+
+def _floor_div(a, b):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _deltas_core(
+    eff_bal,            # (n,) int64 gwei
+    activation_epoch,   # (n,) int64
+    exit_epoch,         # (n,) int64
+    withdrawable_epoch, # (n,) int64
+    slashed,            # (n,) bool
+    prev_part,          # (n,) int64 flag bits
+    inactivity,         # (n,) int64
+    previous_epoch,     # int
+    base_reward_per_increment,  # int
+    total_active_balance,       # int
+    increment,          # int
+    inactivity_score_bias,      # int
+    inactivity_score_recovery_rate,  # int
+    quotient,           # int
+    *,
+    in_leak: bool,
+):
+    """Body of the deltas pass — shared between the standalone
+    :func:`_deltas_kernel` entry and the fused epoch-boundary program
+    (``ops/shuffle_device.py:_boundary_kernel``).  Returns
+    ``(new_inactivity, balance_delta)``."""
+    active_prev = (activation_epoch <= previous_epoch) & (previous_epoch < exit_epoch)
+    eligible = active_prev | (slashed & (previous_epoch + 1 < withdrawable_epoch))
+
+    def flag_mask(flag_index):
+        return (((prev_part >> flag_index) & 1) == 1) & active_prev & ~slashed
+
+    prev_target = flag_mask(TIMELY_TARGET_FLAG_INDEX)
+
+    # --- inactivity updates (spec process_inactivity_updates)
+    delta = torch.where(prev_target, -inactivity.clamp(max=1), inactivity_score_bias)
+    new_inactivity = inactivity + torch.where(eligible, delta, 0)
+    if not in_leak:
+        new_inactivity = new_inactivity - torch.where(
+            eligible, new_inactivity.clamp(max=inactivity_score_recovery_rate), 0)
+
+    # --- rewards and penalties (spec process_rewards_and_penalties)
+    base_reward = _floor_div(eff_bal, increment) * base_reward_per_increment
+    active_increments = total_active_balance // increment
+    rewards = torch.zeros_like(eff_bal)
+    penalties = torch.zeros_like(eff_bal)
+    for flag_index, weight in enumerate(PARTICIPATION_FLAG_WEIGHTS):
+        participating = flag_mask(flag_index)
+        participating_increments = _floor_div(
+            torch.where(participating, eff_bal, 0).sum(), increment)
+        if not in_leak:
+            flag_rewards = _floor_div(
+                base_reward * weight * participating_increments,
+                active_increments * WEIGHT_DENOMINATOR)
+            rewards = rewards + torch.where(eligible & participating, flag_rewards, 0)
+        if flag_index != TIMELY_HEAD_FLAG_INDEX:
+            penalties = penalties + torch.where(
+                eligible & ~participating,
+                _floor_div(base_reward * weight, WEIGHT_DENOMINATOR), 0)
+    inactivity_penalty = _floor_div(eff_bal * new_inactivity, inactivity_score_bias * quotient)
+    penalties = penalties + torch.where(eligible & ~prev_target, inactivity_penalty, 0)
+    return new_inactivity, rewards - penalties
+
+
+def _deltas_kernel(
+    eff_bal, activation_epoch, exit_epoch, withdrawable_epoch, slashed,
+    prev_part, inactivity, previous_epoch, base_reward_per_increment,
+    total_active_balance, increment, inactivity_score_bias,
+    inactivity_score_recovery_rate, quotient, *, in_leak: bool,
+):
+    """The deltas program (the JAX package's jitted ``_deltas_kernel``):
+    plain PyTorch on the tensors' device."""
+    return _deltas_core(
+        eff_bal, activation_epoch, exit_epoch, withdrawable_epoch, slashed,
+        prev_part, inactivity, previous_epoch, base_reward_per_increment,
+        total_active_balance, increment, inactivity_score_bias,
+        inactivity_score_recovery_rate, quotient, in_leak=in_leak,
+    )
+
+
+def _balance_core(
+    balance,            # (n,) int64 post-delta balances
+    eff_bal,            # (n,) int64 current effective balances
+    activation_epoch,   # (n,) int64
+    exit_epoch,         # (n,) int64
+    act_elig_epoch,     # (n,) int64 activation_eligibility_epoch
+    eb_cap,             # (n,) int64 per-validator effective-balance cap
+    current_epoch,      # int
+    increment,          # int
+    downward,           # int hysteresis downward threshold
+    upward,             # int hysteresis upward threshold
+    ejection_balance,   # int
+    far_future,         # int FAR_FUTURE_EPOCH (clamped to int64)
+    finalized_epoch,    # int
+    queue_lo,           # int activation-queue eligibility low bound
+    queue_hi,           # int activation-queue eligibility high bound
+):
+    """Effective-balance hysteresis + registry-update masks, the device
+    half of ``per_epoch._process_effective_balance_updates`` /
+    ``_process_registry_updates``.  Bucket-pad rows (zero balances,
+    activation epoch ``_PAD_ACTIVATION_EPOCH``, eligibility epoch 0,
+    cap 1) satisfy none of the masks and keep a zero effective balance.
+
+    Returns ``(new_eff, ejection_mask, queue_mask, activation_mask)``.
+    """
+    needs = (balance + downward < eff_bal) | (eff_bal + upward < balance)
+    new_eff = torch.where(
+        needs,
+        torch.minimum(balance - torch.remainder(balance, increment), eb_cap),
+        eff_bal,
+    )
+    active_cur = (activation_epoch <= current_epoch) & (current_epoch < exit_epoch)
+    ejection_mask = active_cur & (eff_bal <= ejection_balance)
+    queue_mask = (
+        (act_elig_epoch == far_future)
+        & (eff_bal >= queue_lo)
+        & (eff_bal <= queue_hi)
+    )
+    activation_mask = (act_elig_epoch <= finalized_epoch) & (activation_epoch == far_future)
+    return new_eff, ejection_mask, queue_mask, activation_mask
+
+
+#: Epoch far beyond any reachable epoch: bucket-pad rows use it as their
+#: activation epoch so they are never active/eligible and contribute
+#: exactly zero to every registry-wide sum.
+_PAD_ACTIVATION_EPOCH = 1 << 62
+
+#: Power-of-two registry buckets through 2^20 validators (the JAX
+#: package's).  A registry past the top bucket dispatches at its exact
+#: size.
+N_BUCKETS = (64, 256, 1024, 4096, 16384, 65536, 262144, 1048576)
+
+#: Per-pad-row fill values for the batched argument tuple (eff_bal,
+#: activation, exit, withdrawable, slashed, prev_part, inactivity): a row
+#: that is never active, never eligible, carries no balance and no flags.
+_PAD_FILLS = (0, _PAD_ACTIVATION_EPOCH, 0, 0, False, 0, 0)
+
+
+def _bucket(n: int) -> int:
+    """The registry bucket for ``n`` validators (exact size past the top)."""
+    for b in N_BUCKETS:
+        if n <= b:
+            return b
+    return n
+
+
+def grow_rows(a: np.ndarray, rows: int, fill) -> np.ndarray:
+    """``a`` padded with ``fill`` rows to ``rows`` rows."""
+    out = np.full((rows,) + a.shape[1:], fill, dtype=a.dtype)
+    out[: a.shape[0]] = a
+    return out
+
+
+def fault_checks(op: str, nb: int) -> None:
+    """The fault-injection points of a device dispatch of ``op`` at bucket
+    ``nb``: ``device.compile`` before its first dispatch, then
+    ``device.dispatch``."""
+    from .. import device_telemetry, fault_injection
+
+    if fault_injection.ACTIVE:
+        if not device_telemetry.COMPILE_CACHE.seen(op, (nb,)):
+            fault_injection.check("device.compile", op=op)
+        fault_injection.check("device.dispatch", op=op)
+
+
+def epoch_deltas_device(
+    arrays,
+    prev_part: np.ndarray,
+    inactivity: np.ndarray,
+    *,
+    previous_epoch: int,
+    in_leak: bool,
+    base_reward_per_increment: int,
+    total_active_balance: int,
+    quotient: int,
+    spec,
+    device="cuda",
+):
+    """numpy in, numpy out — the device analog of the per_epoch numpy block,
+    on ``device`` (``"cuda"``; ``"cpu"`` runs the same program on the CPU).
+    Returns ``(new_inactivity, balance_delta)`` (int64 arrays).
+
+    The registry pads to its power-of-two bucket (:data:`N_BUCKETS`) with
+    never-active rows (far-future activation: ineligible for every flag
+    mask, so the participating-increment sums are untouched); the pad rows
+    are sliced back off the outputs."""
+    from .. import device_telemetry
+
+    device = resolve_device(device)
+    op = "epoch_deltas_leak" if in_leak else "epoch_deltas"
+    n = int(np.asarray(arrays.effective_balance).shape[0])
+    nb = _bucket(n)
+    fault_checks(op, nb)
+    batched = (
+        np.asarray(arrays.effective_balance, dtype=np.int64),
+        np.asarray(arrays.activation_epoch, dtype=np.int64),
+        np.asarray(arrays.exit_epoch, dtype=np.int64),
+        np.asarray(arrays.withdrawable_epoch, dtype=np.int64),
+        np.asarray(arrays.slashed, dtype=bool),
+        np.asarray(prev_part, dtype=np.int64),
+        np.asarray(inactivity, dtype=np.int64),
+    )
+    scalars = (
+        int(previous_epoch), int(base_reward_per_increment), int(total_active_balance),
+        int(spec.effective_balance_increment), int(spec.inactivity_score_bias),
+        int(spec.inactivity_score_recovery_rate), int(quotient),
+    )
+    if nb != n:
+        batched = tuple(grow_rows(a, nb, f) for a, f in zip(batched, _PAD_FILLS))
+    t_dispatch = time.perf_counter()
+    with on_device(device):
+        out = _deltas_kernel(
+            *(torch.from_numpy(a).to(device) for a in batched), *scalars,
+            in_leak=bool(in_leak))
+    dispatch_s = time.perf_counter() - t_dispatch
+    compiled = device_telemetry.note_dispatch(op, (nb,), dispatch_s)
+    t_wait = time.perf_counter()
+    wait_for(device)
+    new_inactivity, balance_delta = (t[:n].cpu().numpy() for t in out)
+    device_telemetry.record_batch(
+        op=op,
+        shape=(nb,),
+        n_live=n,
+        stages={"dispatch": dispatch_s, "wait": time.perf_counter() - t_wait},
+        trace_id=device_telemetry.active_trace_id(),
+        compiled=compiled,
+    )
+    return (np.asarray(new_inactivity, dtype=np.int64),
+            np.asarray(balance_delta, dtype=np.int64))

@@ -359,7 +359,7 @@ def hash_pairs(data: bytes) -> bytes:
         out = None
         if device_pipeline.routes_hash(n, device=_DEVICE):
             try:
-                out = device_pipeline.hash_pairs(data)
+                out = device_pipeline.hash_pairs(data, device=_DEVICE)
             except device_pipeline.PipelineShutdown:
                 pass  # racing shutdown: fall through to the direct path
         if out is None:

@@ -13,6 +13,10 @@
   fills is filled (random roots, pubkeys and credentials, balances around
   32 ETH, participation flags, inactivity scores); pubkeys are random
   bytes, which hashing does not need to be valid keys.
+- :func:`boundary_state`: such a state one slot before an epoch boundary,
+  with work for every mask of the epoch transition (ejections, the
+  activation queue, pending activations, slashings) and a finalized
+  checkpoint set for an inactivity leak or not.
 """
 
 from __future__ import annotations
@@ -112,3 +116,64 @@ def append_validators(state, types, seed: int, count: int = 16) -> dict:
     state.current_epoch_participation.extend([0] * count)
     state.inactivity_scores.extend([0] * count)
     return {"appended": count}
+
+
+def boundary_state(n_validators: int, seed: int, leak: bool, preset: str = "mainnet"):
+    """A Deneb ``BeaconState`` of ``preset`` one slot before an epoch
+    boundary, made from ``seed`` (:func:`random_state`); returns
+    ``(state, types)``.  Effective balances follow the balances (32 ETH
+    at most, as hysteresis leaves them), and a few validators in each 4,096
+    give the transition's masks work: effective balances at the ejection
+    balance, validators in the activation queue, validators eligible for
+    activation, and slashed validators (withdrawable past this epoch's
+    slashings penalty, so every balance stays as the fused boundary saw it
+    and its proposers prime the duty cache).
+    The finalized checkpoint is set for an inactivity leak or not
+    (:func:`set_finality`).  The epoch after the boundary starts no
+    sync-committee period (``random_state``'s pubkeys are not curve
+    points) and no historical-summary period."""
+    from .types.spec import FAR_FUTURE_EPOCH
+
+    state, types = random_state(n_validators, seed, preset)
+    P = types.preset
+    current = state.slot // P.slots_per_epoch
+    next_epoch = current + 1
+    if next_epoch % P.epochs_per_sync_committee_period == 0 or \
+            next_epoch % (P.slots_per_historical_root // P.slots_per_epoch) == 0:
+        raise ValueError(f"epoch {next_epoch} starts a sync-committee or historical period")
+    state.slot += P.slots_per_epoch - 1
+    rng = np.random.default_rng(seed + 1)
+    n = n_validators
+    balances = np.asarray(state.balances, dtype=np.int64)
+    eff = np.minimum(balances - balances % _INCREMENT, _MAX_EFFECTIVE)
+    for v, e in zip(state.validators, eff.tolist()):
+        v.effective_balance = e
+    k = max(1, n // 4096)
+    picks = rng.choice(n, 4 * k, replace=False).tolist()
+    ejected, queued, pending, slashed = (picks[i * k:(i + 1) * k] for i in range(4))
+    for i in ejected:
+        state.validators[i].effective_balance = 16 * _INCREMENT
+        state.balances[i] = 16 * _INCREMENT
+    for i in queued + pending:
+        v = state.validators[i]
+        v.activation_eligibility_epoch = FAR_FUTURE_EPOCH if i in queued else 0
+        v.activation_epoch = FAR_FUTURE_EPOCH
+        v.effective_balance = _MAX_EFFECTIVE
+    for i in slashed:
+        v = state.validators[i]
+        v.slashed = True
+        v.exit_epoch = current + 2
+        v.withdrawable_epoch = current + P.epochs_per_slashings_vector // 2 + 1
+    set_finality(state, types, leak)
+    return state, types
+
+
+def set_finality(state, types, leak: bool) -> None:
+    """Put ``state``'s finalized checkpoint ten epochs back (the boundary's
+    transition then runs in an inactivity leak) or two, the justified
+    checkpoints one and two epochs after it."""
+    current = state.slot // types.preset.slots_per_epoch
+    finalized = current - (10 if leak else 2)
+    state.finalized_checkpoint = types.Checkpoint(epoch=finalized, root=bytes(32))
+    state.previous_justified_checkpoint = types.Checkpoint(epoch=finalized, root=bytes(32))
+    state.current_justified_checkpoint = types.Checkpoint(epoch=finalized + 1, root=bytes(32))

@@ -263,6 +263,7 @@ def host_sha(tmp_path_factory):
     (tmp / "sha256_host.cc").write_text(src)
     lib_path = tmp / "libsha256_host.so"
     res = subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+                          "-I", str(cuda_sha.SOURCE.parent),  # sha256_compress.cuh
                           "-o", str(lib_path), str(tmp / "sha256_host.cc")],
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr

@@ -367,7 +367,11 @@ def test_registry_agrees_with_jax():
             "reduces_over_batch", "out_batched")
     entries = ("ops/verify.py:_device_verify", "ops/kzg_device.py:_device_kzg_batch",
                "ops/sha256_device.py:_sha256_64byte_batch",
-               "ops/tree_hash.py:_tree_hash_subtrees")
+               "ops/tree_hash.py:_tree_hash_subtrees",
+               "ops/epoch_device.py:_deltas_kernel",
+               "ops/shuffle_device.py:_shuffle_kernel",
+               "ops/shuffle_device.py:_proposer_kernel",
+               "ops/shuffle_device.py:_boundary_kernel")
     for entry in entries:
         ours = batch_axes.BATCH_AXES[f"lighthouse_tpu_torch/{entry}"]
         theirs = jbatch_axes.BATCH_AXES[f"lighthouse_tpu/{entry}"]

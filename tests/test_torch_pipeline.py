@@ -407,6 +407,45 @@ def test_seeded_oversized_and_other_device_calls_bypass_pipeline():
     assert device_pipeline.summary() is None  # nothing started or fed a pipeline
 
 
+@pytest.mark.parametrize("first,then", [("cpu", "cuda"), ("cuda", "cpu")])
+def test_enable_on_another_device_retires_the_old_pipelines(first, then):
+    """``enable(first)``, both pipelines started there, then
+    ``enable(then)``: a call for ``then`` never rides a pipeline running on
+    ``first`` (the pipelines it reaches run on ``then``), and a call for
+    ``first`` keeps the direct path.  The pipelines run nothing here, so
+    no card is needed."""
+    device_pipeline.enable(device=first)
+    old = (device_pipeline.get_pipeline(), device_pipeline.get_hash_pipeline())
+    assert [p.device for p in old] == [first, first]
+    device_pipeline.enable(device=then)
+    for dev, rides in ((then, True), (first, False)):
+        assert device_pipeline.routes([_StubSet()], None, device=dev) is rides
+        assert device_pipeline.routes_hash(16, device=dev) is rides
+    new = (device_pipeline.get_pipeline(), device_pipeline.get_hash_pipeline())
+    assert [p.device for p in new] == [then, then]
+    assert not any(n is o for n, o in zip(new, old))
+    with pytest.raises(PipelineShutdown):
+        old[1].submit(b"\x00" * 64)
+
+
+def test_a_live_pipeline_on_another_device_takes_no_call(monkeypatch):
+    """A live pipeline whose device is not the caller's (an ``enable``
+    racing the call): ``routes`` reads the live pipeline's device under the
+    module lock and says no, and a caller already past ``routes`` gets
+    :class:`PipelineShutdown` (the seams fall back to the direct path)."""
+    device_pipeline.enable(device="cpu")
+    device_pipeline.get_pipeline()
+    device_pipeline.get_hash_pipeline()
+    monkeypatch.setattr(device_pipeline, "_DEVICE", "cuda")
+    assert not device_pipeline.routes([_StubSet()], None, device="cuda")
+    assert not device_pipeline.routes_hash(16, device="cuda")
+    assert device_pipeline.routes([_StubSet()], None, device="cpu")
+    with pytest.raises(PipelineShutdown):
+        device_pipeline.verify([_StubSet()], device="cuda")
+    with pytest.raises(PipelineShutdown):
+        device_pipeline.hash_pairs(b"\x00" * 64, device="cuda")
+
+
 def test_disabled_routes_nothing():
     set_backend("fake")
     assert not device_pipeline.enabled()

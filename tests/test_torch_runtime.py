@@ -304,11 +304,15 @@ def test_scripted_supervisor_sequence_matches_reference():
     jax_deadlines = jax_summary["supervisor"].pop("deadlines_s")
     port_deadlines = port_summary["supervisor"].pop("deadlines_s")
     assert port_deadlines == {op: jax_deadlines[op] for op in
-                              ("bls_verify", "sha256_pairs", "tree_hash", "kzg_batch")}
+                              ("bls_verify", "sha256_pairs", "tree_hash", "kzg_batch",
+                               "epoch_deltas", "epoch_deltas_leak", "epoch_boundary",
+                               "epoch_boundary_leak", "shuffle", "proposer_select")}
     assert port_summary == jax_summary
 
 
-@pytest.mark.parametrize("op", ["bls_verify", "kzg_batch", "sha256_pairs", "tree_hash"])
+@pytest.mark.parametrize("op", ["bls_verify", "kzg_batch", "sha256_pairs", "tree_hash",
+                                "epoch_deltas", "epoch_deltas_leak", "epoch_boundary",
+                                "epoch_boundary_leak", "shuffle", "proposer_select"])
 def test_deadlines_and_split_policy_match_reference(op):
     assert p_ds.DEFAULT_DEADLINES[op] == j_ds.DEFAULT_DEADLINES[op]
     assert (op in p_ds.NO_SPLIT_OPS) == (op in j_ds.NO_SPLIT_OPS)

@@ -81,7 +81,9 @@ def setup():
     return ref, j_types, build_types(minimal_spec(**_spec_kwargs()).preset)
 
 
-def _to_port(ref, p_types):
+def to_port(ref, p_types):
+    """The JAX package's state ``ref`` as the port's, by its SSZ bytes (the
+    one way the port's tests carry the JAX package's data across)."""
     return p_types.state[type(ref).fork_name].from_ssz_bytes(ref.as_ssz_bytes())
 
 
@@ -119,7 +121,7 @@ def test_interop_genesis_state_bytes_and_root_on_host_engine():
     j_types = j_build_types(j_spec.preset)
     ref = interop_genesis_state(16, j_types, j_spec, genesis_time=1_600_000_000)
     data = ref.as_ssz_bytes()
-    port = _to_port(ref, build_types(minimal_spec(**_spec_kwargs()).preset))
+    port = to_port(ref, build_types(minimal_spec(**_spec_kwargs()).preset))
     assert type(port).fork_name == type(ref).fork_name
     assert port.as_ssz_bytes() == data
     assert port.hash_tree_root() == ref.hash_tree_root()
@@ -133,7 +135,7 @@ def test_interop_genesis_state_root_on_device_engine():
     j_spec = j_minimal_spec(**_spec_kwargs())
     j_types = j_build_types(j_spec.preset)
     ref = interop_genesis_state(16, j_types, j_spec, genesis_time=1_600_000_000)
-    port = _to_port(ref, build_types(minimal_spec(**_spec_kwargs()).preset))
+    port = to_port(ref, build_types(minimal_spec(**_spec_kwargs()).preset))
     th.configure(enabled=True, device="cpu", device_min_subtrees=1, device_min_blocks=32)
     sd.install_device_hash(threshold_blocks=32, device="cpu")
     sd.reset_routes()
@@ -156,7 +158,7 @@ def test_state_root_defaults_to_the_card(setup):
     th.reset_for_tests()
     assert th.enabled()
     with pytest.raises(RuntimeError, match="is_available"):
-        _to_port(ref, p_types).hash_tree_root()
+        to_port(ref, p_types).hash_tree_root()
     with pytest.raises(RuntimeError, match="is_available"):
         th.DeviceLeafTree(1 << 10)
 
@@ -168,7 +170,7 @@ def test_hash_pairs_device_as_the_ssz_seam(setup):
     real = ssz._hash_pairs
     ssz.set_hash_pairs_impl(lambda data: sd.hash_pairs_device(data, device="cpu"))
     try:
-        assert _to_port(ref, p_types).hash_tree_root() == ref.hash_tree_root()
+        assert to_port(ref, p_types).hash_tree_root() == ref.hash_tree_root()
     finally:
         ssz.set_hash_pairs_impl(real)
 
@@ -178,12 +180,12 @@ def test_hash_pairs_device_as_the_ssz_seam(setup):
 
 def test_cached_equals_uncached_fresh(setup):
     ref, _, p_types = setup
-    _same(_to_port(ref, p_types), ref)
+    _same(to_port(ref, p_types), ref)
 
 
 def test_cached_tracks_mutations(setup):
     ref, _, p_types = setup
-    st, rt = _to_port(ref, p_types), ref.copy()
+    st, rt = to_port(ref, p_types), ref.copy()
     st.hash_tree_root()
 
     def both(fn):
@@ -219,7 +221,7 @@ def test_cached_tracks_mutations(setup):
 
 def test_cached_tracks_appends(setup):
     ref, _, p_types = setup
-    st, rt = _to_port(ref, p_types), ref.copy()
+    st, rt = to_port(ref, p_types), ref.copy()
     st.hash_tree_root()
     for s in (st, rt):
         v = s.validators[0].copy()
@@ -234,7 +236,7 @@ def test_cached_tracks_appends(setup):
 
 def test_copy_isolates_cache(setup):
     ref, _, p_types = setup
-    st = _to_port(ref, p_types)
+    st = to_port(ref, p_types)
     r0 = st.hash_tree_root()
     st2 = st.copy()
     st2.balances[0] += 1
@@ -246,7 +248,7 @@ def test_copy_isolates_cache(setup):
 
 def test_single_balance_change_is_olog_n(setup):
     ref, _, p_types = setup
-    st = _to_port(ref, p_types)
+    st = to_port(ref, p_types)
     st.hash_tree_root()
     calls = {"blocks": 0}
     real = ssz._hash_pairs
@@ -271,7 +273,7 @@ def test_larger_state_randomized_equivalence(engine):
     rt = interop_genesis_state(64, j_types, j_spec, genesis_time=1_600_000_000)
     if engine == "device":
         th.configure(enabled=True, device="cpu", device_min_subtrees=1, device_min_blocks=16)
-    st = _to_port(rt, build_types(minimal_spec(**_spec_kwargs()).preset))
+    st = to_port(rt, build_types(minimal_spec(**_spec_kwargs()).preset))
     st.hash_tree_root()
     rng = random.Random(7)
     for round_ in range(12):
@@ -306,7 +308,7 @@ def test_native_hash_pairs_matches_hashlib():
 
 def test_composite_list_caches_track_changes(setup):
     ref, j_types, p_types = setup
-    st, rt = _to_port(ref, p_types), ref.copy()
+    st, rt = to_port(ref, p_types), ref.copy()
     st.hash_tree_root()
     for k, (a, b, c) in enumerate(((b"\x01", 5, b"\x02"), (b"\x03", 6, b"\x04"))):
         st.eth1_data_votes.append(p_types.Eth1Data(
@@ -326,7 +328,7 @@ def test_composite_list_caches_track_changes(setup):
 
 def test_composite_list_cache_detects_in_place_mutation(setup):
     ref, j_types, p_types = setup
-    st, rt = _to_port(ref, p_types), ref.copy()
+    st, rt = to_port(ref, p_types), ref.copy()
     st.eth1_data_votes.append(p_types.Eth1Data(
         deposit_root=b"\x01" * 32, deposit_count=5, block_hash=b"\x02" * 32))
     rt.eth1_data_votes.append(j_types.Eth1Data(
