@@ -19,14 +19,20 @@ Phases, each of which raises on a failed check:
              card, word for word: sha256_pairs at n in PAIR_NS (up to the
              top bucket, 262,144 blocks, and the edges of its CUDA blocks),
              tree_hash_subtrees at m in SUBTREE_MS (up to 32,768 subtrees,
-             a 2^20-leaf level); digests also against hashlib on every row
-             up to 1,000 and on 1,000 seeded rows above that;
+             a 2^20-leaf level) and on both sides of each step of its
+             threads-a-subtree table, through the default entry and at every
+             T of ``cuda_sha.SUBTREE_THREADS``; the default entry's digests
+             also against hashlib on every row up to 1,000 and on 1,000
+             seeded rows above that;
    epoch-kernels — both epoch kernels against their plain versions on the
              card at each registry bucket up to 2^20 and one below it
              (EPOCH_NS): shuffle_round over the mainnet preset's 90 rounds,
              also against the host ``shuffle_list`` up to 65,536 lanes and
-             at 2^20; proposer_walk over 32 slots x 64 candidates, against
-             the host ``compute_shuffled_index`` at every size;
+             at 2^20; proposer_walk over 32 slots x 64 candidates at its
+             default lookahead, against the host ``compute_shuffled_index``
+             at every size, and at every lookahead of
+             ``cuda_epoch.WALK_LOOKAHEADS`` against its plain version at 63
+             and 2^20 with 90 and 10 rounds;
 4. verify  — ``crypto.bls.api.verify_signature_sets`` through the torch
              backend (default device, supervised) at 128 sets x 32 keys (valid -> True,
              one tampered set -> False) and 64 sets x 1 key (-> True); the
@@ -115,9 +121,14 @@ Phases, each of which raises on a failed check:
              192-lane KZG batch; each SHA-256 kernel at its top bucket and
              at every launch size of the [state] run, beside its bound and
              plain version, its launches per state root, and the native
-             host pair hasher's rate; each epoch kernel at its [epoch]
-             launch (a round of the 2^20 shuffle; the 32 x 64-lane walk)
-             beside its bound and plain version, and the two epoch PyTorch
+             host pair hasher's rate; the subtree kernel at every T at each
+             [state] size, in turns, and summed over the run's launches;
+             each epoch kernel at its [epoch] launch (a round of the 2^20
+             shuffle; the 32 x 64-lane walk) beside its bound and plain
+             version, the walk at every lookahead and alone on one lane
+             (its latency floor), in turns; the redesigned kernels' log
+             lines beside their earlier designs' times as PERF.md records
+             them (EARLIER_MS, not measured here); the two epoch PyTorch
              programs (deltas, the fused boundary) at 2^20, the boundary
              also on the kernels' plain versions and once under
              torch.profiler.  Kernel times are device times of
@@ -185,12 +196,25 @@ INT_OPS_PER_CLK_PER_SM = 64
 SMS = 132
 #: [hash-kernels] sizes: the pair kernel's block counts (its top bucket and
 #: the edges of its 256-thread CUDA blocks) and the subtree kernel's subtree
-#: counts (its top bucket, a 2^20-leaf level, and the edges of its
-#: 8-subtree CUDA blocks); hashlib checks every row up to HASHLIB_ALL rows
-#: and HASHLIB_ALL seeded rows above that.
+#: counts (its top bucket, a 2^20-leaf level, the edges of its 8-subtree
+#: CUDA blocks at T = 16, and both sides of each step of its T table, which
+#: steps at the caller's buckets 128 and 2,048); hashlib checks every row
+#: up to HASHLIB_ALL rows and HASHLIB_ALL seeded rows above that.
 PAIR_NS = (1, 31, 255, 256, 257, 511, 512, 513, 1000, 65536, 262144)
-SUBTREE_MS = (1, 3, 7, 8, 9, 15, 16, 17, 128, 2048, 32768)
+SUBTREE_MS = (1, 3, 7, 8, 9, 15, 16, 17, 128, 129, 2048, 2049, 32768)
 HASHLIB_ALL = 1000
+#: The earlier designs' times of the subtree kernel (16 threads a subtree,
+#: a level at a time) and the walk (one thread a lane, a round a step), as
+#: PERF.md §6 records them (a chip_smoke.py run on an NVIDIA H100 80GB HBM3,
+#: 700.00 W): printed in the [timing] log beside this run's times, and in
+#: no result, since this run does not measure them.  The subtree kernel at
+#: each [state] launch size and over the [state] run's 34 launches, the
+#: walk at 32 x 64 lanes x 90 rounds.
+EARLIER_MS = {
+    "tree_hash_subtrees": {"by_size": {8: 0.0148, 128: 0.0152, 2048: 0.0266, 32768: 0.3669},
+                           "state": 2.773},
+    "proposer_walk": {"ms": 0.1267},
+}
 #: [state]: validators in the registry (the order of mainnet's, the top of
 #: the JAX package's epoch buckets); the slot's changes (the JAX package's
 #: bench STATE_DIRTY_FRACTION of the balances, effective balances,
@@ -206,10 +230,14 @@ HASH_TREE_LEAVES = 1 << 18
 HASH_DIRTY_FRACTION = 0.01
 #: The epoch slice's two kernels (csrc/shuffle.cu).  A shuffle round moves
 #: 4 bytes in and 4 out a lane plus its digest row (one bit a lane); the
-#: proposer walk does one compression a lane a round (csrc/sha256_compress.cuh:
-#: 64 x 14 + 48 x 10 + 8 operations) on a few bytes of seeds and pivots.
+#: proposer walk does one compression a lane a round on a few bytes of seeds
+#: and pivots, of which rounds 0-7 and schedule words W16 .. W22 read only
+#: the seed and are done once a slot (csrc/sha256_compress.cuh: a round 14
+#: operations, a schedule step 10): 56 x 14 + 41 x 10 + 8 a lane a round,
+#: 8 x 14 + 7 x 10 a slot.
 SHUFFLE_SOURCE = "lighthouse_tpu_torch/csrc/shuffle.cu"
-WALK_OPS_PER_ROUND = 64 * 14 + 48 * 10 + 8
+WALK_OPS_PER_ROUND = 56 * 14 + 41 * 10 + 8
+WALK_OPS_PER_SLOT = 8 * 14 + 7 * 10
 EPOCH_KERNELS = {
     "shuffle_round": {"replaces": "lighthouse_tpu/ops/shuffle_device.py:112"},
     "proposer_walk": {"replaces": "lighthouse_tpu/ops/shuffle_device.py:186"},
@@ -223,6 +251,9 @@ EPOCH_SLOTS = 32
 EPOCH_NS = (1, 2, 63, 64, 255, 256, 1023, 1024, 4095, 4096, 16384, 65536, 262144,
             1048575, 1048576)
 EPOCH_HOST_MAX = 65536
+#: The walk's rounds checked at every lookahead: the mainnet and minimal
+#: presets' shuffle_round_count.
+WALK_CHECK_ROUNDS = (90, 10)
 EPOCH_VALIDATORS = 1 << 20
 EPOCH_FAULT_VALIDATORS = 4096
 #: The supervisor's counters whose deltas each fault case asserts.
@@ -787,20 +818,25 @@ def phase_hash_kernels() -> dict:
     for m in SUBTREE_MS:
         leaves = sha_words(rng, (m, 32, 8))
         x = torch.from_numpy(leaves.view(np.int32)).cuda()
-        k, p = cuda_sha.tree_hash_subtrees(x), cuda_sha.tree_hash_subtrees_plain(x)
-        torch.cuda.synchronize()
-        for d, (kk, pp) in enumerate(zip(k, p)):
-            err = int((kk.long() - pp.long()).abs().max())
-            max_err["tree_hash_subtrees"] = max(max_err["tree_hash_subtrees"], err)
-            if not torch.equal(kk, pp):
-                raise AssertionError(f"tree_hash_subtrees m={m} level {d}: kernel != plain")
-        rows = checked_rows(m)
-        golden = tree_hash._host_subtree_levels(leaves[rows])
-        for d, (kk, g) in enumerate(zip(k, golden)):
-            if not np.array_equal(kk.cpu().numpy().view(np.uint32)[rows], g):
-                raise AssertionError(f"tree_hash_subtrees m={m} level {d}: != hashlib")
+        p = cuda_sha.tree_hash_subtrees_plain(x)
+        for threads in (None,) + cuda_sha.SUBTREE_THREADS:
+            k = cuda_sha._tree_hash_subtrees_t(x, threads)
+            torch.cuda.synchronize()
+            for d, (kk, pp) in enumerate(zip(k, p)):
+                err = int((kk.long() - pp.long()).abs().max())
+                max_err["tree_hash_subtrees"] = max(max_err["tree_hash_subtrees"], err)
+                if not torch.equal(kk, pp):
+                    raise AssertionError(f"tree_hash_subtrees m={m} T={threads} level {d}: "
+                                         f"kernel != plain")
+            if threads is None:
+                rows = checked_rows(m)
+                golden = tree_hash._host_subtree_levels(leaves[rows])
+                for d, (kk, g) in enumerate(zip(k, golden)):
+                    if not np.array_equal(kk.cpu().numpy().view(np.uint32)[rows], g):
+                        raise AssertionError(f"tree_hash_subtrees m={m} level {d}: != hashlib")
         log(f"[hash-kernels] tree_hash_subtrees m={m}: all five levels equal the plain "
-            f"version; {len(rows)} subtrees equal hashlib")
+            f"version at T = {cuda_sha.subtree_threads(m)} (the table's) and at every T of "
+            f"{cuda_sha.SUBTREE_THREADS}; {len(rows)} subtrees equal hashlib")
     return max_err
 
 
@@ -1331,12 +1367,25 @@ def phase_epoch_kernels() -> dict:
             raise AssertionError(f"proposer_walk m={n}: != compute_shuffled_index (max err {err})")
         plain = ""
         if n in (EPOCH_NS[2], EPOCH_NS[-1]):
-            if not torch.equal(walk, cuda_epoch.proposer_walk_plain(sw, wp, k, n)):
-                raise AssertionError(f"proposer_walk m={n}: kernel != plain")
-            plain = " and its plain version"
+            for rounds in WALK_CHECK_ROUNDS:
+                if rounds == SHUFFLE_ROUNDS:
+                    tables = (sw, wp)
+                else:
+                    sw_r, wp_r, _ = psd.proposer_tables(seeds, rounds, n)
+                    tables = (torch.from_numpy(sw_r.view(np.int32)).cuda(),
+                              torch.from_numpy(wp_r).cuda())
+                want = cuda_epoch.proposer_walk_plain(*tables, k, n)
+                for look in (None,) + cuda_epoch.WALK_LOOKAHEADS:
+                    got = cuda_epoch._proposer_walk_k(*tables, k, n, look)
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"proposer_walk m={n} R={rounds} lookahead={look}: "
+                                             f"kernel != plain")
+            plain = (f" and its plain version at every lookahead of "
+                     f"{cuda_epoch.WALK_LOOKAHEADS} and {WALK_CHECK_ROUNDS} rounds")
         log(f"[epoch-kernels] n={n} (bucket {nb}): shuffle_round x{SHUFFLE_ROUNDS} equals its "
-            f"plain version{host}; proposer_walk {EPOCH_SLOTS} x {k} lanes equals "
-            f"compute_shuffled_index{plain}; {time.perf_counter() - t0:.2f} s")
+            f"plain version{host}; proposer_walk {EPOCH_SLOTS} x {k} lanes (lookahead "
+            f"{cuda_epoch.walk_lookahead()}) equals compute_shuffled_index{plain}; "
+            f"{time.perf_counter() - t0:.2f} s")
     return max_err
 
 
@@ -1588,6 +1637,34 @@ def phase_epoch_faults(device: str = "cuda") -> None:
         pe.configure(backend="device", fused_boundary=True, device="cuda")
 
 
+def walk_sweep(seed_words, pivots, k: int, m: int, bound_ms: float) -> dict:
+    """proposer_walk at every lookahead on the (S, R) tables, in turns, and
+    each lookahead's latency floor: one lane alone, so each of its
+    ceil(R / lookahead) steps is one warp's dependent chain of compression
+    rounds on an otherwise idle card."""
+    from lighthouse_tpu_torch.ops import cuda_epoch
+
+    s, rounds = pivots.shape
+    looks = cuda_epoch.WALK_LOOKAHEADS
+    walk = in_turns({look: (lambda look=look: cuda_epoch._proposer_walk_k(
+        seed_words, pivots, k, m, look)) for look in looks})
+    floor = in_turns({look: (lambda look=look: cuda_epoch._proposer_walk_k(
+        seed_words[:1].contiguous(), pivots[:1].contiguous(), 1, m, look))
+        for look in looks})
+    default = cuda_epoch.walk_lookahead()
+    log(f"[timing] proposer_walk at {s} x {k} lanes x {rounds} rounds by lookahead: "
+        + "; ".join(f"{look}: {mean(walk[look]):.4f} ms ({walk[look][0]:.4f}/{walk[look][1]:.4f}), "
+                    f"one lane {mean(floor[look]):.4f} ms ({-(-rounds // look)} steps, "
+                    f"{mean(floor[look]) / -(-rounds // look) * 1e3:.3f} us a step)"
+                    for look in looks)
+        + f"; the default {default}; bound {bound_ms:.4f} ms, the default "
+        f"{bound_ms / mean(walk[default]):.1%} of it; the earlier design "
+        f"{EARLIER_MS['proposer_walk']['ms']} ms (PERF.md, not measured here)")
+    return {"lookahead": default,
+            "ms_by_lookahead": {str(look): list(v) for look, v in walk.items()},
+            "floor_ms_by_lookahead": {str(look): list(v) for look, v in floor.items()}}
+
+
 def phase_epoch_timing(epoch_out: dict, max_err: dict, clock_mhz: float,
                        device: str = "cuda") -> tuple:
     """Each epoch kernel at its largest launch of the [epoch] run (device
@@ -1659,18 +1736,20 @@ def phase_epoch_timing(epoch_out: dict, max_err: dict, clock_mhz: float,
     ms = graph_ms(lambda: cuda_epoch.proposer_walk(seed_words, prop_pivots, k, m))
     plain_ms = graph_ms(lambda: cuda_epoch.proposer_walk_plain(seed_words, prop_pivots, k, m),
                         reps=1, rounds=2)
-    b_ms, b_by = bound(s * k * SHUFFLE_ROUNDS * WALK_OPS_PER_ROUND,
+    b_ms, b_by = bound(s * k * SHUFFLE_ROUNDS * WALK_OPS_PER_ROUND + s * WALK_OPS_PER_SLOT,
                        s * 32 + s * SHUFFLE_ROUNDS * 4 + s * k * 4)
     log(f"[timing] proposer_walk at {s} x {k} lanes x {SHUFFLE_ROUNDS} rounds: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; SM clock "
         f"{clock_mhz:.0f} MHz), {b_ms / ms:.1%} of bound ({s * k} lanes cannot fill the card)")
-    rows.append({"name": "proposer_walk", "route": "cuda", "source": SHUFFLE_SOURCE,
-                 "replaces": EPOCH_KERNELS["proposer_walk"]["replaces"],
-                 "launches": epoch_out["launches"]["proposer_walk"],
-                 "max_abs_err": max_err["proposer_walk"], "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "rows": s * k,
-                 "launches_per_boundary": epoch_out["launches"]["proposer_walk"]
-                 / len(epoch_out["plans"])})
+    row = {"name": "proposer_walk", "route": "cuda", "source": SHUFFLE_SOURCE,
+           "replaces": EPOCH_KERNELS["proposer_walk"]["replaces"],
+           "launches": epoch_out["launches"]["proposer_walk"],
+           "max_abs_err": max_err["proposer_walk"], "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "rows": s * k,
+           "launches_per_boundary": epoch_out["launches"]["proposer_walk"]
+           / len(epoch_out["plans"])}
+    row.update(walk_sweep(seed_words, prop_pivots, k, m, b_ms))
+    rows.append(row)
 
     # The PyTorch programs at 2^20.
     programs = {}
@@ -1696,7 +1775,8 @@ def phase_epoch_timing(epoch_out: dict, max_err: dict, clock_mhz: float,
     # walk tables; 3 int64, 3 bool and the int32 shuffling out.
     b_bytes = nb * (9 * 8 + 1 + 4) + sum(int(a.numel() * a.element_size()) for a in args[11:16]) \
         + nb * (3 * 8 + 3 + 4)
-    b_ms, b_by = bound(s * k * SHUFFLE_ROUNDS * WALK_OPS_PER_ROUND, b_bytes)
+    b_ms, b_by = bound(s * k * SHUFFLE_ROUNDS * WALK_OPS_PER_ROUND + s * WALK_OPS_PER_SLOT,
+                       b_bytes)
     programs["_boundary_kernel"] = {
         "replaces": "lighthouse_tpu/ops/shuffle_device.py:192", "rows": nb, "ms": boundary_ms,
         "plain_kernels_ms": boundary_plain_ms, "numpy_host_s": boundary_numpy_s,
@@ -1793,6 +1873,64 @@ def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, max_err: dict,
     return out
 
 
+def in_turns(variants: dict, **kw) -> dict:
+    """Device ms of each ``variants[name]()`` (graph replay), timed twice in
+    turns, forward then backward, in one call on one card: {name: (first,
+    second)}."""
+    from lighthouse_tpu_torch.bench_kernels import graph_ms
+
+    names = list(variants)
+    out = {name: [] for name in names}
+    for order in (names, names[::-1]):
+        for name in order:
+            out[name].append(graph_ms(variants[name], **kw))
+    return {name: tuple(v) for name, v in out.items()}
+
+
+def mean(pair) -> float:
+    return sum(pair) / len(pair)
+
+
+def subtree_sweep(state_out: dict, bound) -> dict:
+    """tree_hash_subtrees at every T of the kernel and at the table's
+    choice, at each size the [state] run launched (the caller's buckets)
+    and the top bucket, in turns; the sum over the [state] run's launches
+    at each T."""
+    import numpy as np
+    import torch
+
+    from lighthouse_tpu_torch.ops import cuda_sha
+
+    rng = np.random.default_rng(0x7E)
+    sizes = state_out["sizes"]["tree_hash_subtrees"]
+    by_t = {t: {} for t in ("table",) + cuda_sha.SUBTREE_THREADS}
+    for m in sorted(set(sizes) | {SUBTREE_MS[-1]}):
+        y = torch.from_numpy(sha_words(rng, (m, 32, 8)).view(np.int32)).cuda()
+        times = in_turns({t: (lambda t=t: cuda_sha._tree_hash_subtrees_t(
+            y, None if t == "table" else t)) for t in by_t})
+        for t, pair in times.items():
+            by_t[t][m] = pair
+        chosen = cuda_sha.subtree_threads(m)
+        fastest = min(cuda_sha.SUBTREE_THREADS, key=lambda t: mean(times[t]))
+        earlier = EARLIER_MS["tree_hash_subtrees"]["by_size"].get(m)
+        log(f"[timing] tree_hash_subtrees at m={m}: "
+            + ", ".join(f"T={t} {mean(p):.4f} ms ({p[0]:.4f}/{p[1]:.4f})"
+                        for t, p in times.items())
+            + f"; the table's T={chosen}, the fastest T={fastest}; bound {bound(m)[0]:.4f} ms, "
+            f"the table's {bound(m)[0] / mean(times['table']):.1%} of it; the earlier design "
+            + (f"{earlier} ms (PERF.md, not measured here)" if earlier is not None
+               else "not recorded"))
+    state_sums = {str(t): sum(mean(by_t[t][m]) * c for m, c in sizes.items()) for t in by_t}
+    log(f"[timing] tree_hash_subtrees over the [state] run's "
+        f"{sum(sizes.values())} launches: "
+        + ", ".join(f"T={t} {v:.4f} ms" for t, v in state_sums.items())
+        + f"; the earlier design {EARLIER_MS['tree_hash_subtrees']['state']} ms (PERF.md, "
+        "not measured here)")
+    return {"ms_by_threads": {str(t): {str(m): list(p) for m, p in v.items()}
+                              for t, v in by_t.items()},
+            "state_ms_by_threads": state_sums}
+
+
 def phase_hash_timing(state_out: dict, max_err: dict, clock_mhz: float) -> list:
     """Each SHA-256 kernel at its top bucket and at every launch size of the
     [state] run (device times replayed from a CUDA graph), beside its bound
@@ -1864,7 +2002,7 @@ def phase_hash_timing(state_out: dict, max_err: dict, clock_mhz: float) -> list:
             f"plain version at each size; per size kernel "
             f"{ {m: round(t, 4) for m, t in by_size.items()} }, plain "
             f"{ {m: round(t, 4) for m, t in plain_by_size.items()} }")
-        out.append({
+        row = {
             "name": name, "route": "cuda", "source": SHA_SOURCE,
             "replaces": spec["replaces"],
             "launches": launches,
@@ -1877,7 +2015,11 @@ def phase_hash_timing(state_out: dict, max_err: dict, clock_mhz: float) -> list:
             "state_sizes": {str(m): c for m, c in sorted(sizes.items())},
             "launches_per_root": launches / roots,
             "host_blocks_per_s": host_rate,
-        })
+        }
+        if name == "tree_hash_subtrees":
+            row.update(subtree_sweep(state_out, lambda m: bound(name, m)))
+            row["threads"] = cuda_sha.subtree_threads(n)
+        out.append(row)
     return out
 
 

@@ -1,6 +1,7 @@
 // The SHA-256 compression function on Hopper (sm_90a), shared by the port's
 // CUDA sources that hash: sha256.cu (the pair hash and the fused subtree
-// kernel) and shuffle.cu (the proposer walk's one-block digests).
+// kernel) and shuffle.cu (the proposer walk's one-block digests, from a
+// per-slot midstate).
 //
 // The compression is fully unrolled, so the message schedule is a ring of 16
 // words in registers, every index a constant, and every round constant an
@@ -9,7 +10,13 @@
 // schedule step 10 in the instruction forms the card has (a rotation one
 // funnel shift, a three-input XOR or the choose / majority function one LOP3,
 // two additions one IADD3): 64 x 14 + 48 x 10 + 8 = 1,384 operations a
-// compression, 904 where the schedule is constant and folds away.
+// compression, 904 where the schedule is constant and folds away.  What
+// bounds a kernel built on it is how many of its lanes have a compression to
+// run at once, not the compression: sha256_pairs_kernel, one independent
+// block a thread, runs at 94.5 % of the card's integer rate (PERF.md §6).
+// compress_rounds runs part of a compression on the working variables, so
+// a caller whose first message words are fixed (the proposer walk's seed)
+// can start later rounds from a stored midstate.
 //
 // Each source that includes this header gets its own copy of the table and
 // the functions (an anonymous namespace): the sources are built into
@@ -37,14 +44,18 @@ __constant__ uint32_t K[64] = {
 
 __device__ __forceinline__ uint32_t rotr(uint32_t x, int n) { return __funnelshift_r(x, x, n); }
 
-// One compression of the 16 message words `w` (used as the schedule ring,
-// so overwritten) into the state `st`.
-__device__ __forceinline__ void compress(uint32_t st[8], uint32_t w[16]) {
-  uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
-  uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
+// Rounds FIRST .. LAST - 1 of a compression on the working variables v
+// (a .. h), no feed-forward.  The ring w holds message word W_i in slot
+// i & 15; words from SCHED on are made by the schedule as the rounds reach
+// them (SCHED = 16 for a whole block; later where the caller has put
+// precomputed words W_16 .. W_{SCHED-1} in the ring).
+template <int FIRST, int LAST, int SCHED>
+__device__ __forceinline__ void compress_rounds(uint32_t v[8], uint32_t w[16]) {
+  uint32_t a = v[0], b = v[1], c = v[2], d = v[3];
+  uint32_t e = v[4], f = v[5], g = v[6], h = v[7];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    if (i >= 16) {
+  for (int i = FIRST; i < LAST; ++i) {
+    if (i >= SCHED) {
       // w[i] = w[i-16] + s0(w[i-15]) + w[i-7] + s1(w[i-2]); the ring's slot
       // i & 15 holds w[i-16] until it is overwritten here.
       const uint32_t w1 = w[(i - 15) & 15], w14 = w[(i - 2) & 15];
@@ -64,14 +75,25 @@ __device__ __forceinline__ void compress(uint32_t st[8], uint32_t w[16]) {
     b = a;
     a = t1 + t2;
   }
-  st[0] += a;
-  st[1] += b;
-  st[2] += c;
-  st[3] += d;
-  st[4] += e;
-  st[5] += f;
-  st[6] += g;
-  st[7] += h;
+  v[0] = a;
+  v[1] = b;
+  v[2] = c;
+  v[3] = d;
+  v[4] = e;
+  v[5] = f;
+  v[6] = g;
+  v[7] = h;
+}
+
+// One compression of the 16 message words `w` (used as the schedule ring,
+// so overwritten) into the state `st`.
+__device__ __forceinline__ void compress(uint32_t st[8], uint32_t w[16]) {
+  uint32_t v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = st[i];
+  compress_rounds<0, 64, 16>(v, w);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) st[i] += v[i];
 }
 
 // The SHA-256 initial hash value.

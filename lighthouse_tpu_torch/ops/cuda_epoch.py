@@ -9,8 +9,11 @@ Kernels (source ``lighthouse_tpu_torch/csrc/shuffle.cu``, built for
   bucket, launched once per round by :func:`shuffle_rounds`.  Replaces the
   XLA program ``lighthouse_tpu/ops/shuffle_device.py:_shuffle_kernel``.
 - ``proposer_walk``: the spec's candidate walk of (slot, candidate) lanes,
-  one SHA-256 block a round, by :func:`proposer_walk`.  Replaces the walk
-  of ``lighthouse_tpu/ops/shuffle_device.py:_proposer_kernel`` (its
+  one SHA-256 block a round, several rounds a step (the lookahead, one of
+  :data:`WALK_LOOKAHEADS`; the source's default on the main path, and
+  :func:`_proposer_walk_k` forces it for the tests and the card's timing),
+  by :func:`proposer_walk`.  Replaces the walk of
+  ``lighthouse_tpu/ops/shuffle_device.py:_proposer_kernel`` (its
   acceptance stays in PyTorch, ``ops/shuffle_device.py``).
 
 Values and pivots are int32 tensors, digest rows uint8, SHA words int32
@@ -26,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from collections import Counter
+from typing import Optional
 
 import torch
 
@@ -33,6 +37,11 @@ from .cuda_build import CSRC_DIR, check_cuda
 from .cuda_sha import _H0, _compress, _to_u32
 
 SOURCE = CSRC_DIR / "shuffle.cu"
+
+#: The proposer walk's lookaheads (rounds resolved a step), and its most
+#: rounds (the round is one byte of the hashed message).
+WALK_LOOKAHEADS = (1, 2, 3, 4)
+WALK_MAX_ROUNDS = 256
 
 #: Kernel launches per kernel, bumped where each kernel is launched and
 #: nowhere else (a shuffle of R rounds is R launches of ``shuffle_round``);
@@ -115,6 +124,10 @@ def load_library(path) -> ctypes.CDLL:
     lib.lt_shuffle_rounds.restype = cint
     lib.lt_proposer_walk.argtypes = [ptr, ptr, ptr, cint, cint, cint, cint, ptr]
     lib.lt_proposer_walk.restype = cint
+    lib.lt_proposer_walk_k.argtypes = [ptr, ptr, ptr, cint, cint, cint, cint, cint, ptr]
+    lib.lt_proposer_walk_k.restype = cint
+    lib.lt_walk_lookahead.argtypes = []
+    lib.lt_walk_lookahead.restype = cint
     lib.lt_error_string.argtypes = [cint]
     lib.lt_error_string.restype = ctypes.c_char_p
     return lib
@@ -189,11 +202,25 @@ def shuffle_rounds(values: torch.Tensor, pivots: torch.Tensor, digests: torch.Te
     return out
 
 
+def walk_lookahead() -> int:
+    """The lookahead the CUDA walk takes on the main path (the source's
+    default; builds the library)."""
+    return int(library().lt_walk_lookahead())
+
+
 def proposer_walk(seed_words: torch.Tensor, pivots: torch.Tensor, k: int,
                   m_live: int) -> torch.Tensor:
     """The (S, k) final positions of the candidate walks over ``m_live``
     active validators: ``proposer_walk_kernel`` on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    version on a CPU tensor.  Each pivot counts mod max(m_live, 1)."""
+    return _proposer_walk_k(seed_words, pivots, k, m_live, None)
+
+
+def _proposer_walk_k(seed_words: torch.Tensor, pivots: torch.Tensor, k: int,
+                     m_live: int, lookahead: Optional[int]) -> torch.Tensor:
+    """:func:`proposer_walk` with the kernel's rounds a step forced to
+    ``lookahead`` (one of :data:`WALK_LOOKAHEADS`), for the tests and the
+    card's timing; None takes the source's default, as the main path does."""
     _check(seed_words, torch.int32, 2, "seed_words")
     _check(pivots, torch.int32, 2, "pivots")
     _same_device(seed_words, pivots)
@@ -201,16 +228,25 @@ def proposer_walk(seed_words: torch.Tensor, pivots: torch.Tensor, k: int,
     if seed_words.shape[1] != 8 or pivots.shape[0] != s:
         raise ValueError(f"seed_words {tuple(seed_words.shape)} and pivots "
                          f"{tuple(pivots.shape)} must be (S, 8) and (S, R)")
+    if pivots.shape[1] > WALK_MAX_ROUNDS:
+        raise ValueError(f"{pivots.shape[1]} rounds: the round is one byte, at most "
+                         f"{WALK_MAX_ROUNDS}")
+    if lookahead is not None and lookahead not in WALK_LOOKAHEADS:
+        raise ValueError(f"lookahead must be one of {WALK_LOOKAHEADS}, got {lookahead}")
     if seed_words.device.type == "cpu":
         return proposer_walk_plain(seed_words, pivots, k, m_live)
     out = torch.empty((s, k), dtype=torch.int32, device=seed_words.device)
     if s == 0 or k == 0:
         return out
     lib = library()
+    args = (seed_words.data_ptr(), pivots.data_ptr(), out.data_ptr(), s, pivots.shape[1], k,
+            int(m_live))
     with torch.cuda.device(seed_words.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.lt_proposer_walk(seed_words.data_ptr(), pivots.data_ptr(), out.data_ptr(),
-                                   s, pivots.shape[1], k, int(m_live), stream)
+        if lookahead is None:
+            err = lib.lt_proposer_walk(*args, stream)
+        else:
+            err = lib.lt_proposer_walk_k(*args, lookahead, stream)
     check_cuda(lib, err, "lt_proposer_walk")
     LAUNCHES["proposer_walk"] += 1
     SIZES["proposer_walk"][s * k] += 1

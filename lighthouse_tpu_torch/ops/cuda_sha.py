@@ -10,8 +10,11 @@ Kernels (source ``lighthouse_tpu_torch/csrc/sha256.cu``, built for
   program ``lighthouse_tpu/ops/sha256_device.py:_sha256_64byte_batch``.
 - ``tree_hash_subtrees``: the five interior levels of m 32-leaf Merkle
   subtrees in one launch, (m, 32, 8) leaf words -> (m, 16, 8), (m, 8, 8),
-  (m, 4, 8), (m, 2, 8), (m, 1, 8).  Replaces the XLA program
-  ``lighthouse_tpu/ops/tree_hash.py:_tree_hash_subtrees``.
+  (m, 4, 8), (m, 2, 8), (m, 1, 8), with T threads a subtree (T in
+  :data:`SUBTREE_THREADS`; the source's table picks T from m, and
+  :func:`_tree_hash_subtrees_t` forces it for the tests and the card's
+  timing).  Replaces
+  the XLA program ``lighthouse_tpu/ops/tree_hash.py:_tree_hash_subtrees``.
 
 Words are 32-bit values held in int32 tensors (torch's CUDA integer
 arithmetic has no uint32 form; the bits are the same).  Each wrapper
@@ -28,7 +31,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from collections import Counter
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +69,8 @@ _PAD_WORDS[15] = 512
 #: Leaves and interior levels of one subtree of the fused subtree kernel.
 SUBTREE_LEAVES = 32
 SUBTREE_DEPTH = 5
+#: The threads a subtree the subtree kernel can take.
+SUBTREE_THREADS = (2, 4, 8, 16)
 
 #: Kernel launches per wrapper, bumped where each kernel is launched and
 #: nowhere else; ``SIZES`` holds the number of those launches at each row
@@ -164,6 +169,10 @@ def load_library(path) -> ctypes.CDLL:
     for fn in (lib.lt_sha256_pairs, lib.lt_tree_hash_subtrees):
         fn.argtypes = [ptr, ptr, i64, ptr]
         fn.restype = cint
+    lib.lt_tree_hash_subtrees_t.argtypes = [ptr, ptr, i64, cint, ptr]
+    lib.lt_tree_hash_subtrees_t.restype = cint
+    lib.lt_subtree_threads.argtypes = [i64]
+    lib.lt_subtree_threads.restype = cint
     lib.lt_error_string.argtypes = [cint]
     lib.lt_error_string.restype = ctypes.c_char_p
     return lib
@@ -197,14 +206,14 @@ def _check(x: torch.Tensor, tail: tuple, name: str) -> None:
         raise ValueError(f"unsupported device {x.device}")
 
 
-def _launch(name: str, fn_name: str, x: torch.Tensor, out: torch.Tensor) -> None:
+def _launch(name: str, fn_name: str, x: torch.Tensor, out: torch.Tensor, *extra) -> None:
     n = x.shape[0]
     lib = library()
     # The C entry points launch on the thread's current device: select the
     # input's device for the call and restore the caller's afterwards.
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, fn_name)(x.data_ptr(), out.data_ptr(), n, stream)
+        err = getattr(lib, fn_name)(x.data_ptr(), out.data_ptr(), n, *extra, stream)
     check_cuda(lib, err, fn_name)
     LAUNCHES[name] += 1
     SIZES[name][n] += 1
@@ -222,17 +231,35 @@ def sha256_pairs(words: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def subtree_threads(m: int) -> int:
+    """The threads a subtree the CUDA kernel takes for m subtrees (the
+    table in ``csrc/sha256.cu``; builds the library)."""
+    return int(library().lt_subtree_threads(m))
+
+
 def tree_hash_subtrees(leaves: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """The five interior levels of (m, 32, 8) int32 subtree leaves: the CUDA
     kernel on a CUDA tensor (one launch, the levels as views of one
     buffer), the plain version on a CPU tensor."""
+    return _tree_hash_subtrees_t(leaves, None)
+
+
+def _tree_hash_subtrees_t(leaves: torch.Tensor, threads: Optional[int]
+                          ) -> Tuple[torch.Tensor, ...]:
+    """:func:`tree_hash_subtrees` with the kernel's threads a subtree forced
+    to ``threads`` (one of :data:`SUBTREE_THREADS`), for the tests and the
+    card's timing; None takes the source's table, as the main path does."""
     _check(leaves, (SUBTREE_LEAVES, 8), "leaves")
+    if threads is not None and threads not in SUBTREE_THREADS:
+        raise ValueError(f"threads must be one of {SUBTREE_THREADS}, got {threads}")
     if leaves.device.type == "cpu":
         return tree_hash_subtrees_plain(leaves)
     m = leaves.shape[0]
     out = torch.empty((SUBTREE_LEAVES - 1) * m * 8, dtype=torch.int32, device=leaves.device)
-    if m:
+    if m and threads is None:
         _launch("tree_hash_subtrees", "lt_tree_hash_subtrees", leaves, out)
+    elif m:
+        _launch("tree_hash_subtrees", "lt_tree_hash_subtrees_t", leaves, out, threads)
     levels, start = [], 0
     for d in range(SUBTREE_DEPTH):
         width = SUBTREE_LEAVES >> (d + 1)

@@ -63,7 +63,7 @@ from lighthouse_tpu_torch.ops import epoch_device as ped  # noqa: E402
 from lighthouse_tpu_torch.ops import shuffle_device as psd  # noqa: E402
 from lighthouse_tpu_torch.ops import tree_hash as th  # noqa: E402
 from test_torch_consensus import boundary_pair, chain_state  # noqa: E402
-from test_torch_hash import _HOST_PRELUDE  # noqa: E402
+from test_torch_hash import _HOST_PRELUDE, host_compile  # noqa: E402
 
 ROUNDS = 10  # the minimal preset's shuffle_round_count
 SLOTS = 8    # the minimal preset's slots_per_epoch
@@ -570,20 +570,9 @@ def host_shuffle(tmp_path_factory):
     """The CUDA source built by g++ into a shared library."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the CUDA source for the host")
-    src = cuda_epoch.SOURCE.read_text()
-    src = src.replace("#include <cuda_runtime.h>", _EPOCH_PRELUDE)
-    src, launches = re.subn(r"(\w+)<<<(.*?), (\w+), 0, [^>]*>>>\((.*?)\);",
-                            r"LAUNCH(\1, \2, \3, \4);", src)
-    assert launches == 2
-    tmp = tmp_path_factory.mktemp("host_shuffle")
-    (tmp / "shuffle_host.cc").write_text(src)
-    lib_path = tmp / "libshuffle_host.so"
-    res = subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                          "-I", str(cuda_epoch.SOURCE.parent), "-o", str(lib_path),
-                          str(tmp / "shuffle_host.cc")],
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr
-    return cuda_epoch.load_library(lib_path)
+    return cuda_epoch.load_library(host_compile(cuda_epoch.SOURCE, _EPOCH_PRELUDE,
+                                                tmp_path_factory.mktemp("host_shuffle"),
+                                                launches=2))
 
 
 @pytest.mark.parametrize("n,rounds", [(1, 10), (2, 10), (63, 10), (64, 3), (255, 1),
@@ -606,13 +595,46 @@ def test_cuda_source_shuffle_on_host_compiler(host_shuffle, n, rounds):
     assert out[nb] == 0x5A5A5A5A
 
 
-@pytest.mark.parametrize("m,slots,k", [(1, 2, 64), (5, 8, 64), (300, 8, 64), (70000, 3, 33)])
-def test_cuda_source_proposer_walk_on_host_compiler(host_shuffle, m, slots, k):
-    seeds = tuple(hashlib.sha256(b"walk-%d-%d" % (m, s)).digest() for s in range(slots))
-    seed_words, pivots, _ = psd.proposer_tables(seeds, ROUNDS, m, k)
+def _walk_seeds(m: int, slots: int, top_bits: bool) -> tuple:
+    """Slot seeds from hashlib; with ``top_bits`` every big-endian word of
+    each seed has its top bit set (the signed-word edge of the kernel's
+    per-slot prefix)."""
+    seeds = [hashlib.sha256(b"walk-%d-%d" % (m, s)).digest() for s in range(slots)]
+    if top_bits:
+        seeds = [bytes(b | 0x80 if i % 4 == 0 else b for i, b in enumerate(seed))
+                 for seed in seeds]
+    return tuple(seeds)
+
+
+def _walk_cases():
+    """(m, slots, k, rounds, lookahead, top_bits): the default lookahead at
+    the minimal preset's rounds (the first cases' ids unchanged), then every
+    lookahead at those cases, at 7 rounds (not a multiple of 2, 3 or 4) and
+    at the mainnet preset's 90, with top-bit seeds and m_live of 1 and 2."""
+    base = [(1, 2, 64), (5, 8, 64), (300, 8, 64), (70000, 3, 33)]
+    cases = [pytest.param(m, slots, k, ROUNDS, None, False, id=f"{m}-{slots}-{k}")
+             for m, slots, k in base]
+    for look in cuda_epoch.WALK_LOOKAHEADS:
+        extra = [(m, slots, k, ROUNDS, False) for m, slots, k in base]
+        extra += [(2, 4, 64, 7, True), (300, 4, 64, 7, False), (70000, 2, 33, 7, True),
+                  (1, 2, 8, 7, True), (1000, 2, 16, 90, True)]
+        cases += [pytest.param(m, slots, k, rounds, look, top,
+                               id=f"{m}-{slots}-{k}-R{rounds}-L{look}{'-top' if top else ''}")
+                  for m, slots, k, rounds, top in extra]
+    return cases
+
+
+@pytest.mark.parametrize("m,slots,k,rounds,lookahead,top_bits", _walk_cases())
+def test_cuda_source_proposer_walk_on_host_compiler(host_shuffle, m, slots, k, rounds, lookahead,
+                                                    top_bits):
+    seeds = _walk_seeds(m, slots, top_bits)
+    seed_words, pivots, _ = psd.proposer_tables(seeds, rounds, m, k)
     out = np.full(slots * k + 1, 0x5A5A5A5A, dtype=np.int32)
-    err = host_shuffle.lt_proposer_walk(seed_words.ctypes.data, pivots.ctypes.data,
-                                        out.ctypes.data, slots, ROUNDS, k, m, None)
+    args = (seed_words.ctypes.data, pivots.ctypes.data, out.ctypes.data, slots, rounds, k, m)
+    if lookahead is None:
+        err = host_shuffle.lt_proposer_walk(*args, None)
+    else:
+        err = host_shuffle.lt_proposer_walk_k(*args, lookahead, None)
     assert err == 0
     plain = cuda_epoch.proposer_walk_plain(torch.from_numpy(seed_words.view(np.int32)),
                                            torch.from_numpy(pivots), k, m)
@@ -620,7 +642,45 @@ def test_cuda_source_proposer_walk_on_host_compiler(host_shuffle, m, slots, k):
     assert out[-1] == 0x5A5A5A5A
     for s, seed in enumerate(seeds):
         for c in range(0, k, 7):
-            assert out[s * k + c] == compute_shuffled_index(c % m, m, seed, ROUNDS)
+            assert out[s * k + c] == compute_shuffled_index(c % m, m, seed, rounds)
+
+
+def test_cuda_source_walk_rejects_bad_lookahead_and_rounds(host_shuffle):
+    seed_words, pivots, _ = psd.proposer_tables((SEED,), ROUNDS, 5, 4)
+    out = np.zeros(4, dtype=np.int32)
+    args = (seed_words.ctypes.data, pivots.ctypes.data, out.ctypes.data, 1)
+    assert host_shuffle.lt_walk_lookahead() in cuda_epoch.WALK_LOOKAHEADS
+    for look in (0, 5):
+        assert host_shuffle.lt_proposer_walk_k(*args, ROUNDS, 4, 5, look, None) != 0
+    assert host_shuffle.lt_proposer_walk_k(*args, cuda_epoch.WALK_MAX_ROUNDS + 1, 4, 5, 1,
+                                           None) != 0
+    with pytest.raises(ValueError, match="lookahead"):
+        cuda_epoch._proposer_walk_k(torch.from_numpy(seed_words.view(np.int32)),
+                                    torch.from_numpy(pivots), 4, 5, 5)
+
+
+@pytest.mark.parametrize("lookahead", (None,) + cuda_epoch.WALK_LOOKAHEADS)
+@pytest.mark.parametrize("m", [1, 2, 300])
+def test_cuda_source_walk_takes_any_pivot_mod_m(host_shuffle, m, lookahead):
+    """Pivots outside [0, m_live) (negative, past m_live, at the int32
+    limits) give the plain version's walk: the kernel reduces each pivot as
+    it loads it, as the plain version does."""
+    slots, k, rounds = 3, 16, 10
+    seed_words, pivots, _ = psd.proposer_tables(_walk_seeds(m, slots, True), rounds, m, k)
+    rng = np.random.default_rng(m)
+    wild = pivots.astype(np.int64) + m * rng.integers(-1000, 1000, pivots.shape)
+    wild[0, :3] = (-1, m, np.iinfo(np.int32).min)
+    wild[1, :2] = (np.iinfo(np.int32).max, -m)
+    wild = wild.astype(np.int32)
+    out = np.zeros(slots * k, dtype=np.int32)
+    args = (seed_words.ctypes.data, wild.ctypes.data, out.ctypes.data, slots, rounds, k, m)
+    if lookahead is None:
+        assert host_shuffle.lt_proposer_walk(*args, None) == 0
+    else:
+        assert host_shuffle.lt_proposer_walk_k(*args, lookahead, None) == 0
+    sw = torch.from_numpy(seed_words.view(np.int32))
+    plain = cuda_epoch.proposer_walk_plain(sw, torch.from_numpy(wild), k, m)
+    assert np.array_equal(out.reshape(slots, k), plain.numpy())
 
 
 # ------------------------------------------------------------- on the card
@@ -641,13 +701,16 @@ def test_kernels_on_card():
         out = cuda_epoch.shuffle_rounds(values.cuda(), pivots.cuda(), digests.cuda(), n)
         assert torch.equal(out.cpu(), cuda_epoch.shuffle_rounds_plain(values, pivots, digests, n))
         assert cuda_epoch.LAUNCHES["shuffle_round"] == before + 90
-    for m in (1, 5, 300):
-        seeds = tuple(hashlib.sha256(b"card-%d-%d" % (m, s)).digest() for s in range(32))
-        seed_words, pivots, _ = psd.proposer_tables(seeds, 90, m)
-        sw = torch.from_numpy(seed_words.view(np.int32))
-        pv = torch.from_numpy(pivots)
-        out = cuda_epoch.proposer_walk(sw.cuda(), pv.cuda(), 64, m)
-        assert torch.equal(out.cpu(), cuda_epoch.proposer_walk_plain(sw, pv, 64, m))
+    for m in (1, 2, 5, 300):
+        for rounds in (90, 10, 7):
+            seeds = tuple(hashlib.sha256(b"card-%d-%d" % (m, s)).digest() for s in range(32))
+            seed_words, pivots, _ = psd.proposer_tables(seeds, rounds, m)
+            sw = torch.from_numpy(seed_words.view(np.int32))
+            pv = torch.from_numpy(pivots)
+            plain = cuda_epoch.proposer_walk_plain(sw, pv, 64, m)
+            for look in (None,) + cuda_epoch.WALK_LOOKAHEADS:
+                out = cuda_epoch._proposer_walk_k(sw.cuda(), pv.cuda(), 64, m, look)
+                assert torch.equal(out.cpu(), plain), (m, rounds, look)
     plan = synth_plan(300)
     for leak in (False, True):
         for a, b in zip(psd.epoch_boundary_device(plan, in_leak=leak, device="cuda"),

@@ -25,7 +25,6 @@ skips without a card.
 """
 
 import contextlib
-import ctypes
 import hashlib
 import re
 import shutil
@@ -195,11 +194,13 @@ def test_kernels_on_card():
         out = cuda_sha.sha256_pairs(words.cuda()).cpu()
         assert torch.equal(out, cuda_sha.sha256_pairs_plain(words))
         assert cuda_sha.LAUNCHES["sha256_pairs"] == before + 1
-    for m in (1, 7, 8, 9, 130):
+    for m in (1, 7, 8, 9, 128, 129, 2048, 2049):
         leaves = torch.from_numpy(_words((m, 32, 8), seed=m).view(np.int32))
-        out = cuda_sha.tree_hash_subtrees(leaves.cuda())
-        for o, p in zip(out, cuda_sha.tree_hash_subtrees_plain(leaves)):
-            assert torch.equal(o.cpu(), p)
+        plain = cuda_sha.tree_hash_subtrees_plain(leaves)
+        for threads in (None,) + cuda_sha.SUBTREE_THREADS:
+            out = cuda_sha._tree_hash_subtrees_t(leaves.cuda(), threads)
+            for o, p in zip(out, plain):
+                assert torch.equal(o.cpu(), p), (m, threads)
 
 
 # ------------------------------------------- the CUDA source through g++
@@ -207,8 +208,13 @@ def test_kernels_on_card():
 # The CUDA source compiled by the host's C++ compiler: the CUDA keywords are
 # defined away, each CUDA thread of a block is a std::thread, __syncthreads
 # is a std::barrier, __funnelshift_r is its definition on 64 bits, and each
-# <<<grid, threads>>> launch is a loop over blocks.  This runs the kernels'
-# own arithmetic and thread layout (not the plain versions) on the CPU.
+# <<<grid, threads>>> launch is a loop over blocks.  The warp shuffles, the
+# ballot and __syncwarp go through the block barrier: each thread puts its
+# value in its slot of a per-block array, waits, and reads its source lane's
+# slot (or its warp's 32 slots; two arrays used in turn, so a slot is not
+# overwritten before it is read).  That needs every thread of the block to
+# reach each of them, as the kernels promise.  This runs the kernels' own arithmetic and thread layout (not the
+# plain versions) on the CPU.
 _HOST_PRELUDE = r"""
 #include <stdint.h>
 #include <barrier>
@@ -222,9 +228,10 @@ _HOST_PRELUDE = r"""
 #define __shared__ static
 #define __constant__ static
 #define __align__(n) __attribute__((aligned(n)))
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 typedef int cudaError_t;
 typedef void* cudaStream_t;
+enum { cudaErrorInvalidValue = 1 };
 struct D3 { unsigned x; };
 struct uint4 { unsigned x, y, z, w; };
 static uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
@@ -234,18 +241,69 @@ static unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s) {
 static thread_local D3 blockIdx, threadIdx;
 static std::barrier<>* g_bar;
 static void __syncthreads() { g_bar->arrive_and_wait(); }
+static void __syncwarp(unsigned = 0xffffffffu) { g_bar->arrive_and_wait(); }
+static uint64_t g_lanes[2][1024];
+static thread_local int g_turn;
+template <class V> static V shfl_from(V v, int src) {
+  uint64_t* slots = g_lanes[g_turn ^= 1];
+  slots[threadIdx.x] = (uint64_t)v;
+  g_bar->arrive_and_wait();
+  return (V)slots[src];
+}
+static int warp_base(int width) { return (int)threadIdx.x - ((int)threadIdx.x & (width - 1)); }
+template <class V> static V __shfl_sync(unsigned, V v, int src, int width = 32) {
+  return shfl_from(v, warp_base(width) + (src & (width - 1)));
+}
+template <class V> static V __shfl_down_sync(unsigned, V v, unsigned delta, int width = 32) {
+  const int lane = (int)threadIdx.x & (width - 1);
+  return shfl_from(v, lane + (int)delta < width ? (int)(threadIdx.x + delta) : (int)threadIdx.x);
+}
+template <class V> static V __shfl_xor_sync(unsigned, V v, int mask, int width = 32) {
+  const int lane = (int)threadIdx.x & (width - 1);
+  return shfl_from(v, warp_base(width) + ((lane ^ mask) & (width - 1)));
+}
+static unsigned __ballot_sync(unsigned, int pred) {
+  uint64_t* slots = g_lanes[g_turn ^= 1];
+  slots[threadIdx.x] = pred != 0;
+  g_bar->arrive_and_wait();
+  unsigned mask = 0;
+  for (int lane = 0; lane < 32; ++lane) mask |= (unsigned)slots[warp_base(32) + lane] << lane;
+  return mask;
+}
 static int cudaGetLastError() { return 0; }
 static const char* cudaGetErrorString(int) { return ""; }
 #define LAUNCH(kern, grid, threads, ...)                                 \
-  for (unsigned bx = 0; bx < grid; ++bx) {                               \
+  for (unsigned bx = 0; bx < (unsigned)(grid); ++bx) {                   \
     std::barrier<> bar(threads);                                         \
     g_bar = &bar;                                                        \
     std::vector<std::thread> ts;                                         \
     for (unsigned tx = 0; tx < (unsigned)threads; ++tx)                  \
-      ts.emplace_back([=] { blockIdx.x = bx; threadIdx.x = tx; kern(__VA_ARGS__); }); \
+      ts.emplace_back([=] { blockIdx.x = bx; threadIdx.x = tx; g_turn = 0; kern(__VA_ARGS__); }); \
     for (auto& t : ts) t.join();                                         \
   }
 """
+
+#: A kernel launch `kernel<T><<<grid, threads, 0, stream>>>(args);` of the
+#: CUDA sources, rewritten for the host as LAUNCH(kernel<T>, grid, threads,
+#: args).
+_LAUNCH_RE = re.compile(r"([\w<>]+)<<<(.*?), (\w+), 0, [^>]*>>>\((.*?)\);")
+
+
+def host_compile(source, prelude: str, tmp, launches: int):
+    """``source`` with the CUDA runtime replaced by ``prelude`` and its
+    ``launches`` kernel launches by LAUNCH, built by g++ into a shared
+    library (with ``-I csrc/`` for ``sha256_compress.cuh``); its path."""
+    src = source.read_text().replace("#include <cuda_runtime.h>", prelude)
+    src, found = _LAUNCH_RE.subn(r"LAUNCH(\1, \2, \3, \4);", src)
+    assert found == launches
+    (tmp / f"{source.stem}_host.cc").write_text(src)
+    lib_path = tmp / f"lib{source.stem}_host.so"
+    res = subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+                          "-I", str(source.parent), "-o", str(lib_path),
+                          str(tmp / f"{source.stem}_host.cc")],
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    return lib_path
 
 
 @pytest.fixture(scope="module")
@@ -253,24 +311,8 @@ def host_sha(tmp_path_factory):
     """The CUDA source built by g++ into a shared library."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the CUDA source for the host")
-    src = cuda_sha.SOURCE.read_text()
-    src = src.replace("#include <cuda_runtime.h>", _HOST_PRELUDE)
-    src, launches = re.subn(
-        r"(\w+)<<<(blocks\(\w+, \w+\)), (\w+), 0, \(cudaStream_t\)stream>>>\((.*?)\);",
-        r"LAUNCH(\1, \2, \3, \4);", src)
-    assert launches == 2
-    tmp = tmp_path_factory.mktemp("host_sha")
-    (tmp / "sha256_host.cc").write_text(src)
-    lib_path = tmp / "libsha256_host.so"
-    res = subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                          "-I", str(cuda_sha.SOURCE.parent),  # sha256_compress.cuh
-                          "-o", str(lib_path), str(tmp / "sha256_host.cc")],
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr
-    lib = ctypes.CDLL(str(lib_path))
-    for fn in (lib.lt_sha256_pairs, lib.lt_tree_hash_subtrees):
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-    return lib
+    return cuda_sha.load_library(host_compile(cuda_sha.SOURCE, _HOST_PRELUDE,
+                                              tmp_path_factory.mktemp("host_sha"), launches=2))
 
 
 @pytest.mark.parametrize("n", [1, 255, 256, 257, 600])
@@ -284,21 +326,52 @@ def test_cuda_source_pairs_on_host_compiler(host_sha, n):
     assert out[:n].astype(">u4").tobytes() == _hashlib_pairs(words.astype(">u4").tobytes())
 
 
-@pytest.mark.parametrize("m", [1, 7, 8, 9, 20])
-def test_cuda_source_subtrees_on_host_compiler(host_sha, m):
+def _subtree_cases():
+    """(m, threads): the default entry (the first cases' ids unchanged, m = 2
+    added), then every threads-a-subtree at every m."""
+    sizes = [1, 2, 7, 8, 9, 20]
+    cases = [pytest.param(m, None, id=str(m)) for m in sizes]
+    cases += [pytest.param(m, t, id=f"T{t}-{m}") for t in cuda_sha.SUBTREE_THREADS for m in sizes]
+    return cases
+
+
+@pytest.mark.parametrize("m,threads", _subtree_cases())
+def test_cuda_source_subtrees_on_host_compiler(host_sha, m, threads):
     leaves = _words((m, 32, 8), seed=200 + m)
     out = np.full(31 * m * 8 + 8, 0x5A5A5A5A, dtype=np.uint32)
-    assert host_sha.lt_tree_hash_subtrees(leaves.ctypes.data, out.ctypes.data, m, None) == 0
+    if threads is None:
+        err = host_sha.lt_tree_hash_subtrees(leaves.ctypes.data, out.ctypes.data, m, None)
+    else:
+        err = host_sha.lt_tree_hash_subtrees_t(leaves.ctypes.data, out.ctypes.data, m, threads,
+                                               None)
+    assert err == 0
     plain = cuda_sha.tree_hash_subtrees_plain(torch.from_numpy(leaves.view(np.int32)))
+    golden = jth._host_subtree_levels(leaves)
     start = 0
-    for level in plain:
+    for level, gold in zip(plain, golden):
         size = level.numel()
-        assert np.array_equal(out[start:start + size].reshape(level.shape),
-                              level.numpy().view(np.uint32))
+        got = out[start:start + size].reshape(level.shape)
+        assert np.array_equal(got, level.numpy().view(np.uint32))
+        assert np.array_equal(got, gold)
         start += size
     assert (out[start:] == 0x5A5A5A5A).all()
-    golden = jth._host_subtree_levels(leaves)
-    assert np.array_equal(out[start - 8 * m:start].reshape(m, 1, 8), golden[-1])
+
+
+def test_cuda_source_subtree_table_and_bad_threads(host_sha):
+    """The source's table gives each of the caller's buckets its T (16 up
+    to 128 subtrees, 8 up to 2,048, 2 above), and a T the kernel does not
+    take is refused without touching `out`."""
+    want = {1: 16, 8: 16, 128: 16, 129: 8, 2048: 8, 2049: 2, 32768: 2}
+    assert {m: host_sha.lt_subtree_threads(m) for m in want} == want
+    assert set(want.values()) <= set(cuda_sha.SUBTREE_THREADS)
+    leaves = _words((2, 32, 8), seed=7)
+    out = np.full(31 * 2 * 8, 0x5A5A5A5A, dtype=np.uint32)
+    for bad in (0, 1, 3, 32):
+        assert host_sha.lt_tree_hash_subtrees_t(leaves.ctypes.data, out.ctypes.data, 2, bad,
+                                                None) != 0
+    assert (out == 0x5A5A5A5A).all()
+    with pytest.raises(ValueError, match="threads"):
+        cuda_sha._tree_hash_subtrees_t(torch.from_numpy(leaves.view(np.int32)), 3)
 
 
 # --------------------------------- tests/test_tree_hash.py, re-pointed
