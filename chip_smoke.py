@@ -95,7 +95,33 @@ Phases, each of which raises on a failed check:
              and the kernels' launches (counts set to 0 just before the
              first boundary, read after the last; both kernels must have
              run);
-12. faults — the supervisor's routes on the card at small size, each with
+12. block  — block import at mainnet width on the default device: a Deneb
+             mainnet-preset state of 2^20 validators at the first slot of
+             an epoch and the full block a mainnet proposer packs for the
+             next slot, every signature real, from a seed
+             (``workload.block_import_case``: 128 attestations of the 64
+             committees of the previous slot, a 95 % sync aggregate, a
+             proposer and an attester slashing, an exit, a BLS change, 16
+             withdrawals, 300 transactions, 6 blob commitments; the
+             block's state root from a host run without verification); the
+             port's pubkey cache warmed with the block's keys and the
+             state's hash cache with one full root, both before the import
+             and printed; then ``state_transition`` with ``VERIFY_BULK``:
+             the block's signatures in one supervised bls_verify batch on
+             the card (its bucket and stages from the flight record, no
+             host fallback, breakers closed), the post-state equal to the
+             host run's (root, balances, participation, validators, SSZ
+             bytes), all four kernels launched (counts set to 0 just before
+             the import, read just after); host seconds split into
+             process_slots, signature-set collection, the verify's setup,
+             the operations and the root; fork choice anchored at the
+             pre-state takes the block and its attestations, its head is
+             the block and the anchor's weight the attesters' effective
+             balances; a copy of the pre-state refuses the block with two
+             attestation signatures swapped (``BlockProcessingError``, the
+             batch's verdict False on the card) and with its state root
+             off by one byte (``StateRootMismatch``);
+13. faults — the supervisor's routes on the card at small size, each with
              its exact counter deltas and none with a host fallback (on
              the card a failure raises into the caller): a
              ``device.dispatch`` error on a 4-set batch (split retry, both
@@ -112,14 +138,17 @@ Phases, each of which raises on a failed check:
              pipeline (both groups' futures raise, nothing re-hashed on the
              host); and an ``epoch_boundary`` dispatch error on a 4,096-
              validator boundary (no split, raised, the numpy composite never
-             runs);
-13. timing — each kernel and its plain version at the largest shape the
+             runs); a ``device.dispatch`` error on the verify batch of a
+             4,096-validator block import (split retry, both halves on the
+             card, the block imports with its root);
+14. timing — each kernel and its plain version at the largest shape the
              128 x 32 run gave it, beside the least time the card could take;
              then each kernel at every launch size of that run (the
              histogram ``cuda_fq.SIZES``), summed to its time per verify,
              beside its bound per verify, and likewise per 6-blob and per
-             192-lane KZG batch; each SHA-256 kernel at its top bucket and
-             at every launch size of the [state] run, beside its bound and
+             192-lane KZG batch and per [block] import; each SHA-256 kernel
+             at its top bucket and at every launch size of the [state] run
+             and of the [block] import, beside its bound and
              plain version, its launches per state root, and the native
              host pair hasher's rate; the subtree kernel at every T at each
              [state] size, in turns, and summed over the run's launches;
@@ -135,7 +164,7 @@ Phases, each of which raises on a failed check:
              launches replayed from a CUDA graph, so the host's launch
              overhead does not count.
 
-Every verify, KZG, hash and epoch batch of phases 4, 6, 8, 9, 10 and 11 runs through
+Every verify, KZG, hash and epoch batch of phases 4, 6, 8, 9, 10, 11 and 12 runs through
 the device supervisor (``device_supervisor.py``); the script fails if any
 of them took the host route or left a breaker open.  Per-batch stages come from
 the flight recorder (``device_telemetry``).
@@ -256,6 +285,11 @@ EPOCH_HOST_MAX = 65536
 WALK_CHECK_ROUNDS = (90, 10)
 EPOCH_VALIDATORS = 1 << 20
 EPOCH_FAULT_VALIDATORS = 4096
+#: [block]: validators in the registry (mainnet's order), the [faults]
+#: block's registry, and the seed both cases are made from.
+BLOCK_VALIDATORS = 1 << 20
+BLOCK_FAULT_VALIDATORS = 4096
+BLOCK_SEED = 0xB10C
 #: The supervisor's counters whose deltas each fault case asserts.
 SUPERVISOR_COUNTERS = {
     "host_fallbacks": "DEVICE_HOST_FALLBACK",
@@ -1205,6 +1239,7 @@ def phase_faults(cuda_fq, kzg, blobs, commitments, proofs, device: str = "cuda")
         raise AssertionError("[faults] the KZG batch after the faulted one did not verify")
     phase_hash_faults(device)
     phase_epoch_faults(device)
+    phase_block_faults(device)
     for op in ("bls_verify", "kzg_batch", "sha256_pairs", "tree_hash", "epoch_boundary"):
         if ds.breaker_state(op) != "closed":
             raise AssertionError(f"[faults] the {op} breaker is left open")
@@ -1637,6 +1672,282 @@ def phase_epoch_faults(device: str = "cuda") -> None:
         pe.configure(backend="device", fused_boundary=True, device="cuda")
 
 
+def phase_block(card: str, device: str = "cuda", validators: int = BLOCK_VALIDATORS) -> dict:
+    """Block import at mainnet width on the default device (see the module
+    docstring).  The kernels' launch counts are set to 0 just before the
+    import and read just after it."""
+    import copy
+    import sys
+
+    import numpy as np
+
+    from lighthouse_tpu_torch.consensus import helpers as h
+    from lighthouse_tpu_torch.consensus import per_block
+    from lighthouse_tpu_torch.consensus.state_transition import StateRootMismatch, state_transition
+    from lighthouse_tpu_torch.crypto.bls import set_backend
+    from lighthouse_tpu_torch.crypto.bls.backends import torch_backend
+    from lighthouse_tpu_torch.fork_choice import ForkChoice
+    from lighthouse_tpu_torch.ops import cuda_fq, cuda_sha
+    from lighthouse_tpu_torch.ops import tree_hash as th
+    from lighthouse_tpu_torch.workload import (
+        block_import_case,
+        clone_state,
+        resign,
+        warm_pubkey_cache,
+    )
+
+    st_mod = sys.modules["lighthouse_tpu_torch.consensus.state_transition"]
+    t0 = time.perf_counter()
+    case = block_import_case(validators, seed=BLOCK_SEED)
+    build_s = time.perf_counter() - t0
+    pre, signed, types, spec = case.pre_state, case.signed_block, case.types, case.spec
+    block = signed.message
+    body = block.body
+    slot = int(block.slot)
+    block_root = block.hash_tree_root()
+    parent_root = bytes(block.parent_root)
+    att_keys = [sum(a.aggregation_bits) for a in body.attestations]
+    log(f"[block] Deneb mainnet-preset state with {len(pre.validators)} validators at slot "
+        f"{int(pre.slot)} and the block of slot {slot} built from a seed in {build_s:.2f} s "
+        f"(host run without verification included): {len(body.attestations)} attestations "
+        f"({min(att_keys)}-{max(att_keys)} keys, {sum(att_keys)} in all), sync bits "
+        f"{sum(body.sync_aggregate.sync_committee_bits)}/{len(body.sync_aggregate.sync_committee_bits)}, "
+        f"{len(body.proposer_slashings)} proposer slashing, {len(body.attester_slashings)} "
+        f"attester slashing ({len(body.attester_slashings[0].attestation_1.attesting_indices)} "
+        f"validators), {len(body.voluntary_exits)} exit, {len(body.bls_to_execution_changes)} "
+        f"BLS change, {len(body.execution_payload.withdrawals)} withdrawals, "
+        f"{len(body.execution_payload.transactions)} transactions, "
+        f"{len(body.blob_kzg_commitments)} blob commitments, {len(body.deposits)} deposits; "
+        f"{len(pre.eth1_data_votes)} eth1 votes in the state")
+
+    t = time.perf_counter()
+    keys = warm_pubkey_cache(case.keys)
+    warm_keys_s = time.perf_counter() - t
+    log(f"[block] pubkey cache warmed with the {keys} keys the block's signatures need, as "
+        f"points in G1 by construction (a running node's validator pubkey cache; no "
+        f"decompression or subgroup check) in {warm_keys_s:.2f} s, before the import")
+
+    set_backend("torch")
+    torch_backend.configure(device=device)
+    th.configure(enabled=True, device=device)
+    try:
+        t = time.perf_counter()
+        pre.hash_tree_root()
+        warm_root_s = time.perf_counter() - t
+        t = time.perf_counter()
+        spare = clone_state(pre)
+        copy_s = time.perf_counter() - t
+        t = time.perf_counter()
+        fc = ForkChoice(spec=spec, genesis_block_root=parent_root, genesis_state=pre)
+        anchor_s = time.perf_counter() - t
+        log(f"[block] the state's tree-hash cache warmed by one full root on {card} in "
+            f"{warm_root_s:.2f} s (untimed beside the import); a copy for the refusals "
+            f"{copy_s:.2f} s; fork choice anchored at the state in {anchor_s:.2f} s")
+
+        # The import, its host stages timed by wrapping the callees.
+        spans = {"process_slots": 0.0, "per_block": 0.0, "collect": 0.0, "verify": 0.0}
+
+        def timed(key, fn):
+            def run(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    spans[key] += time.perf_counter() - t
+            return run
+
+        verifier = per_block.BlockSignatureVerifier
+        wrapped = [(st_mod, "process_slots"), (st_mod, "per_block_processing"),
+                   (verifier, "include_all_signatures"), (verifier, "verify")]
+        real = [getattr(obj, name) for obj, name in wrapped]
+        for (obj, name), fn, key in zip(wrapped, real, ("process_slots", "per_block", "collect",
+                                                         "verify")):
+            setattr(obj, name, timed(key, fn))
+        mark = runtime_mark()
+        cuda_fq.reset_launch_counts()
+        cuda_sha.reset_launch_counts()
+        try:
+            t = time.perf_counter()
+            post = state_transition(pre, signed, types, spec)
+            wall = time.perf_counter() - t
+        finally:
+            for (obj, name), fn in zip(wrapped, real):
+                setattr(obj, name, fn)
+        launches = {**dict(cuda_fq.LAUNCHES), **dict(cuda_sha.LAUNCHES)}
+        fq_sizes = {name: dict(c) for name, c in cuda_fq.SIZES.items()}
+        sha_sizes = {name: dict(c) for name, c in cuda_sha.SIZES.items()}
+        records = assert_on_device("[block]", mark)
+        verifies = [r for r in records if r["op"] == "bls_verify"]
+        if len(verifies) != 1:
+            raise AssertionError(f"[block] {len(verifies)} bls_verify batches, expected one")
+        batch = verifies[0]
+        st = batch["stages_s"]
+        if not all(k in st for k in ("setup", "dispatch", "wait")) or batch["verdict"] is not True:
+            raise AssertionError(f"[block] the verify batch's record {batch}")
+        verify_dev_s = st["dispatch"] + st["wait"]
+        hashing = [r for r in records if r["op"] in ("sha256_pairs", "tree_hash")]
+        hash_dev_s = device_seconds(hashing)
+        for name in ("fq_mul", "fq2_mul", "sha256_pairs", "tree_hash_subtrees"):
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"{name} was not launched during the block import")
+        host = {"process_slots": spans["process_slots"], "collect": spans["collect"],
+                "verify_setup": st["setup"],
+                "operations": spans["per_block"] - spans["collect"] - spans["verify"],
+                "root": wall - spans["process_slots"] - spans["per_block"]}
+        log(f"[block] {card}: state_transition with VERIFY_BULK imported the block in "
+            f"{wall:.3f} s; host: process_slots {host['process_slots']:.3f} s (its root "
+            f"included), signature-set collection {host['collect']:.3f} s, the verify's setup "
+            f"{host['verify_setup']:.3f} s, operations {host['operations']:.3f} s, the post-block "
+            f"root {host['root']:.3f} s; device: the verify {verify_dev_s:.3f} s (dispatch "
+            f"{st['dispatch']:.3f} s, wait {st['wait']:.3f} s, verdict {st['verdict']:.3f} s), "
+            f"tree hashing {hash_dev_s:.3f} s over {len(hashing)} batches")
+        log(f"[block] the verify: one supervised bls_verify batch on the card, bucket "
+            f"{batch['shape']} ({batch['n_live']} sets), no host fallback, breakers closed; "
+            f"kernel launches {launches}")
+
+        # The host run's state: the root, the balances, the participation
+        # flags and every field of every validator.
+        t = time.perf_counter()
+        ref = case.host_state
+        if post.hash_tree_root() != bytes(block.state_root):
+            raise AssertionError("[block] post-state root != the block's")
+        if list(post.balances) != list(ref.balances):
+            raise AssertionError("[block] balances != the host run's")
+        for field in ("previous_epoch_participation", "current_epoch_participation"):
+            if list(getattr(post, field)) != list(getattr(ref, field)):
+                raise AssertionError(f"[block] {field} != the host run's")
+        if len(post.validators) != len(ref.validators) or not all(
+                a == b for a, b in zip(post.validators, ref.validators)):
+            raise AssertionError("[block] a validator != the host run's")
+        check_s = time.perf_counter() - t
+        log(f"[block] the post-state's root is the block's (the host run's); its balances, "
+            f"participation flags and the fields of its {len(post.validators)} validators "
+            f"equal the host run's (checked in {check_s:.2f} s)")
+
+        # Fork choice takes the block and its attestations.
+        t = time.perf_counter()
+        fc.on_block(current_slot=slot, block=block, block_root=block_root, state=post)
+        attesters = []
+        for att in body.attestations:
+            indexed = h.get_indexed_attestation(post, att, types, spec)
+            attesters.append(np.asarray(indexed.attesting_indices, dtype=np.int64))
+            fc.on_attestation(
+                current_slot=slot, attestation_slot=int(att.data.slot),
+                attesting_indices=indexed.attesting_indices,
+                beacon_block_root=bytes(att.data.beacon_block_root),
+                target_epoch=int(att.data.target.epoch),
+                target_root=bytes(att.data.target.root), is_from_block=True)
+        head = fc.get_head(slot)
+        fc_s = time.perf_counter() - t
+        unique = np.unique(np.concatenate(attesters))
+        eff = np.fromiter((post.validators[int(i)].effective_balance for i in unique),
+                          dtype=np.int64, count=unique.size)
+        weight = fc.proto.nodes[fc.proto.indices[parent_root]].weight
+        if head != block_root:
+            raise AssertionError("[block] fork choice's head is not the block")
+        if weight != int(eff.sum()):
+            raise AssertionError(f"[block] the anchor's weight {weight} != {int(eff.sum())}, the "
+                                 "unique attesters' effective balances")
+        log(f"[block] fork choice: on_block, {len(body.attestations)} on_attestation and "
+            f"get_head in {fc_s:.3f} s; the head is the block; the anchor's weight {weight} "
+            f"gwei equals the {unique.size} unique attesters' effective balances (numpy sum)")
+
+        # Refusals, on the copy of the pre-state.
+        message = copy.deepcopy(block)
+        atts = message.body.attestations
+        atts[0].signature, atts[1].signature = bytes(atts[1].signature), bytes(atts[0].signature)
+        mark = runtime_mark()
+        t = time.perf_counter()
+        try:
+            state_transition(spare, resign(case, message), types, spec)
+        except per_block.BlockProcessingError as err:
+            if str(err) != "bulk signature verification failed":
+                raise
+        else:
+            raise AssertionError("[block] a swapped attestation signature was accepted")
+        tampered_s = time.perf_counter() - t
+        refused = [r for r in assert_on_device("[block] tampered", mark)
+                   if r["op"] == "bls_verify"]
+        if len(refused) != 1 or refused[0]["verdict"] is not False:
+            raise AssertionError(f"[block] the tampered block's verify records {refused}")
+        message = copy.deepcopy(block)
+        root = bytearray(bytes(message.state_root))
+        root[-1] ^= 0x01
+        message.state_root = bytes(root)
+        t = time.perf_counter()
+        try:
+            state_transition(spare, resign(case, message), types, spec)
+        except StateRootMismatch:
+            pass
+        else:
+            raise AssertionError("[block] a wrong state root was accepted")
+        wrong_root_s = time.perf_counter() - t
+        log(f"[block] refused on {card}: two attestation signatures swapped (re-signed by the "
+            f"proposer): BlockProcessingError('bulk signature verification failed') in "
+            f"{tampered_s:.2f} s, its batch's verdict False on the card; a state root off by "
+            f"one byte (re-signed): StateRootMismatch in {wrong_root_s:.2f} s")
+    finally:
+        th.configure(enabled=False)
+        torch_backend.reset_for_tests()
+    return {"validators": len(pre.validators), "build_s": build_s, "warm_keys_s": warm_keys_s,
+            "warm_root_s": warm_root_s, "wall_s": wall, "host_s": host,
+            "verify_device_s": verify_dev_s, "hash_device_s": hash_dev_s,
+            "stages_s": st, "bucket": batch["shape"], "sets": batch["n_live"],
+            "launches": launches, "fq_sizes": fq_sizes, "sha_sizes": sha_sizes,
+            "fork_choice_s": fc_s, "anchor_s": anchor_s, "tampered_s": tampered_s,
+            "wrong_root_s": wrong_root_s}
+
+
+def phase_block_faults(device: str = "cuda") -> None:
+    """One bls_verify fault on the block path: a ``device.dispatch`` error
+    on the verify batch of a BLOCK_FAULT_VALIDATORS-validator block import
+    (``workload.block_import_case``): one split retry, both halves on the
+    card, the transition succeeds with the block's root, no host fallback."""
+    import copy
+
+    from lighthouse_tpu_torch import fault_injection as fi
+    from lighthouse_tpu_torch.consensus.state_transition import state_transition
+    from lighthouse_tpu_torch.crypto.bls import set_backend
+    from lighthouse_tpu_torch.crypto.bls.backends import torch_backend
+    from lighthouse_tpu_torch.ops import tree_hash as th
+    from lighthouse_tpu_torch.ops import verify
+    from lighthouse_tpu_torch.workload import block_import_case, warm_pubkey_cache
+
+    case = block_import_case(BLOCK_FAULT_VALIDATORS, seed=BLOCK_SEED + 1)
+    warm_pubkey_cache(case.keys)
+    set_backend("torch")
+    torch_backend.configure(device=device)
+    th.configure(enabled=False)
+    halves = []
+    real_subset = verify._device_verify_subset
+
+    def subset(sets, seed, dev):
+        halves.append((len(sets), dev.type))
+        return real_subset(sets, seed, dev)
+
+    verify._device_verify_subset = subset
+    try:
+        def faulted():
+            fi.install("device.dispatch", "error", op="bls_verify", first_n=1)
+            mark = runtime_mark()
+            post = state_transition(copy.deepcopy(case.pre_state), case.signed_block,
+                                    case.types, case.spec)
+            assert_on_device("[faults] block", mark)
+            return post.hash_tree_root() == bytes(case.signed_block.message.state_root)
+
+        fault_case(f"device.dispatch error first_n=1 on a {BLOCK_FAULT_VALIDATORS}-validator "
+                   "block's verify batch: split retry on the card, the block imports with "
+                   "its root", faulted, True,
+                   {"split_retries": {"op=bls_verify,outcome=success": 1.0}})
+    finally:
+        verify._device_verify_subset = real_subset
+        torch_backend.reset_for_tests()
+    n_sets = len(case.signed_block.message.body.attestations) + 9
+    if sorted(halves) != sorted([(n_sets // 2, device), (n_sets - n_sets // 2, device)]):
+        raise AssertionError(f"[faults] the block batch's halves {halves}")
+    log(f"[faults] the block batch's halves {halves} ran on the {device} device")
+
+
 def walk_sweep(seed_words, pivots, k: int, m: int, bound_ms: float) -> dict:
     """proposer_walk at every lookahead on the (S, R) tables, in turns, and
     each lookahead's latency floor: one lane alone, so each of its
@@ -1823,7 +2134,7 @@ def phase_epoch_timing(epoch_out: dict, max_err: dict, clock_mhz: float,
     return rows, programs
 
 
-def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, max_err: dict,
+def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, block_out: dict, max_err: dict,
                  clock_mhz: float) -> list:
     import torch
 
@@ -1832,6 +2143,7 @@ def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, max_err: dict,
     lib, _ = cuda_fq.library(torch.device("cuda"))
     timed = time_library(lib, verify_out["sizes"], clock_mhz)
     per_kzg = {key: time_library(lib, kzg_out[key]["sizes"], clock_mhz) for key in ("kzg6", "kzg192")}
+    per_block = time_library(lib, block_out["fq_sizes"], clock_mhz)
     out = []
     for name, spec in KERNELS.items():
         t = timed[name]
@@ -1869,6 +2181,13 @@ def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, max_err: dict,
                 f"({k['verify_bound_ms'] / k['verify_ms']:.1%})")
             row.update({f"{key}_launches": kzg_out[key]["launches"][name],
                         f"{key}_ms": k["verify_ms"], f"{key}_bound_ms": k["verify_bound_ms"]})
+        k = per_block[name]
+        log(f"[timing] {name} per block import ({block_out['bucket']} verify batch): "
+            f"{k['verify_ms']:.4f} ms over {k['launches']} launches of {len(k['ms_by_size'])} "
+            f"sizes (largest {k['at_max'][0]} rows), bound {k['verify_bound_ms']:.4f} ms "
+            f"({k['verify_bound_ms'] / k['verify_ms']:.1%})")
+        row.update({"block_launches": block_out["launches"][name], "block_ms": k["verify_ms"],
+                    "block_bound_ms": k["verify_bound_ms"]})
         out.append(row)
     return out
 
@@ -1931,10 +2250,11 @@ def subtree_sweep(state_out: dict, bound) -> dict:
             "state_ms_by_threads": state_sums}
 
 
-def phase_hash_timing(state_out: dict, max_err: dict, clock_mhz: float) -> list:
+def phase_hash_timing(state_out: dict, block_out: dict, max_err: dict, clock_mhz: float) -> list:
     """Each SHA-256 kernel at its top bucket and at every launch size of the
-    [state] run (device times replayed from a CUDA graph), beside its bound
-    and its plain version, and the native host kernel's rate."""
+    [state] run and of the [block] import (device times replayed from a
+    CUDA graph), beside its bound and its plain version, and the native
+    host kernel's rate."""
     import numpy as np
     import torch
 
@@ -1988,6 +2308,18 @@ def phase_hash_timing(state_out: dict, max_err: dict, clock_mhz: float) -> list:
                 raise AssertionError(f"{name} at the [state] size {m}: kernel != plain")
             by_size[m] = graph_ms(lambda: wrapper(y))
             plain_by_size[m] = graph_ms(lambda: plain(y), reps=3, rounds=2)
+        block_sizes = block_out["sha_sizes"][name]
+        block_by_size = {m: by_size[m] for m in block_sizes if m in by_size}
+        for m in sorted(set(block_sizes) - set(block_by_size)):
+            y = inputs[name](m)
+            got, want = wrapper(y), plain(y)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,))):
+                raise AssertionError(f"{name} at the [block] size {m}: kernel != plain")
+            block_by_size[m] = graph_ms(lambda: wrapper(y))
+        block_ms = sum(block_by_size[m] * c for m, c in block_sizes.items())
+        block_bound_ms = sum(bound(name, m)[0] * c for m, c in block_sizes.items())
         state_ms = sum(by_size[m] * c for m, c in sizes.items())
         state_plain_ms = sum(plain_by_size[m] * c for m, c in sizes.items())
         state_bound_ms = sum(bound(name, m)[0] * c for m, c in sizes.items())
@@ -2002,6 +2334,10 @@ def phase_hash_timing(state_out: dict, max_err: dict, clock_mhz: float) -> list:
             f"plain version at each size; per size kernel "
             f"{ {m: round(t, 4) for m, t in by_size.items()} }, plain "
             f"{ {m: round(t, 4) for m, t in plain_by_size.items()} }")
+        log(f"[timing] {name} per block import: {block_ms:.4f} ms over "
+            f"{block_out['launches'][name]} launches (sizes {dict(sorted(block_sizes.items()))}), "
+            f"bound {block_bound_ms:.4f} ms ({block_bound_ms / block_ms:.1%}); per size "
+            f"{ {m: round(t, 4) for m, t in sorted(block_by_size.items())} }")
         row = {
             "name": name, "route": "cuda", "source": SHA_SOURCE,
             "replaces": spec["replaces"],
@@ -2015,6 +2351,8 @@ def phase_hash_timing(state_out: dict, max_err: dict, clock_mhz: float) -> list:
             "state_sizes": {str(m): c for m, c in sorted(sizes.items())},
             "launches_per_root": launches / roots,
             "host_blocks_per_s": host_rate,
+            "block_launches": block_out["launches"][name], "block_ms": block_ms,
+            "block_bound_ms": block_bound_ms,
         }
         if name == "tree_hash_subtrees":
             row.update(subtree_sweep(state_out, lambda m: bound(name, m)))
@@ -2053,11 +2391,12 @@ def main() -> int:
     phase_hash_runtime(card)
     state_out = phase_state(card)
     epoch_out = phase_epoch(card)
+    block_out = phase_block(card)
     phase_faults(cuda_fq, *kzg_in)
-    kernels = phase_timing(cuda_fq, verify_out, kzg_out, max_err, clock_mhz)
+    kernels = phase_timing(cuda_fq, verify_out, kzg_out, block_out, max_err, clock_mhz)
     for row in kernels:
         row["runtime_launches"] = runtime_out["launches"][row["name"]]
-    kernels += phase_hash_timing(state_out, max_err, clock_mhz)
+    kernels += phase_hash_timing(state_out, block_out, max_err, clock_mhz)
     epoch_rows, programs = phase_epoch_timing(epoch_out, max_err, clock_mhz)
     kernels += epoch_rows
     log(f"[timing] epoch programs {json.dumps(programs)}")

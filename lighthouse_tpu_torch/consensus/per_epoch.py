@@ -13,9 +13,7 @@ default differs on purpose: the port's epoch path runs on the card.  The
 CUDA kernels' plain versions); asking for the card where there is none
 raises.  On the card a failed, hung or breaker-refused epoch job raises into
 the caller; the exact numpy composites answer failures only for
-``device="cpu"``.  The JAX package defaults to ``"numpy"``.  Electra epoch
-processing (pending deposits and consolidations) waits for the port's
-``electra`` module: :func:`process_epoch` refuses an electra state.
+``device="cpu"``.  The JAX package defaults to ``"numpy"``.
 
 The phase0 path replays pending attestations (matching source/target/head) as
 the spec requires; it shares the justification engine with altair+.
@@ -730,8 +728,11 @@ def process_epoch_altair(state, types, spec: ChainSpec) -> None:
         _process_registry_updates(state, arrays, spec)
     _process_slashings(state, arrays, balances, total_active_balance, spec)
     _process_eth1_data_reset(state, spec)
-    # electra's process_pending_deposits / process_pending_consolidations
-    # run here; process_epoch refuses electra until the port has them.
+    if type(state).fork_name == "electra":
+        from .electra import process_pending_consolidations, process_pending_deposits
+
+        process_pending_deposits(state, types, spec)
+        process_pending_consolidations(state, types, spec)
     if boundary is not None:
         # `balances` still holds the post-delta snapshot the kernel saw —
         # any index whose live balance has since diverged (slashings,
@@ -1124,11 +1125,6 @@ def _process_historical_update(state, types, spec: ChainSpec) -> None:
 
 
 def process_epoch(state, types, spec: ChainSpec) -> None:
-    if type(state).fork_name == "electra":
-        raise NotImplementedError(
-            "electra epoch processing needs process_pending_deposits and "
-            "process_pending_consolidations (consensus/electra.py), not "
-            "ported yet: ROADMAP A7")
     if type(state).fork_name == "phase0":
         process_epoch_phase0(state, types, spec)
     else:

@@ -342,7 +342,9 @@ def verify_signature_sets(
     leaves it None (host CSPRNG — randomness must stay host-side, blst.rs:52-57).
 
     `device` is passed to the torch backend only; None leaves it at that
-    backend's default, ``"cuda"``.  The host and fake backends take no device.
+    backend's configured device, ``"cuda"`` unless
+    ``torch_backend.configure(device=...)`` says otherwise.  The host and fake
+    backends take no device.
 
     When the async device pipeline is enabled (``device_pipeline.enable()``,
     by the caller), seedless calls whose `device` is None or the pipeline's

@@ -15,10 +15,11 @@ stopped one slot before an epoch boundary.  Every comparison is exact:
   inactivity leak, across a sync-committee period and across fork
   upgrades;
 - the epoch path defaults to the card and raises where there is none,
-  before the state changes; an electra state is refused.
+  before the state changes.
 
 The device programs of the epoch boundary are held against the JAX
-package in ``tests/test_torch_epoch.py``.
+package in ``tests/test_torch_epoch.py``, electra's epoch in
+``tests/test_torch_electra.py``.
 """
 
 import copy
@@ -273,7 +274,7 @@ def test_fork_upgrades_match_jax():
         assert port.as_ssz_bytes() == ref.as_ssz_bytes()
 
 
-# --------------------------------------------------------- what is refused
+# ------------------------------------------------------- the default device
 
 
 def test_epoch_path_defaults_to_the_card(chains):
@@ -288,11 +289,3 @@ def test_epoch_path_defaults_to_the_card(chains):
     with pytest.raises(RuntimeError, match="is_available"):
         pe.process_epoch(port, p_types, p_spec)
     assert port.as_ssz_bytes() == before
-
-
-def test_electra_epoch_is_refused():
-    p_spec = minimal_spec(electra_fork_epoch=0)
-    p_types = build_types(p_spec.preset)
-    state = p_types.state["electra"]()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        pe.process_epoch(state, p_types, p_spec)
