@@ -120,8 +120,52 @@ Phases, each of which raises on a failed check:
              balances; a copy of the pre-state refuses the block with two
              attestation signatures swapped (``BlockProcessingError``, the
              batch's verdict False on the card) and with its state root
-             off by one byte (``StateRootMismatch``);
-13. faults — the supervisor's routes on the card at small size, each with
+             off by one byte (``StateRootMismatch``); the case is built
+             once, its block carrying the six [kzg] commitments, and
+             shared with [chain];
+13. chain  — a checkpoint-synced node at mainnet width on the default
+             device: ``BeaconChain`` anchored at a copy of the [block]
+             case's pre-state (hash cache warmed by one full root) over
+             ``HotColdDB(hot=LockboxStore(<tmp>/chain.db))``, a
+             ``ManualSlotClock`` at the block's slot, the [kzg] ``Kzg`` and
+             the mock EL (the anchor's root, store write and fork-choice
+             anchor timed apart); the sidecars' header signature checked
+             on the card (another signature refused); then
+             ``process_block_with_blobs`` of the block and its six
+             sidecars (``workload.blob_sidecars``): one supervised
+             kzg_batch and one supervised bls_verify batch on the card, no
+             host fallback, breakers closed, all four BLS and hash kernels
+             launched (counts set to 0 just before the import, read just
+             after), the head the block, the post-state equal to the host
+             run's (root, balances, participation, SSZ bytes), get_blobs
+             the six sidecars; the import's spans (da_check,
+             state_transition, fork_choice, store_write, head_recompute)
+             and ``parent_state.copy()`` timed apart; the state's sync
+             committee signs the head (512 messages): all accepted by one
+             512 x 1 batch on the card, and 8 messages with one foreign
+             signature give exactly one error (the batch, then 8 single
+             verifies, on the card); refused, the head, the store's key
+             count and the block caches unchanged: a copy of the block
+             whose sidecar 3 carries sidecar 4's proof (the kzg_batch
+             False on the card) and the block with two attestation
+             signatures swapped (the bulk batch False on the card); a
+             fresh ``HotColdDB`` on the same file reads back the block
+             byte for byte, the post-state's stored SSZ bytes and its
+             summary;
+14. chain-harness — the SURVEY §7 harness (minimal preset, 64 interop
+             validators): two slots of real crypto on the default device
+             (each block's bulk batch and 16 single attestation verifies on
+             the card, no host fallback), the same chain as a replay on
+             the fake backend, a block under another signature and an
+             attestation by another validator refused by verdicts on the
+             card; then 40 fake-crypto slots on a HotColdDB over a lockbox
+             file: justified epoch >= 4, finalized >= 3, the hot->cold
+             migration (a cold state equal to the chain's), each boundary's
+             fused program on the card and both epoch kernels launched,
+             every block and state root equal to a run on the CPU path
+             (numpy epoch backend, host tree hashing), and the reopened
+             file's head block and finalized checkpoint the chain's;
+15. faults — the supervisor's routes on the card at small size, each with
              its exact counter deltas and none with a host fallback (on
              the card a failure raises into the caller): a
              ``device.dispatch`` error on a 4-set batch (split retry, both
@@ -141,7 +185,7 @@ Phases, each of which raises on a failed check:
              runs); a ``device.dispatch`` error on the verify batch of a
              4,096-validator block import (split retry, both halves on the
              card, the block imports with its root);
-14. timing — each kernel and its plain version at the largest shape the
+16. timing — each kernel and its plain version at the largest shape the
              128 x 32 run gave it, beside the least time the card could take;
              then each kernel at every launch size of that run (the
              histogram ``cuda_fq.SIZES``), summed to its time per verify,
@@ -164,9 +208,9 @@ Phases, each of which raises on a failed check:
              launches replayed from a CUDA graph, so the host's launch
              overhead does not count.
 
-Every verify, KZG, hash and epoch batch of phases 4, 6, 8, 9, 10, 11 and 12 runs through
-the device supervisor (``device_supervisor.py``); the script fails if any
-of them took the host route or left a breaker open.  Per-batch stages come from
+Every verify, KZG, hash and epoch batch of phases 4, 6 and 8 to 14 runs
+through the device supervisor (``device_supervisor.py``); the script fails
+if any of them took the host route or left a breaker open.  Per-batch stages come from
 the flight recorder (``device_telemetry``).
 
 The line before the last is one JSON object naming every kernel with its
@@ -177,6 +221,7 @@ It needs no network and leaves no process running.
 
 from __future__ import annotations
 
+import gc
 import json
 import random
 import subprocess
@@ -290,6 +335,14 @@ EPOCH_FAULT_VALIDATORS = 4096
 BLOCK_VALIDATORS = 1 << 20
 BLOCK_FAULT_VALIDATORS = 4096
 BLOCK_SEED = 0xB10C
+#: [chain]: the tampered sync batch's messages (a tampered batch re-runs
+#: each message alone, so it stays small).  [chain-harness]: the harness's
+#: interop validators, its real-crypto slots and its slots to finality (five
+#: minimal-preset epochs).
+CHAIN_SYNC_TAMPERED = 8
+HARNESS_VALIDATORS = 64
+HARNESS_REAL_SLOTS = 2
+HARNESS_SLOTS = 40
 #: The supervisor's counters whose deltas each fault case asserts.
 SUPERVISOR_COUNTERS = {
     "host_fallbacks": "DEVICE_HOST_FALLBACK",
@@ -1448,8 +1501,6 @@ def phase_epoch(card: str, device: str = "cuda", validators: int = EPOCH_VALIDAT
     no host fallback.  First the staged deltas program once against the
     numpy pass; the kernels' launch counts are set to 0 just before the
     first boundary on the card and read just after the last."""
-    import copy
-
     import numpy as np
 
     from lighthouse_tpu_torch import device_telemetry
@@ -1459,7 +1510,7 @@ def phase_epoch(card: str, device: str = "cuda", validators: int = EPOCH_VALIDAT
     from lighthouse_tpu_torch.ops import cuda_epoch
     from lighthouse_tpu_torch.ops import tree_hash as th
     from lighthouse_tpu_torch.types.spec import mainnet_spec
-    from lighthouse_tpu_torch.workload import boundary_state, set_finality
+    from lighthouse_tpu_torch.workload import boundary_state, clone_state, set_finality
 
     spec = mainnet_spec()
     t0 = time.perf_counter()
@@ -1488,10 +1539,10 @@ def phase_epoch(card: str, device: str = "cuda", validators: int = EPOCH_VALIDAT
         for leak in (False, True):
             label = "leak" if leak else "no leak"
             t = time.perf_counter()
-            card_state = copy.deepcopy(base)
+            card_state = clone_state(base)
             set_finality(card_state, types, leak)
             # The last mode's numpy run takes the base state itself.
-            ref_state = base if leak else copy.deepcopy(base)
+            ref_state = base if leak else clone_state(base)
             set_finality(ref_state, types, leak)
             copy_s = time.perf_counter() - t
 
@@ -1672,10 +1723,74 @@ def phase_epoch_faults(device: str = "cuda") -> None:
         pe.configure(backend="device", fused_boundary=True, device="cuda")
 
 
-def phase_block(card: str, device: str = "cuda", validators: int = BLOCK_VALIDATORS) -> dict:
+def timed_calls(spans: dict, key: str, fn):
+    """``fn`` wrapped to add its seconds to ``spans[key]`` (and count its
+    calls under ``key + "_calls"``)."""
+    def run(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            spans[key] = spans.get(key, 0.0) + time.perf_counter() - t
+            spans[key + "_calls"] = spans.get(key + "_calls", 0) + 1
+    return run
+
+
+class Patched:
+    """Wrap attributes for the length of a ``with`` block: each ``(owner,
+    name, key)`` by :func:`timed_calls` under ``key``; the owner's own
+    attribute (or its absence, where it was inherited) comes back after."""
+
+    def __init__(self, spans: dict, targets):
+        self.spans, self.targets = spans, list(targets)
+
+    def __enter__(self):
+        self.saved = []
+        for owner, name, key in self.targets:
+            self.saved.append((owner, name, vars(owner).get(name, Patched)))
+            setattr(owner, name, timed_calls(self.spans, key, getattr(owner, name)))
+        return self.spans
+
+    def __exit__(self, *exc):
+        for owner, name, own in reversed(self.saved):
+            if own is Patched:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, own)
+        return False
+
+
+def span_seconds(trace) -> dict:
+    """Seconds of each named span of ``trace`` (summed where a name repeats)."""
+    out = {}
+
+    def walk(sp):
+        out[sp.name] = out.get(sp.name, 0.0) + sp.duration
+        for child in sp.children:
+            walk(child)
+
+    walk(trace.root)
+    return out
+
+
+def block_case(validators: int = BLOCK_VALIDATORS, commitments=None) -> tuple:
+    """The [block] and [chain] input: ``workload.block_import_case`` at
+    ``validators`` from BLOCK_SEED, its block carrying ``commitments``;
+    returns (case, seconds to build it)."""
+    from lighthouse_tpu_torch.workload import block_import_case
+
+    t0 = time.perf_counter()
+    case = block_import_case(validators, seed=BLOCK_SEED, blob_commitments=commitments)
+    return case, time.perf_counter() - t0
+
+
+def phase_block(card: str, device: str = "cuda", validators: int = BLOCK_VALIDATORS,
+                case=None, build_s: float = 0.0) -> dict:
     """Block import at mainnet width on the default device (see the module
-    docstring).  The kernels' launch counts are set to 0 just before the
-    import and read just after it."""
+    docstring), on ``case`` (:func:`block_case`, built here when None).
+    The import applies the block to ``case.pre_state`` in place.  The
+    kernels' launch counts are set to 0 just before the import and read
+    just after it."""
     import copy
     import sys
 
@@ -1689,17 +1804,11 @@ def phase_block(card: str, device: str = "cuda", validators: int = BLOCK_VALIDAT
     from lighthouse_tpu_torch.fork_choice import ForkChoice
     from lighthouse_tpu_torch.ops import cuda_fq, cuda_sha
     from lighthouse_tpu_torch.ops import tree_hash as th
-    from lighthouse_tpu_torch.workload import (
-        block_import_case,
-        clone_state,
-        resign,
-        warm_pubkey_cache,
-    )
+    from lighthouse_tpu_torch.workload import clone_state, resign, warm_pubkey_cache
 
     st_mod = sys.modules["lighthouse_tpu_torch.consensus.state_transition"]
-    t0 = time.perf_counter()
-    case = block_import_case(validators, seed=BLOCK_SEED)
-    build_s = time.perf_counter() - t0
+    if case is None:
+        case, build_s = block_case(validators)
     pre, signed, types, spec = case.pre_state, case.signed_block, case.types, case.spec
     block = signed.message
     body = block.body
@@ -1745,34 +1854,17 @@ def phase_block(card: str, device: str = "cuda", validators: int = BLOCK_VALIDAT
             f"{copy_s:.2f} s; fork choice anchored at the state in {anchor_s:.2f} s")
 
         # The import, its host stages timed by wrapping the callees.
-        spans = {"process_slots": 0.0, "per_block": 0.0, "collect": 0.0, "verify": 0.0}
-
-        def timed(key, fn):
-            def run(*a, **kw):
-                t = time.perf_counter()
-                try:
-                    return fn(*a, **kw)
-                finally:
-                    spans[key] += time.perf_counter() - t
-            return run
-
         verifier = per_block.BlockSignatureVerifier
-        wrapped = [(st_mod, "process_slots"), (st_mod, "per_block_processing"),
-                   (verifier, "include_all_signatures"), (verifier, "verify")]
-        real = [getattr(obj, name) for obj, name in wrapped]
-        for (obj, name), fn, key in zip(wrapped, real, ("process_slots", "per_block", "collect",
-                                                         "verify")):
-            setattr(obj, name, timed(key, fn))
         mark = runtime_mark()
-        cuda_fq.reset_launch_counts()
-        cuda_sha.reset_launch_counts()
-        try:
+        with Patched({}, [(st_mod, "process_slots", "process_slots"),
+                          (st_mod, "per_block_processing", "per_block"),
+                          (verifier, "include_all_signatures", "collect"),
+                          (verifier, "verify", "verify")]) as spans:
+            cuda_fq.reset_launch_counts()
+            cuda_sha.reset_launch_counts()
             t = time.perf_counter()
             post = state_transition(pre, signed, types, spec)
             wall = time.perf_counter() - t
-        finally:
-            for (obj, name), fn in zip(wrapped, real):
-                setattr(obj, name, fn)
         launches = {**dict(cuda_fq.LAUNCHES), **dict(cuda_sha.LAUNCHES)}
         fq_sizes = {name: dict(c) for name, c in cuda_fq.SIZES.items()}
         sha_sizes = {name: dict(c) for name, c in cuda_sha.SIZES.items()}
@@ -1946,6 +2038,536 @@ def phase_block_faults(device: str = "cuda") -> None:
     if sorted(halves) != sorted([(n_sets // 2, device), (n_sets - n_sets // 2, device)]):
         raise AssertionError(f"[faults] the block batch's halves {halves}")
     log(f"[faults] the block batch's halves {halves} ran on the {device} device")
+
+
+def chain_snapshot(chain) -> dict:
+    """What a refused import must leave as it was: the head, the store's key
+    count and the chain's block caches."""
+    return {"head": chain.head_root, "keys": int(chain.store._lib.lockbox_count(chain.store._h)),
+            "blocks": sorted(chain._blocks), "states": sorted(chain._states),
+            "observed": sorted(chain.observed_block_roots),
+            "early": chain.early_attester_cache._item["block_root"]
+            if chain.early_attester_cache._item else None,
+            "fork_choice": len(chain.fork_choice.proto.indices)}
+
+
+def sync_messages(case, chain, root: bytes, slot: int) -> list:
+    """A SyncCommitteeMessage over ``root`` at ``slot`` from each member of
+    the head state's sync committee, signed with the case's keys: one
+    hash_to_g2 of the shared message, one G2 multiplication a member."""
+    from lighthouse_tpu_torch.consensus import helpers as h
+    from lighthouse_tpu_torch.types.spec import DOMAIN_SYNC_COMMITTEE
+    from lighthouse_tpu_torch.workload import _Signer
+
+    state, spec, types = chain.head_state, case.spec, case.types
+    members = chain._sync_committee_member_indices(state)
+    domain = h.get_domain(state, DOMAIN_SYNC_COMMITTEE, h.compute_epoch_at_slot(slot, spec), spec)
+    message = h.compute_signing_root(root, domain)
+    signer = _Signer()
+    return [types.SyncCommitteeMessage(slot=slot, beacon_block_root=root, validator_index=v,
+                                       signature=signer.sign(message, case.keys.secret[v]))
+            for v in members]
+
+
+def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
+    """A checkpoint-synced node at mainnet width on the default device (see
+    the module docstring).  ``anchor`` is a copy of the case's pre-state
+    taken before [block] applied the block to it; the kernels' launch
+    counts are set to 0 just before the import and read just after it."""
+    import copy
+    import shutil
+    import sys
+    import tempfile
+
+    from lighthouse_tpu_torch import tracing
+    from lighthouse_tpu_torch.chain import (
+        BeaconChain,
+        BlockError,
+        ManualSlotClock,
+        MockExecutionEngine,
+    )
+    from lighthouse_tpu_torch.chain import beacon_chain as bc_mod
+    from lighthouse_tpu_torch.consensus import per_block
+    from lighthouse_tpu_torch.crypto.bls import set_backend
+    from lighthouse_tpu_torch.crypto.bls.backends import torch_backend
+    from lighthouse_tpu_torch.ops import cuda_fq, cuda_sha
+    from lighthouse_tpu_torch.ops import tree_hash as th
+    from lighthouse_tpu_torch.store import DBColumn, HotColdDB, LockboxStore
+    from lighthouse_tpu_torch.workload import blob_sidecars, resign
+
+    st_mod = sys.modules["lighthouse_tpu_torch.consensus.state_transition"]
+    kzg, blobs, _commitments, proofs = kzg_in
+    signed, types, spec = case.signed_block, case.types, case.spec
+    block = signed.message
+    slot = int(block.slot)
+    block_root = block.hash_tree_root()
+    state_cls = type(anchor)
+    t = time.perf_counter()
+    sidecars = blob_sidecars(case, blobs, proofs)
+    sidecars_s = time.perf_counter() - t
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_chain_")
+    path = str(Path(tmp) / "chain.db")
+    set_backend("torch")
+    torch_backend.configure(device=device)
+    th.configure(enabled=True, device=device)
+    store = None
+    try:
+        # The anchor: its hash cache warmed by one full root, then the node.
+        t = time.perf_counter()
+        anchor.hash_tree_root()
+        warm_root_s = time.perf_counter() - t
+        store = LockboxStore(path)
+        clock = ManualSlotClock(int(anchor.genesis_time), spec.seconds_per_slot)
+        clock.set_slot(slot)
+        with Patched({}, [(bc_mod, "genesis_block_root_of", "root"),
+                          (state_cls, "as_ssz_bytes", "ssz"),
+                          (store, "do_atomically", "lockbox_put"),
+                          (bc_mod, "ForkChoice", "fork_choice")]) as anchor_s:
+            t = time.perf_counter()
+            chain = BeaconChain(genesis_state=anchor, types=types, spec=spec,
+                                db=HotColdDB(hot=store), slot_clock=clock,
+                                execution_engine=MockExecutionEngine(), kzg=kzg)
+            anchor_s["wall"] = time.perf_counter() - t
+        if chain.genesis_block_root != bytes(block.parent_root):
+            raise AssertionError("[chain] the anchor's block root is not the block's parent")
+        log(f"[chain] {card}: the anchor (the case's pre-state, {len(anchor.validators)} "
+            f"validators at slot {int(anchor.slot)}): its hash cache warmed by one full root "
+            f"in {warm_root_s:.2f} s, then BeaconChain(db=HotColdDB(hot=LockboxStore)) in "
+            f"{anchor_s['wall']:.2f} s: its root {anchor_s['root']:.3f} s, its store write "
+            f"{anchor_s['ssz'] + anchor_s['lockbox_put']:.2f} s (SSZ bytes "
+            f"{anchor_s['ssz']:.2f} s, "
+            f"the lockbox put {anchor_s['lockbox_put']:.2f} s), the fork-choice anchor "
+            f"{anchor_s['fork_choice']:.2f} s; {len(sidecars)} sidecars built in "
+            f"{sidecars_s:.2f} s")
+
+        # The DA gate's header rule, on the card: the sidecars' header
+        # carries the block's signature (its root is the block's root).
+        mark = runtime_mark()
+        t = time.perf_counter()
+        if not chain.verify_block_header_signature(sidecars[0].signed_block_header):
+            raise AssertionError("[chain] the sidecars' header signature was refused")
+        forged = copy.deepcopy(sidecars[0].signed_block_header)
+        forged.signature = bytes(signed.message.body.randao_reveal)
+        if chain.verify_block_header_signature(forged):
+            raise AssertionError("[chain] a header with another signature was accepted")
+        header_s = time.perf_counter() - t
+        headers = [r for r in assert_on_device("[chain] header", mark) if r["op"] == "bls_verify"]
+        if [r["verdict"] for r in headers] != [True, False]:
+            raise AssertionError(f"[chain] the header checks' records {headers}")
+
+        # The import.
+        verifier = per_block.BlockSignatureVerifier
+        targets = [(st_mod, "process_slots", "process_slots"),
+                   (st_mod, "per_block_processing", "per_block"),
+                   (verifier, "include_all_signatures", "collect"),
+                   (verifier, "verify", "verify"),
+                   (state_cls, "copy", "copy"),
+                   (state_cls, "as_ssz_bytes", "ssz"),
+                   (store, "do_atomically", "lockbox_put"),
+                   (chain.db, "migrate", "migrate")]
+        mark = runtime_mark()
+        with Patched({}, targets) as spans:
+            cuda_fq.reset_launch_counts()
+            cuda_sha.reset_launch_counts()
+            t = time.perf_counter()
+            root = chain.process_block_with_blobs(signed, sidecars)
+            wall = time.perf_counter() - t
+            launches = {**dict(cuda_fq.LAUNCHES), **dict(cuda_sha.LAUNCHES)}
+        records = assert_on_device("[chain]", mark)
+        by_op = {}
+        for r in records:
+            by_op.setdefault(r["op"], []).append(r)
+        verifies, kzgs = by_op.get("bls_verify", []), by_op.get("kzg_batch", [])
+        # The block's sets: its attestations, and the proposal, the RANDAO
+        # reveal, two per slashing, the exit, the change, the sync aggregate.
+        if len(verifies) != 1 or verifies[0]["verdict"] is not True or \
+                verifies[0]["n_live"] != len(block.body.attestations) + 9:
+            raise AssertionError(f"[chain] the import's bls_verify records {verifies}")
+        if len(kzgs) != 1 or kzgs[0]["verdict"] is not True:
+            raise AssertionError(f"[chain] the import's kzg_batch records {kzgs}")
+        for name in ("fq_mul", "fq2_mul", "sha256_pairs", "tree_hash_subtrees"):
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"{name} was not launched during the chain's import")
+        trace = tracing.TRACES.recent(limit=1, root="block_import")[0]
+        sp = span_seconds(trace)
+        for name in ("block_import", "da_check", "state_transition", "fork_choice",
+                     "store_write", "head_recompute"):
+            if name not in sp:
+                raise AssertionError(f"[chain] the import's trace has no {name} span: {sorted(sp)}")
+        vst, kst = verifies[0]["stages_s"], kzgs[0]["stages_s"]
+        stages = {
+            "da_check": sp["da_check"], "da_device": kst["dispatch"] + kst["wait"],
+            "copy": spans["copy"], "process_slots": spans["process_slots"],
+            "collect": spans["collect"], "verify_setup": vst["setup"],
+            "verify_device": vst["dispatch"] + vst["wait"], "verify": spans["verify"],
+            "operations": spans["per_block"] - spans["collect"] - spans["verify"],
+            "root": sp["state_transition"] - spans["process_slots"] - spans["per_block"],
+            "state_transition": sp["state_transition"], "fork_choice": sp["fork_choice"],
+            "store_write": sp["store_write"], "ssz": spans.get("ssz", 0.0),
+            "lockbox_put": spans.get("lockbox_put", 0.0),
+            "head_recompute": sp["head_recompute"], "migrate": spans.get("migrate", 0.0),
+            "block_import": sp["block_import"]}
+        stages["other"] = stages["block_import"] - sum(
+            stages[k] for k in ("da_check", "copy", "state_transition", "fork_choice",
+                                "store_write", "head_recompute"))
+        log(f"[chain] {card}: process_block_with_blobs imported the block and its "
+            f"{len(sidecars)} sidecars in {wall:.3f} s (span block_import "
+            f"{stages['block_import']:.3f} s): da_check {stages['da_check']:.3f} s (the 6-blob "
+            f"kzg_batch's device stage {stages['da_device']:.3f} s), parent_state.copy() "
+            f"{stages['copy']:.3f} s, state_transition {stages['state_transition']:.3f} s "
+            f"(process_slots {stages['process_slots']:.3f} s, signature-set collection "
+            f"{stages['collect']:.3f} s, the verify {stages['verify']:.3f} s: setup "
+            f"{stages['verify_setup']:.3f} s, device {stages['verify_device']:.3f} s; operations "
+            f"{stages['operations']:.3f} s, the post-block root {stages['root']:.3f} s), "
+            f"fork_choice {stages['fork_choice']:.3f} s, store_write {stages['store_write']:.3f} s "
+            f"(SSZ bytes {stages['ssz']:.3f} s, the lockbox put {stages['lockbox_put']:.3f} s), "
+            f"head_recompute {stages['head_recompute']:.3f} s (the hot->cold migration "
+            f"{stages['migrate']:.3f} s), the rest {stages['other']:.3f} s")
+        log(f"[chain] one supervised kzg_batch ({kzgs[0]['shape']}, {kzgs[0]['n_live']} live) and "
+            f"one supervised bls_verify batch ({verifies[0]['shape']}, {verifies[0]['n_live']} "
+            f"sets) on the card, no host fallback, breakers closed; kernel launches {launches}; "
+            f"the sidecars' header signature checked on the card in {header_s:.2f} s (True; "
+            f"another signature False)")
+
+        # The node's view after the import.
+        post = chain.get_state(root)
+        ref = case.host_state
+        if root != block_root or chain.head_root != block_root:
+            raise AssertionError("[chain] the head is not the block")
+        if post.hash_tree_root() != ref.hash_tree_root():
+            raise AssertionError("[chain] the post-state's root != the host run's")
+        if list(post.balances) != list(ref.balances):
+            raise AssertionError("[chain] balances != the host run's")
+        for field in ("previous_epoch_participation", "current_epoch_participation"):
+            if list(getattr(post, field)) != list(getattr(ref, field)):
+                raise AssertionError(f"[chain] {field} != the host run's")
+        t = time.perf_counter()
+        post_ssz = post.as_ssz_bytes()
+        if post_ssz != ref.as_ssz_bytes():
+            raise AssertionError("[chain] the post-state's SSZ bytes != the host run's")
+        ssz_check_s = time.perf_counter() - t
+        got = chain.get_blobs(root)
+        if [sc.as_ssz_bytes() for sc in got] != [sc.as_ssz_bytes() for sc in sidecars]:
+            raise AssertionError("[chain] get_blobs does not return the six sidecars")
+        log(f"[chain] the head is the block; its post-state equals the host run's (root, "
+            f"balances, participation, SSZ bytes: {len(post_ssz)} bytes, compared in "
+            f"{ssz_check_s:.2f} s); get_blobs returns the {len(got)} sidecars")
+
+        # The sync batch: the committee signs the new head at the block's slot.
+        t = time.perf_counter()
+        msgs = sync_messages(case, chain, root, slot)
+        sign_s = time.perf_counter() - t
+        mark = runtime_mark()
+        cuda_fq.reset_launch_counts()
+        t = time.perf_counter()
+        results = chain.process_sync_committee_messages(msgs)
+        sync_s = time.perf_counter() - t
+        sync_launches = dict(cuda_fq.LAUNCHES)
+        if results != [None] * len(msgs):
+            raise AssertionError(f"[chain] the sync batch's results {set(results)}")
+        sync_rec = [r for r in assert_on_device("[chain] sync", mark) if r["op"] == "bls_verify"]
+        if len(sync_rec) != 1 or sync_rec[0]["verdict"] is not True or \
+                sync_rec[0]["n_live"] != len(msgs):
+            raise AssertionError(f"[chain] the sync batch's records {sync_rec}")
+        sst = sync_rec[0]["stages_s"]
+        tampered = [m.copy() for m in msgs[:CHAIN_SYNC_TAMPERED]]
+        tampered[3].signature = bytes(msgs[4].signature)
+        mark = runtime_mark()
+        t = time.perf_counter()
+        results = chain.process_sync_committee_messages(tampered)
+        tampered_s = time.perf_counter() - t
+        bad = [i for i, r in enumerate(results) if r is not None]
+        if bad != [3]:
+            raise AssertionError(f"[chain] the tampered sync batch's results {results}")
+        t_rec = [r for r in assert_on_device("[chain] sync tampered", mark)
+                 if r["op"] == "bls_verify"]
+        if [r["verdict"] for r in t_rec] != [False] + [i != 3 for i in range(CHAIN_SYNC_TAMPERED)]:
+            raise AssertionError(f"[chain] the tampered sync batch's records "
+                                 f"{[(r['shape'], r['verdict']) for r in t_rec]}")
+        log(f"[chain] {card}: {len(msgs)} sync-committee messages over the head signed on the "
+            f"host in {sign_s:.2f} s; process_sync_committee_messages: all None in {sync_s:.3f} s "
+            f"from one supervised bls_verify batch on the card ({sync_rec[0]['shape']}, "
+            f"{sync_rec[0]['n_live']} sets; setup {sst['setup']:.3f} s, device "
+            f"{sst['dispatch'] + sst['wait']:.3f} s, verdict {sst['verdict']:.3f} s; launches "
+            f"{sync_launches}); {CHAIN_SYNC_TAMPERED} messages with one carrying another "
+            f"member's signature: exactly one error in {tampered_s:.2f} s (the batch False on "
+            f"the card, then {len(t_rec) - 1} single verifies on the card)")
+
+        # The refusals: each raises BlockError and leaves the node as it was.
+        refusals = {}
+        before = chain_snapshot(chain)
+        message = copy.deepcopy(block)
+        message.body.graffiti = b"refused: sidecar 3 has 4's proof".ljust(32, b"\x00")
+        other = case._replace(signed_block=resign(case, message))
+        bad_proofs = list(proofs)
+        bad_proofs[3] = proofs[4]
+        mark = runtime_mark()
+        t = time.perf_counter()
+        try:
+            chain.process_block_with_blobs(other.signed_block,
+                                           blob_sidecars(other, blobs, bad_proofs))
+        except BlockError as err:
+            if "blob KZG batch verification failed" not in str(err):
+                raise
+        else:
+            raise AssertionError("[chain] a sidecar with another blob's proof was accepted")
+        refusals["da_s"] = time.perf_counter() - t
+        rec = [r for r in assert_on_device("[chain] refused DA", mark) if r["op"] == "kzg_batch"]
+        if [r["verdict"] for r in rec] != [False]:
+            raise AssertionError(f"[chain] the refused DA batch's records {rec}")
+        if chain_snapshot(chain) != before:
+            raise AssertionError("[chain] the refused DA import changed the node")
+        message = copy.deepcopy(block)
+        atts = message.body.attestations
+        atts[0].signature, atts[1].signature = bytes(atts[1].signature), bytes(atts[0].signature)
+        other = case._replace(signed_block=resign(case, message))
+        mark = runtime_mark()
+        with Patched({}, [(state_cls, "copy", "copy")]) as swap_spans:
+            t = time.perf_counter()
+            try:
+                chain.process_block_with_blobs(other.signed_block,
+                                               blob_sidecars(other, blobs, proofs))
+            except BlockError as err:
+                if "bulk signature verification failed" not in str(err):
+                    raise
+            else:
+                raise AssertionError("[chain] a swapped attestation signature was accepted")
+            refusals["bulk_s"] = time.perf_counter() - t
+        rec = [r for r in assert_on_device("[chain] refused bulk", mark) if r["op"] == "bls_verify"]
+        if [r["verdict"] for r in rec] != [False]:
+            raise AssertionError(f"[chain] the refused block's verify records {rec}")
+        if chain_snapshot(chain) != before:
+            raise AssertionError("[chain] the refused block changed the node")
+        log(f"[chain] refused on {card}, the head, the store's {before['keys']} keys and the "
+            f"block caches unchanged: a copy of the block whose sidecar 3 carries sidecar 4's "
+            f"proof (BlockError, the kzg_batch False on the card) in {refusals['da_s']:.2f} s; "
+            f"the block with two attestation signatures swapped (BlockError, the bulk batch "
+            f"False on the card) in {refusals['bulk_s']:.2f} s, parent_state.copy() "
+            f"{swap_spans['copy']:.2f} s of it")
+
+        # The restart: a fresh HotColdDB on the same file.
+        state_root = bytes(block.state_root)
+        t = time.perf_counter()
+        store.close()
+        store = LockboxStore(path)
+        db = HotColdDB(hot=store, types=types, spec=spec)
+        stored = db.get_block(root)
+        raw = store.get(DBColumn.BEACON_STATE, state_root)
+        summary = db.get_state_summary(state_root)
+        restart_s = time.perf_counter() - t
+        if stored is None or stored.as_ssz_bytes() != signed.as_ssz_bytes():
+            raise AssertionError("[chain] the block read back != the imported block")
+        if raw != type(post).fork_name.encode() + b"\x00" + post_ssz:
+            raise AssertionError("[chain] the stored state's bytes != the post-state's SSZ")
+        if summary is None or summary.latest_block_root != root or summary.slot != slot:
+            raise AssertionError(f"[chain] the head state's summary {summary}")
+        log(f"[chain] restart: a fresh HotColdDB on the same lockbox file read back the block "
+            f"(byte for byte), the post-state's stored value ({len(raw)} bytes, equal to its "
+            f"SSZ) and its summary (slot {summary.slot}, the block's root) in {restart_s:.2f} s")
+    finally:
+        if store is not None:
+            store.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        th.configure(enabled=False)
+        torch_backend.reset_for_tests()
+    return {"anchor_s": {"warm_root": warm_root_s, **{k: anchor_s[k] for k in (
+                "wall", "root", "ssz", "lockbox_put", "fork_choice")}},
+            "wall_s": wall, "stages_s": stages, "launches": launches,
+            "kzg_bucket": kzgs[0]["shape"], "verify_bucket": verifies[0]["shape"],
+            "sets": verifies[0]["n_live"], "sync_s": sync_s, "sync_sign_s": sign_s,
+            "sync_stages_s": sst, "sync_bucket": sync_rec[0]["shape"],
+            "sync_tampered_s": tampered_s, "refusals_s": refusals, "restart_s": restart_s}
+
+
+def finality_run(path, slots: int):
+    """A fake-crypto harness chain of HARNESS_VALIDATORS validators extended
+    by ``slots`` fully attested slots, on a HotColdDB over a lockbox file
+    at ``path`` (or the harness's MemoryStore where ``path`` is None);
+    returns (harness, block roots)."""
+    from lighthouse_tpu_torch.chain import (
+        BeaconChain,
+        BeaconChainHarness,
+        ManualSlotClock,
+        MockExecutionEngine,
+    )
+    from lighthouse_tpu_torch.store import HotColdDB, LockboxStore
+
+    hs = BeaconChainHarness(validator_count=HARNESS_VALIDATORS, fake_crypto=True)
+    if path is not None:
+        genesis = hs.chain.genesis_state
+        hs.chain = BeaconChain(
+            genesis_state=genesis, types=hs.types, spec=hs.spec,
+            db=HotColdDB(hot=LockboxStore(path)),
+            slot_clock=ManualSlotClock(int(genesis.genesis_time), hs.spec.seconds_per_slot),
+            execution_engine=MockExecutionEngine())
+    return hs, hs.extend_chain(slots)
+
+
+def phase_chain_harness(card: str, device: str = "cuda") -> dict:
+    """The in-process harness (SURVEY §7) on the default device (see the
+    module docstring)."""
+    import shutil
+    import tempfile
+
+    from lighthouse_tpu_torch.chain import AttestationError, BeaconChainHarness, BlockError
+    from lighthouse_tpu_torch.consensus import helpers as h
+    from lighthouse_tpu_torch.consensus import per_epoch as pe
+    from lighthouse_tpu_torch.crypto.bls import set_backend
+    from lighthouse_tpu_torch.crypto.bls.backends import torch_backend
+    from lighthouse_tpu_torch.ops import cuda_epoch, cuda_fq
+    from lighthouse_tpu_torch.ops import tree_hash as th
+    from lighthouse_tpu_torch.store import HotColdDB, LockboxStore
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_harness_")
+    set_backend("torch")
+    torch_backend.configure(device=device)
+    th.configure(enabled=True, device=device)
+    pe.configure(backend="device", device=device)
+    try:
+        # 1. Real crypto for two slots: every verify on the card.
+        mark = runtime_mark()
+        cuda_fq.reset_launch_counts()
+        t = time.perf_counter()
+        real = BeaconChainHarness(validator_count=HARNESS_VALIDATORS)
+        roots = real.extend_chain(HARNESS_REAL_SLOTS, attest=True)
+        real_s = time.perf_counter() - t
+        bls_launches = dict(cuda_fq.LAUNCHES)
+        verifies = [r for r in assert_on_device("[chain-harness] real", mark)
+                    if r["op"] == "bls_verify"]
+        singles = [r for r in verifies if r["n_live"] == 1]
+        blocks = [r for r in verifies if r["n_live"] > 1]
+        if real.head_root != roots[-1]:
+            raise AssertionError("[chain-harness] the head is not the last block")
+        if min(bls_launches.values()) <= 0:
+            raise AssertionError(f"[chain-harness] BLS launches {bls_launches}")
+        if len(blocks) != HARNESS_REAL_SLOTS or not all(r["verdict"] is True for r in verifies):
+            raise AssertionError(f"[chain-harness] the verify records "
+                                 f"{[(r['shape'], r['n_live'], r['verdict']) for r in verifies]}")
+        set_backend("fake")
+        replay = BeaconChainHarness(validator_count=HARNESS_VALIDATORS)
+        replay_roots = replay.extend_chain(HARNESS_REAL_SLOTS, attest=True)
+        set_backend("torch")
+        if replay_roots != roots or [bytes(replay.chain.get_block(r).message.state_root)
+                                     for r in roots] != [
+                bytes(real.chain.get_block(r).message.state_root) for r in roots]:
+            raise AssertionError("[chain-harness] the fake-backend replay built another chain")
+
+        # Refusals, each from a verdict on the card.
+        chain = real.chain
+        slot = real.advance_slot()
+        signed = real.produce_signed_block(sync_participation=False)
+        signed.signature = bytes(signed.message.body.randao_reveal)
+        mark = runtime_mark()
+        try:
+            chain.process_block(signed)
+        except BlockError as err:
+            if "bulk signature verification failed" not in str(err):
+                raise
+        else:
+            raise AssertionError("[chain-harness] a block under another signature was accepted")
+        refused = [r["verdict"] for r in assert_on_device("[chain-harness] block", mark)
+                   if r["op"] == "bls_verify"]
+        state, _ = chain.state_at_slot(slot)
+        committee = h.get_beacon_committee(state, slot, 0, real.spec)
+        data = chain.produce_attestation_data(slot, 0)
+        others = [v for v in range(HARNESS_VALIDATORS) if v not in set(int(c) for c in committee)]
+        bits = [False] * len(committee)
+        bits[0] = True
+        att = real.types.Attestation(
+            aggregation_bits=bits, data=data,
+            signature=real.sign_attestation_data(state, data, others[0]).to_bytes())
+        mark = runtime_mark()
+        try:
+            chain.process_attestation(att)
+        except AttestationError:
+            pass
+        else:
+            raise AssertionError("[chain-harness] an attestation by another validator was accepted")
+        refused += [r["verdict"] for r in assert_on_device("[chain-harness] attestation", mark)
+                    if r["op"] == "bls_verify"]
+        if refused != [False, False]:
+            raise AssertionError(f"[chain-harness] the refusals' verdicts {refused}")
+        log(f"[chain-harness] {card}: {HARNESS_VALIDATORS} interop validators (minimal preset), "
+            f"real crypto: {HARNESS_REAL_SLOTS} slots extended (produce, sign, import, attest) in "
+            f"{real_s:.2f} s: {len(blocks)} block batches ({[r['shape'] for r in blocks]}) and "
+            f"{len(singles)} single attestation verifies on the card, no host fallback, BLS "
+            f"launches {bls_launches}; a fake-backend replay with the same keys built the same "
+            f"block and state roots; a block under another signature (BlockError) and an "
+            f"attestation signed by another validator (AttestationError) refused, both batches "
+            f"False on the card")
+
+        # 2. Five epochs to finality on the native store, then the CPU path.
+        path = str(Path(tmp) / "chain.db")
+        mark = runtime_mark()
+        cuda_epoch.reset_launch_counts()
+        t = time.perf_counter()
+        card_hs, card_roots = finality_run(path, HARNESS_SLOTS)
+        card_s = time.perf_counter() - t
+        epoch_launches = dict(cuda_epoch.LAUNCHES)
+        records = assert_on_device("[chain-harness] finality", mark)
+        boundaries = [r for r in records if r["op"] in ("epoch_boundary", "epoch_boundary_leak")]
+        chain = card_hs.chain
+        fin, jus = card_hs.finalized_epoch(), card_hs.justified_epoch()
+        if jus < 4 or fin < 3:
+            raise AssertionError(f"[chain-harness] justified {jus}, finalized {fin}")
+        if len(boundaries) < HARNESS_SLOTS // card_hs.spec.slots_per_epoch:
+            raise AssertionError(f"[chain-harness] {len(boundaries)} boundary batches on the card")
+        if min(epoch_launches.values()) <= 0:
+            raise AssertionError(f"[chain-harness] epoch kernel launches {epoch_launches}")
+        db = chain.db
+        split = db.get_split_slot()
+        spe = card_hs.spec.slots_per_epoch
+        cold_slot = 2 * spe
+        cold = db.load_cold_state_by_slot(cold_slot)
+        held = bytes(chain.get_block(card_roots[cold_slot - 1]).message.state_root)
+        if split < 3 * spe or cold is None or cold.hash_tree_root() != held:
+            raise AssertionError(f"[chain-harness] the freezer: split {split}, the state at "
+                                 f"{cold_slot} {cold is not None}")
+
+        pe.configure(backend="numpy")
+        th.configure(enabled=False)
+        t = time.perf_counter()
+        cpu_hs, cpu_roots = finality_run(None, HARNESS_SLOTS)
+        cpu_s = time.perf_counter() - t
+        if cpu_roots != card_roots or [
+                bytes(cpu_hs.chain.get_block(r).message.state_root) for r in cpu_roots] != [
+                bytes(chain.get_block(r).message.state_root) for r in card_roots]:
+            raise AssertionError("[chain-harness] the card's chain != the CPU path's")
+        if cpu_hs.head_state.hash_tree_root() != card_hs.head_state.hash_tree_root():
+            raise AssertionError("[chain-harness] the head states differ")
+
+        head, finalized = chain.head_root, chain.finalized_checkpoint()
+        head_block = chain.get_block(head).as_ssz_bytes()
+        chain.store.close()
+        store = LockboxStore(path)
+        try:
+            db2 = HotColdDB(hot=store, types=card_hs.types, spec=card_hs.spec)
+            stored = db2.get_block(head)
+            head_state = db2.get_hot_state(bytes(stored.message.state_root))
+            reopened = (int(head_state.finalized_checkpoint.epoch),
+                        bytes(head_state.finalized_checkpoint.root))
+            if stored.as_ssz_bytes() != head_block or reopened != finalized \
+                    or db2.get_split_slot() != split:
+                raise AssertionError(f"[chain-harness] reopened: finalized {reopened} vs "
+                                     f"{finalized}, split {db2.get_split_slot()} vs {split}")
+        finally:
+            store.close()
+        log(f"[chain-harness] {card}: fake crypto, {HARNESS_SLOTS} slots on a HotColdDB over a "
+            f"lockbox file in {card_s:.2f} s: justified epoch {jus}, finalized {fin}; the "
+            f"freezer's split at slot {split}, the cold state at slot {cold_slot} (a restore "
+            f"point) equals the chain's; {len(boundaries)} fused boundary batches on the card, "
+            f"epoch kernel launches {epoch_launches}; every block and state root equal to the "
+            f"CPU path's (numpy epoch backend, host tree hashing; {cpu_s:.2f} s); reopened, the "
+            f"lockbox file gives the same head block and finalized checkpoint")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        set_backend("torch")
+        torch_backend.reset_for_tests()
+        pe.reset_for_tests()
+        th.configure(enabled=False)
+    return {"real_s": real_s, "single_verifies": len(singles), "bls_launches": bls_launches,
+            "finality_s": card_s, "cpu_s": cpu_s, "justified": jus, "finalized": fin,
+            "split": split, "boundaries": len(boundaries), "epoch_launches": epoch_launches}
 
 
 def walk_sweep(seed_words, pivots, k: int, m: int, bound_ms: float) -> dict:
@@ -2369,6 +2991,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from lighthouse_tpu_torch.ops import cuda_fq
+    from lighthouse_tpu_torch.workload import clone_state
 
     t_start = time.perf_counter()
     card = nvidia_smi("name,power.limit")
@@ -2391,7 +3014,19 @@ def main() -> int:
     phase_hash_runtime(card)
     state_out = phase_state(card)
     epoch_out = phase_epoch(card)
-    block_out = phase_block(card)
+    # [block] and [chain] share one case whose block carries the six KZG
+    # commitments; [block] applies the block to its pre-state in place, so
+    # [chain]'s anchor is a copy taken before, and [block]'s states go
+    # before [chain] builds its node.
+    case, build_s = block_case(commitments=kzg_in[2])
+    anchor = clone_state(case.pre_state)
+    block_out = phase_block(card, case=case, build_s=build_s)
+    case = case._replace(pre_state=None)
+    gc.collect()
+    phase_chain(card, case, anchor, kzg_in)
+    del case, anchor
+    gc.collect()
+    phase_chain_harness(card)
     phase_faults(cuda_fq, *kzg_in)
     kernels = phase_timing(cuda_fq, verify_out, kzg_out, block_out, max_err, clock_mhz)
     for row in kernels:

@@ -2,11 +2,11 @@
 
 Equivalent of the reference's ``common/lighthouse_metrics`` (lib.rs:1-18 —
 thin helpers over a global prometheus registry) plus the hot-path stage
-timers of batch verification
-(``beacon_node/beacon_chain/src/metrics.rs:247-271``).  The port keeps the
+timers of batch verification and block import
+(``beacon_node/beacon_chain/src/metrics.rs:40-271``).  The port keeps the
 JAX package's registry and, of its metrics, those the device runtime, the
-BLS API and the KZG path touch, with their names, labels and buckets; the
-chain's, the HTTP API's and the mesh's metrics come with those modules.
+BLS API, the KZG path and the chain touch, with their names, labels and
+buckets; the HTTP API's and the mesh's metrics come with those modules.
 
 Design: a plain-Python registry with lock-free-enough updates (single
 attribute stores under the GIL), rendered on demand in the Prometheus text
@@ -408,4 +408,54 @@ DEVICE_ARBITER_WAIT_SECONDS = histogram(
 DEVICE_ARBITER_GRANTS = counter(
     "device_arbiter_grants_total",
     "device-dispatch slots granted by the shared pipeline arbiter, by op",
+)
+
+# ------------------------------------------------------------------- chain
+# Chain stage timers (reference beacon_chain/src/metrics.rs:40-271), the
+# block import's stages as ``chain/beacon_chain.py`` spans them.
+BLOCK_IMPORT_SECONDS = histogram(
+    "beacon_block_import_seconds", "Full block import pipeline time"
+)
+BLOCK_STATE_TRANSITION_SECONDS = histogram(
+    "beacon_block_state_transition_seconds", "state_transition() inside import"
+)
+BLOCK_FORK_CHOICE_SECONDS = histogram(
+    "beacon_block_fork_choice_seconds", "fork choice on_block inside import"
+)
+BLOCK_DA_CHECK_SECONDS = histogram(
+    "beacon_block_da_check_seconds", "blob availability check inside import"
+)
+BLOCK_STORE_WRITE_SECONDS = histogram(
+    "beacon_block_store_write_seconds", "block+state persistence inside import"
+)
+HEAD_RECOMPUTE_SECONDS = histogram(
+    "beacon_head_recompute_seconds", "fork-choice get_head + head swap"
+)
+STATE_ADVANCE_SECONDS = histogram(
+    "beacon_state_advance_seconds",
+    "tail-of-slot head-state pre-advance (state_advance_timer role)",
+)
+
+# Slot-relative delay observability (reference block_times_cache +
+# metrics.rs beacon_block_delay_* / attestation delay families): every
+# figure is measured against the SLOT CLOCK's start of the object's own
+# slot, not wall-clock-since-receipt.
+BLOCK_ARRIVAL_DELAY_SECONDS = histogram(
+    "beacon_block_arrival_delay_seconds",
+    "block receipt relative to its own slot start",
+)
+BLOCK_IMPORTED_DELAY_SECONDS = histogram(
+    "beacon_block_imported_delay_seconds",
+    "block import completion relative to its own slot start",
+)
+ATTESTATION_ARRIVAL_DELAY_SECONDS = histogram(
+    "beacon_attestation_arrival_delay_seconds",
+    "gossip/API attestation application relative to its slot start",
+)
+
+# The chain's event bus (chain/events.py): a slow subscriber loses events
+# (bounded queue, non-blocking publish) and the loss is counted here.
+SSE_EVENTS_DROPPED = counter(
+    "http_sse_events_dropped_total",
+    "server-sent events dropped on a full subscriber queue, by topic",
 )

@@ -1,12 +1,17 @@
 """Native (C++) host components, compiled on demand with g++.
 
-The port's copy of the JAX package's ``lighthouse_tpu/native``: the
-batched SHA-256 pair hasher (``hash_pairs.cc``, SHA-NI where the CPU has
-it, else libcrypto or a portable loop), built once into the port's build
-directory (``lighthouse_tpu_torch/build/``, keyed by the source's hash)
-and loaded with ctypes.  It is the host kernel of the SSZ Merkle layer
-(``types/ssz.py``) and the golden host route of the hashing slice.  The
-embedded store's ``lockbox.cc`` comes with the port of ``store/``.
+The port's copy of the JAX package's ``lighthouse_tpu/native``, two
+sources built once into the port's build directory
+(``lighthouse_tpu_torch/build/``, each library named by its source's hash)
+and loaded with ctypes:
+
+- ``hash_pairs.cc``: the batched SHA-256 pair hasher (SHA-NI where the CPU
+  has it, else libcrypto or a portable loop), the host kernel of the SSZ
+  Merkle layer (``types/ssz.py``) and the golden host route of the hashing
+  slice;
+- ``lockbox.cc``: the embedded key-value engine behind
+  ``store.lockbox_store.LockboxStore`` (the reference links LevelDB there),
+  a byte-for-byte copy of the JAX package's.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _BUILD_LOCK = threading.Lock()
 _HASH_LIB = None
+_LOCKBOX_LIB = None
 
 
 def _compile_and_load(src_name: str, stem: str, extra_flags=()) -> ctypes.CDLL:
@@ -56,4 +62,43 @@ def load_hash_pairs() -> ctypes.CDLL:
             ctypes.c_char_p, ctypes.c_uint64, ctypes.c_char_p,
         ]
         _HASH_LIB = lib
+        return lib
+
+
+def load_lockbox() -> ctypes.CDLL:
+    """Compile (if needed) and load the lockbox engine."""
+    global _LOCKBOX_LIB
+    if _LOCKBOX_LIB is not None:
+        return _LOCKBOX_LIB
+    with _BUILD_LOCK:
+        if _LOCKBOX_LIB is not None:
+            return _LOCKBOX_LIB
+        lib = _compile_and_load("lockbox.cc", "lockbox")
+        lib.lockbox_open.restype = ctypes.c_void_p
+        lib.lockbox_open.argtypes = [ctypes.c_char_p]
+        lib.lockbox_close.argtypes = [ctypes.c_void_p]
+        lib.lockbox_put.restype = ctypes.c_int
+        lib.lockbox_put.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint32,
+            ctypes.c_char_p, ctypes.c_uint32,
+        ]
+        lib.lockbox_get.restype = ctypes.c_int64
+        lib.lockbox_get.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint32,
+            ctypes.c_char_p, ctypes.c_uint64,
+        ]
+        lib.lockbox_delete.restype = ctypes.c_int
+        lib.lockbox_delete.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint32]
+        lib.lockbox_count.restype = ctypes.c_uint64
+        lib.lockbox_count.argtypes = [ctypes.c_void_p]
+        lib.lockbox_keys.restype = ctypes.c_uint64
+        lib.lockbox_keys.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint32,
+            ctypes.c_char_p, ctypes.c_uint64,
+        ]
+        lib.lockbox_flush.restype = ctypes.c_int
+        lib.lockbox_flush.argtypes = [ctypes.c_void_p]
+        lib.lockbox_compact.restype = ctypes.c_int
+        lib.lockbox_compact.argtypes = [ctypes.c_void_p]
+        _LOCKBOX_LIB = lib
         return lib

@@ -182,6 +182,15 @@ def annotate(**fields) -> None:
         sp.fields.update(fields)
 
 
+def annotate_trace(**fields) -> None:
+    """Merge fields into the active TRACE's root span — how an inner stage
+    keys the whole trace (a block import stamps its slot on the enclosing
+    root so ``TRACES.recent(slot=...)`` finds it)."""
+    sp = _current.get()
+    if sp is not None:
+        sp.trace.root.fields.update(fields)
+
+
 @contextmanager
 def span(name: str, hist=None, hist_labels: Optional[dict] = None, **fields):
     """Record a span; on close, observe its duration into ``hist`` too.

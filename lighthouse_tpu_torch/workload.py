@@ -314,7 +314,7 @@ def warm_pubkey_cache(keys: CaseKeys) -> int:
     return len(keys.points)
 
 
-def block_import_case(n_validators: int, seed: int) -> BlockCase:
+def block_import_case(n_validators: int, seed: int, blob_commitments=None) -> BlockCase:
     """A Deneb mainnet-preset state of ``n_validators`` validators at the
     first slot of an epoch (:func:`random_state`, its block at that slot
     imported) and the block a mainnet proposer packs for the next slot,
@@ -331,6 +331,10 @@ def block_import_case(n_validators: int, seed: int) -> BlockCase:
     - an execution payload with the 16 withdrawals of the state's sweep, a
       few hundred transactions and 6 blob commitments;
     - no deposits (``eth1_data.deposit_count == eth1_deposit_index``).
+
+    ``blob_commitments`` (up to 6, e.g. real commitments to blobs whose
+    sidecars :func:`blob_sidecars` builds) replace the random G1 multiples
+    the block otherwise carries; nothing else in the case changes.
 
     The state holds the eth1 votes of its voting period so far (one a
     slot).  Real BLS keys are made only where a signature needs them (the
@@ -442,7 +446,7 @@ def block_import_case(n_validators: int, seed: int) -> BlockCase:
         host = process_slots(clone_state(state), next_slot, types, spec)
         block = _block(host, types, spec, keys, committees, slot, proposer,
                        (slashed_proposer, slashed_attesters, exiting, changing),
-                       withdrawal_pk, rng, roots)
+                       withdrawal_pk, rng, roots, blob_commitments)
         unsigned = types.signed_block["deneb"](message=block, signature=bytes(96))
         host = state_transition(host, unsigned, types, spec,
                                 strategy=BlockSignatureStrategy.NO_VERIFICATION,
@@ -455,7 +459,7 @@ def block_import_case(n_validators: int, seed: int) -> BlockCase:
 
 
 def _block(state, types, spec, keys: CaseKeys, committees, att_slot: int, proposer: int,
-           subjects, withdrawal_pk: bytes, rng, roots):
+           subjects, withdrawal_pk: bytes, rng, roots, blob_commitments=None):
     """The unsigned block for ``state`` (advanced to its slot) whose
     signatures are all real: see :func:`block_import_case`."""
     from .consensus import helpers as h
@@ -555,6 +559,9 @@ def _block(state, types, spec, keys: CaseKeys, committees, att_slot: int, propos
             sync_root, sync_domain, sum(sk[m] for m, b in zip(members, bits) if b)))
 
     # The execution payload: the sweep's withdrawals, seeded transactions.
+    n_blobs = _BLOBS if blob_commitments is None else len(blob_commitments)
+    if n_blobs > _BLOBS:
+        raise ValueError(f"{n_blobs} blob commitments: a block takes at most {_BLOBS}")
     lengths = rng.integers(100, 700, _TRANSACTIONS)
     transactions = [rng.integers(0, 256, int(k), dtype=np.uint8).tobytes() for k in lengths]
     header = state.latest_execution_payload_header
@@ -568,9 +575,14 @@ def _block(state, types, spec, keys: CaseKeys, committees, att_slot: int, propos
         extra_data=b"lighthouse-tpu", base_fee_per_gas=int(header.base_fee_per_gas),
         block_hash=roots(1)[0], transactions=transactions,
         withdrawals=h.get_expected_withdrawals(state, types, spec),
-        blob_gas_used=_BLOBS * 131072, excess_blob_gas=0)
-    commitments = [serde.g1_compress(curve.mul(curve.G1, int(k)))
-                   for k in rng.integers(1, 2 ** 62, _BLOBS)]
+        blob_gas_used=n_blobs * 131072, excess_blob_gas=0)
+    # The scalars are drawn either way, so the rest of the block is the
+    # same with or without given commitments.
+    scalars = rng.integers(1, 2 ** 62, _BLOBS)
+    if blob_commitments is None:
+        commitments = [serde.g1_compress(curve.mul(curve.G1, int(k))) for k in scalars]
+    else:
+        commitments = [bytes(c) for c in blob_commitments]
 
     randao_domain = h.get_domain(state, DOMAIN_RANDAO, epoch, spec)
     body = types.block_body["deneb"](
@@ -582,3 +594,31 @@ def _block(state, types, spec, keys: CaseKeys, committees, att_slot: int, propos
         bls_to_execution_changes=[signed_change], blob_kzg_commitments=commitments)
     return types.block["deneb"](slot=slot, proposer_index=proposer, parent_root=parent_root,
                                 state_root=bytes(32), body=body)
+
+
+def blob_sidecars(case: BlockCase, blobs, proofs) -> list:
+    """The ``BlobSidecar``s of ``case``'s block for ``blobs`` and their KZG
+    ``proofs`` (the block carries their commitments: see
+    :func:`block_import_case`): each with its commitment's inclusion proof
+    (``chain.da.compute_blob_inclusion_proof``) and the block's header,
+    which carries the block's signature (the header's root is the block's
+    root, so the proposer's signature covers both)."""
+    from .chain.da import compute_blob_inclusion_proof
+
+    types, signed = case.types, case.signed_block
+    block = signed.message
+    commitments = list(block.body.blob_kzg_commitments)
+    if len(blobs) != len(commitments) or len(proofs) != len(commitments):
+        raise ValueError(f"{len(blobs)} blobs and {len(proofs)} proofs for "
+                         f"{len(commitments)} commitments")
+    header = types.SignedBeaconBlockHeader(
+        message=types.BeaconBlockHeader(
+            slot=block.slot, proposer_index=block.proposer_index,
+            parent_root=block.parent_root, state_root=block.state_root,
+            body_root=block.body.hash_tree_root()),
+        signature=signed.signature)
+    return [types.BlobSidecar(
+        index=i, blob=bytes(blob), kzg_commitment=bytes(commitments[i]),
+        kzg_proof=bytes(proofs[i]), signed_block_header=header,
+        kzg_commitment_inclusion_proof=compute_blob_inclusion_proof(block.body, i))
+        for i, blob in enumerate(blobs)]
