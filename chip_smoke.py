@@ -128,17 +128,23 @@ Phases, each of which raises on a failed check:
              case's pre-state (hash cache warmed by one full root) over
              ``HotColdDB(hot=LockboxStore(<tmp>/chain.db))``, a
              ``ManualSlotClock`` at the block's slot, the [kzg] ``Kzg`` and
-             the mock EL (the anchor's root, store write and fork-choice
-             anchor timed apart); the sidecars' header signature checked
-             on the card (another signature refused); then
+             an ``ExecutionLayer`` speaking the Engine API over HTTP with
+             JWT to a ``MockEngineServer`` (the anchor's root, store write
+             and fork-choice anchor timed apart); the sidecars' header
+             signature checked on the card (another signature refused);
+             then [scheduler] on this node; then
              ``process_block_with_blobs`` of the block and its six
              sidecars (``workload.blob_sidecars``): one supervised
              kzg_batch and one supervised bls_verify batch on the card, no
              host fallback, breakers closed, all four BLS and hash kernels
              launched (counts set to 0 just before the import, read just
-             after), the head the block, the post-state equal to the host
-             run's (root, balances, participation, SSZ bytes), get_blobs
-             the six sidecars; the import's spans (da_check,
+             after), exactly one ``engine_newPayloadV3`` to the mock engine
+             carrying the six sidecars' versioned hashes and the parent
+             root, and a ``forkchoiceUpdated`` after it (its
+             ``notify_new_payload`` timed), the head the block, the
+             post-state equal to the host run's (root, balances,
+             participation, SSZ bytes), get_blobs the six sidecars; the
+             import's spans (da_check,
              state_transition, fork_choice, store_write, head_recompute)
              and ``parent_state.copy()`` timed apart; the state's sync
              committee signs the head (512 messages): all accepted by one
@@ -152,6 +158,24 @@ Phases, each of which raises on a failed check:
              fresh ``HotColdDB`` on the same file reads back the block
              byte for byte, the post-state's stored SSZ bytes and its
              summary;
+    scheduler — gossip attestations through the beacon processor on the
+             [chain] node before its import (slot S-1's attestations arrive
+             before block S): 4,096 unaggregated attestations of the
+             anchor's slot, 64 members of each of its 64 committees, each
+             signed with its own key, sent as ``GOSSIP_ATTESTATION``
+             ``WorkEvent``s from 8 threads into ``BeaconProcessor`` at its
+             default workers while they are held busy (at this traffic the
+             queue does not empty), with ``GossipAttestations`` (a stand-in for
+             the router's batch handler on the chain's public API) as the
+             batch handler; every attestation applied to fork choice (each
+             sender's vote), no event dropped, no host fallback, each
+             drained batch exactly one supervised bls_verify batch on the
+             card; the batches and buckets that formed, each batch's
+             queue wait, preverify, setup, dispatch, wait and apply, its
+             Fq launches (counts set to 0 just before the sends, read
+             after the drain); then 8 more, one under another member's
+             signature, queued while the workers are held: one batch False
+             on the card, 8 single verifies, exactly one refused;
 14. chain-harness — the SURVEY §7 harness (minimal preset, 64 interop
              validators): two slots of real crypto on the default device
              (each block's bulk batch and 16 single attestation verifies on
@@ -164,7 +188,16 @@ Phases, each of which raises on a failed check:
              fused program on the card and both epoch kernels launched,
              every block and state root equal to a run on the CPU path
              (numpy epoch backend, host tree hashing), and the reopened
-             file's head block and finalized checkpoint the chain's;
+             file's head block and finalized checkpoint the chain's; then,
+             real crypto on the card, the builder path (a ``MockRelay``
+             over HTTP, its key pinned: ``produce_blinded_block`` verifies
+             the bid on the card, the proposer signs, ``unblind_and_import``
+             imports the revealed block on the card; a reveal for a header
+             changed after the bid refused with ``BlockError``) and the
+             eth1 path (one deposit from a provider through
+             ``Eth1Service`` and its ``DepositCache`` into the produced
+             block, imported on the card, the registry one longer), each
+             root and the refusal equal to the CPU path's;
 15. faults — the supervisor's routes on the card at small size, each with
              its exact counter deltas and none with a host fallback (on
              the card a failure raises into the caller): a
@@ -184,13 +217,19 @@ Phases, each of which raises on a failed check:
              validator boundary (no split, raised, the numpy composite never
              runs); a ``device.dispatch`` error on the verify batch of a
              4,096-validator block import (split retry, both halves on the
-             card, the block imports with its root);
+             card, the block imports with its root); the processor's
+             requeue: the bls_verify breaker opened by a fault plan, then 8
+             gossip attestations through ``BeaconProcessor``: the batch's
+             ``RequeueWork``, each event requeued once
+             (``beacon_processor_work_requeued_total`` +8), the retry the
+             HALF_OPEN probe on the card, all applied, none dropped;
 16. timing — each kernel and its plain version at the largest shape the
              128 x 32 run gave it, beside the least time the card could take;
              then each kernel at every launch size of that run (the
              histogram ``cuda_fq.SIZES``), summed to its time per verify,
              beside its bound per verify, and likewise per 6-blob and per
-             192-lane KZG batch and per [block] import; each SHA-256 kernel
+             192-lane KZG batch, per [block] import and per [scheduler]
+             drain of 4,096 attestations; each SHA-256 kernel
              at its top bucket and at every launch size of the [state] run
              and of the [block] import, beside its bound and
              plain version, its launches per state root, and the native
@@ -226,6 +265,7 @@ import json
 import random
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -340,9 +380,23 @@ BLOCK_SEED = 0xB10C
 #: interop validators, its real-crypto slots and its slots to finality (five
 #: minimal-preset epochs).
 CHAIN_SYNC_TAMPERED = 8
+#: [chain]'s execution engine: the Engine API's JWT secret of the mock
+#: engine served over HTTP.
+EL_JWT_SECRET = random.Random(0xE1).randbytes(32)
+#: [scheduler]: gossip attestations (one STANDARD_DEVICE_BATCH, spread over
+#: the slot's committees), the threads that send them, the tampered batch
+#: and the seconds the processor may take to drain.
+SCHED_ATTESTATIONS = 4096
+SCHED_THREADS = 8
+SCHED_TAMPERED = 8
+SCHED_IDLE_S = 900.0
 HARNESS_VALIDATORS = 64
 HARNESS_REAL_SLOTS = 2
 HARNESS_SLOTS = 40
+#: [chain-harness]'s eth1 path: the interop index of the new depositor;
+#: the graffiti of its builder and eth1 blocks.
+ETH1_NEW_VALIDATOR = 100
+HARNESS_GRAFFITI = b"chip_smoke builder/eth1".ljust(32, b"\x00")
 #: The supervisor's counters whose deltas each fault case asserts.
 SUPERVISOR_COUNTERS = {
     "host_fallbacks": "DEVICE_HOST_FALLBACK",
@@ -1293,6 +1347,7 @@ def phase_faults(cuda_fq, kzg, blobs, commitments, proofs, device: str = "cuda")
     phase_hash_faults(device)
     phase_epoch_faults(device)
     phase_block_faults(device)
+    phase_requeue_faults(device)
     for op in ("bls_verify", "kzg_batch", "sha256_pairs", "tree_hash", "epoch_boundary"):
         if ds.breaker_state(op) != "closed":
             raise AssertionError(f"[faults] the {op} breaker is left open")
@@ -1723,6 +1778,121 @@ def phase_epoch_faults(device: str = "cuda") -> None:
         pe.configure(backend="device", fused_boundary=True, device="cuda")
 
 
+def phase_requeue_faults(device: str = "cuda") -> None:
+    """The beacon processor's requeue on the card: the bls_verify breaker
+    opened by a fault plan, then an 8-attestation gossip batch of a
+    HARNESS_VALIDATORS-validator harness (real crypto) through
+    ``BeaconProcessor`` with the [scheduler] stand-in handler, drained as
+    one batch by one worker.  Its verify raises ``RequeueWork`` (OPEN, no
+    launch); the processor requeues each event once
+    (``MAX_WORK_RETRIES``), the breaker's cooldown has elapsed by the
+    retry (its clock reads the requeue counter), the retry is the
+    HALF_OPEN probe: one batch on the card, True, every attestation applied,
+    the breaker CLOSED; no host fallback, nothing dropped."""
+    from lighthouse_tpu_torch import device_supervisor as ds
+    from lighthouse_tpu_torch import fault_injection as fi
+    from lighthouse_tpu_torch.chain import BeaconChainHarness
+    from lighthouse_tpu_torch.consensus import helpers as h
+    from lighthouse_tpu_torch.crypto.bls import api, set_backend
+    from lighthouse_tpu_torch.crypto.bls.backends import torch_backend
+    from lighthouse_tpu_torch.ops import cuda_fq
+    from lighthouse_tpu_torch.ops import tree_hash as th
+    from lighthouse_tpu_torch.scheduler import BeaconProcessor, W
+    from lighthouse_tpu_torch.scheduler import processor as proc_mod
+    from lighthouse_tpu_torch.scheduler.work import MAX_WORK_RETRIES
+
+    set_backend("torch")
+    torch_backend.configure(device=device)
+    th.configure(enabled=False)
+    processor = BeaconProcessor(max_workers=1)
+    wt = W.GOSSIP_ATTESTATION
+    try:
+        hs = BeaconChainHarness(validator_count=HARNESS_VALIDATORS)
+        (root,) = hs.extend_chain(1, attest=False)
+        state, spec = hs.chain.get_state(root), hs.spec
+        slot = int(state.slot)
+        epoch = h.compute_epoch_at_slot(slot, spec)
+        atts, voters = [], []
+        for c in range(h.get_committee_count_per_slot(state, epoch, spec)):
+            committee = [int(v) for v in h.get_beacon_committee(state, slot, c, spec)]
+            data = hs.chain.produce_attestation_data(slot, c)
+            for pos, v in enumerate(committee):
+                bits = [False] * len(committee)
+                bits[pos] = True
+                atts.append(hs.types.Attestation(
+                    aggregation_bits=bits, data=data,
+                    signature=hs.sign_attestation_data(state, data, v).to_bytes()))
+                voters.append(v)
+        if len(atts) != SCHED_TAMPERED:
+            raise AssertionError(f"[faults] {len(atts)} attesters in slot {slot}")
+        hs.advance_slot()
+        handler = GossipAttestations(hs.chain)
+        def requeued():
+            return proc_mod.WORK_EVENTS_REQUEUED.get(work=wt)
+
+        base = requeued()
+        ds.set_cooldown_clock(lambda: 31.0 if requeued() >= base + len(atts) else 0.0)
+        ds.SUPERVISOR.configure(config=ds.BreakerConfig(
+            failure_threshold=2, open_cooldown_s=30.0, probe_successes=1))
+        one = [hs.chain.preverify_attestation(atts[0]).signature_set]
+
+        def trip():
+            fi.install("device.dispatch", "error", op="bls_verify")
+            raised = []
+            for _ in range(2):
+                try:
+                    api.verify_signature_sets(one)
+                except fi.InjectedFault as err:
+                    raised.append(type(err).__name__)
+            if ds.breaker_state("bls_verify") != "open":
+                raise AssertionError("[faults] the breaker is not open after 2 errors")
+            return raised
+
+        fault_case("device.dispatch errors to the threshold (2) on 1 x 1 before the gossip "
+                   "batch: each raised, OPEN", trip, ["InjectedFault", "InjectedFault"],
+                   {"split_retries": {"op=bls_verify,outcome=failure": 2.0},
+                    "breaker_transitions": {"op=bls_verify,to=open": 1.0}})
+
+        def requeue():
+            counters = {"requeued": proc_mod.WORK_EVENTS_REQUEUED,
+                        "processed": proc_mod.WORK_EVENTS_PROCESSED,
+                        "dropped": proc_mod.WORK_EVENTS_DROPPED}
+            before = {k: c.get(work=wt) for k, c in counters.items()}
+            mark = runtime_mark()
+            launches = dict(cuda_fq.LAUNCHES)
+            with HeldWorkers(processor):
+                for ev in gossip_events(handler, atts):
+                    if not processor.send(ev):
+                        raise AssertionError("[faults] a gossip send was refused")
+            if not processor.wait_idle(SCHED_IDLE_S):
+                raise AssertionError("[faults] the processor did not drain")
+            deltas = {k: c.get(work=wt) - before[k] for k, c in counters.items()}
+            records = [(r["n_live"], r["verdict"]) for r in assert_on_device(
+                "[faults] requeue", mark) if r["op"] == "bls_verify"]
+            if deltas != {"requeued": len(atts) * MAX_WORK_RETRIES, "processed": len(atts),
+                          "dropped": 0} or processor.metrics.dropped:
+                raise AssertionError(f"[faults] processor deltas {deltas}, dropped "
+                                     f"{processor.metrics.dropped}")
+            if records != [(len(atts), True)] or dict(cuda_fq.LAUNCHES) == launches or \
+                    [(b["n"], b["verdict"]) for b in handler.batches] != [(len(atts), True)]:
+                raise AssertionError(f"[faults] requeue: records {records}, batches "
+                                     f"{handler.batches}")
+            log(f"[faults] requeue: the processor's deltas {deltas}; the retry's batch "
+                f"{records} on the card")
+            return sorted(handler.applied) == sorted(voters)
+
+        fault_case(f"OPEN, then {len(atts)} gossip attestations through BeaconProcessor: "
+                   "RequeueWork, each event requeued once, the retry the HALF_OPEN probe on "
+                   "the card, CLOSED, all applied", requeue, True,
+                   {"breaker_transitions": {"op=bls_verify,to=half_open": 1.0,
+                                            "op=bls_verify,to=closed": 1.0}})
+    finally:
+        processor.shutdown()
+        ds.SUPERVISOR.configure(config=ds.BreakerConfig.from_env())
+        ds.set_cooldown_clock(None)
+        torch_backend.reset_for_tests()
+
+
 def timed_calls(spans: dict, key: str, fn):
     """``fn`` wrapped to add its seconds to ``spans[key]`` (and count its
     calls under ``key + "_calls"``)."""
@@ -2069,6 +2239,340 @@ def sync_messages(case, chain, root: bytes, slot: int) -> list:
             for v in members]
 
 
+class GossipAttestations:
+    """A stand-in for the router's handler of a drained batch of gossip
+    attestations (the JAX package's ``network/router.py``
+    ``_process_gossip_attestations``; the port's ``network/`` comes later),
+    for unaggregated attestations, on the port chain's public API only:
+    each item is pre-verified (``preverify_attestation``; a refusal is
+    recorded) and skipped when its validator already attested in its target
+    epoch; the batch's signature sets go through one
+    ``api.verify_signature_sets`` call, and when that is False each item's
+    set is verified alone; every item that verifies goes to
+    ``apply_attestation``.  An error of the verify (``RequeueWork`` from an
+    OPEN breaker, a device error) propagates to the processor's worker, as
+    in the router.  Records each batch (its size, verdict, seconds and the
+    worker's trace id, which its flight record carries) and each item's
+    outcome."""
+
+    def __init__(self, chain):
+        self.chain = chain
+        self.lock = threading.Lock()
+        self.batches = []
+        self.applied = []
+        self.refused = []
+        self.ignored = []
+        self.invalid = []
+
+    def __call__(self, items) -> None:
+        from lighthouse_tpu_torch import device_pipeline, device_telemetry
+        from lighthouse_tpu_torch.chain import AttestationError
+        from lighthouse_tpu_torch.crypto.bls import api
+
+        chain = self.chain
+        t0 = time.perf_counter()
+        cands = []
+        for att in items:
+            try:
+                cand = chain.preverify_attestation(att)
+            except AttestationError as err:
+                with self.lock:
+                    self.invalid.append(str(err))
+                continue
+            (v,) = (int(i) for i in cand.indexed.attesting_indices)
+            if chain.observed.attesters.is_known(int(att.data.target.epoch), v):
+                with self.lock:
+                    self.ignored.append(v)
+                continue
+            cands.append((v, cand))
+        if not cands:
+            return
+        t1 = time.perf_counter()
+        with device_pipeline.work_context("gossip_attestation"):
+            ok = api.verify_signature_sets([c.signature_set for _, c in cands])
+        t2 = time.perf_counter()
+        applied, refused = [], []
+        for v, cand in cands:
+            if ok or api.verify_signature_sets([cand.signature_set]):
+                chain.apply_attestation(cand)
+                applied.append(v)
+            else:
+                refused.append(v)
+        with self.lock:
+            self.applied += applied
+            self.refused += refused
+            self.batches.append({"n": len(cands), "verdict": ok, "preverify_s": t1 - t0,
+                                 "verify_s": t2 - t1, "apply_s": time.perf_counter() - t2,
+                                 "start": t0, "trace_id": device_telemetry.active_trace_id()})
+
+
+def gossip_events(handler, attestations: list) -> list:
+    """``attestations`` as gossip ``WorkEvent``s, shaped as the router
+    sends them: the item, the batch handler, a per-item path through it,
+    dropped while syncing."""
+    from lighthouse_tpu_torch.scheduler import W, WorkEvent
+
+    return [WorkEvent(work_type=W.GOSSIP_ATTESTATION, process=lambda it: handler([it]),
+                      process_batch=handler, item=att, drop_during_sync=True)
+            for att in attestations]
+
+
+class HeldWorkers:
+    """Every worker of ``processor`` held by a gated ``STATUS`` event while
+    the block runs, so that events sent in it queue up and drain as one
+    batch when the gates open (as the JAX package's scheduler tests hold
+    theirs)."""
+
+    def __init__(self, processor):
+        self.processor = processor
+
+    def __enter__(self):
+        from lighthouse_tpu_torch.scheduler import W, WorkEvent
+
+        self.gate = threading.Event()
+        started = [threading.Event() for _ in range(self.processor.max_workers)]
+        for ev in started:
+            self.processor.send(WorkEvent(
+                work_type=W.STATUS,
+                process=lambda _, ev=ev: (ev.set(), self.gate.wait(SCHED_IDLE_S))))
+        for ev in started:
+            if not ev.wait(30.0):
+                raise AssertionError("a processor worker did not take its gated event")
+        return self
+
+    def __exit__(self, *exc):
+        self.gate.set()
+        return False
+
+
+def committee_attestations(case, state, root: bytes, count: int, skip: int = 0) -> list:
+    """Unaggregated attestations of ``state``'s slot for the head ``root``,
+    as the block's aggregates vote (its slot, the committee's index, the
+    state's justified checkpoint as source, the epoch's first block as
+    target): from each committee, ``count`` distinct members after the
+    first ``skip`` of them, in the order of their secret keys, each signed
+    with its own key.  The members of a committee sign one message: one
+    hash to G2 a committee, then each signature is the last one plus the
+    message's point times the difference of the keys (their keys are
+    consecutive integers, apart from validators between them that are not
+    in the committee).  Returns (validator, attestation) pairs."""
+    from lighthouse_tpu_torch.consensus import helpers as h
+    from lighthouse_tpu_torch.crypto.bls import curve, serde
+    from lighthouse_tpu_torch.crypto.bls.hash_to_curve import hash_to_g2
+    from lighthouse_tpu_torch.crypto.bls.params import DST
+    from lighthouse_tpu_torch.types.spec import DOMAIN_BEACON_ATTESTER
+
+    types, spec, sk = case.types, case.spec, case.keys.secret
+    slot = int(state.slot)
+    epoch = h.compute_epoch_at_slot(slot, spec)
+    if h.compute_start_slot_at_epoch(epoch, spec) != slot:
+        raise ValueError("the target root is the head only at an epoch's first slot")
+    domain = h.get_domain(state, DOMAIN_BEACON_ATTESTER, epoch, spec)
+    out = []
+    for c in range(h.get_committee_count_per_slot(state, epoch, spec)):
+        committee = [int(v) for v in h.get_beacon_committee(state, slot, c, spec)]
+        position = {v: i for i, v in enumerate(committee)}
+        members = sorted(committee, key=lambda v: sk[v])[skip:skip + count]
+        data = types.AttestationData(
+            slot=slot, index=c, beacon_block_root=root,
+            source=state.current_justified_checkpoint,
+            target=types.Checkpoint(epoch=epoch, root=root))
+        point = hash_to_g2(h.compute_signing_root(data.hash_tree_root(), domain), DST)
+        sig, key = None, 0
+        for v in members:
+            sig = curve.add(sig, curve.mul(point, sk[v] - key))
+            key = sk[v]
+            bits = [False] * len(committee)
+            bits[position[v]] = True
+            out.append((v, types.Attestation(aggregation_bits=bits, data=data,
+                                             signature=serde.g2_compress(sig))))
+    return out
+
+
+class DispatchLaunches:
+    """Inside the block, the Fq kernels' launches of each bls_verify
+    batch's device stage, as (live sets, {kernel: launches}) in dispatch
+    order: the supervisor runs one op's dispatches one at a time on its
+    worker thread, so the counts of concurrent callers do not mix."""
+
+    def __enter__(self):
+        from lighthouse_tpu_torch.ops import cuda_fq, verify
+
+        self.verify, self.real, self.dispatches = verify, verify._device_batch_verdict, []
+
+        def counted(built, *args):
+            before = dict(cuda_fq.LAUNCHES)
+            try:
+                return self.real(built, *args)
+            finally:
+                self.dispatches.append((len(built.sets), {
+                    k: cuda_fq.LAUNCHES[k] - before[k] for k in before}))
+
+        verify._device_batch_verdict = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.verify._device_batch_verdict = self.real
+        return False
+
+
+def phase_scheduler(card: str, case, chain) -> dict:
+    """Gossip attestations through the beacon processor on ``chain``, the
+    [chain] node before its import (see the module docstring)."""
+    import numpy as np
+
+    from lighthouse_tpu_torch import device_pipeline, tracing
+    from lighthouse_tpu_torch.consensus import helpers as h
+    from lighthouse_tpu_torch.ops import cuda_fq
+    from lighthouse_tpu_torch.scheduler import BeaconProcessor, W
+    from lighthouse_tpu_torch.scheduler import processor as proc_mod
+
+    if device_pipeline.enabled():
+        raise AssertionError("[scheduler] the device pipeline is on; each batch must be one verify")
+    state, root = chain.head_state, chain.head_root
+    spec = case.spec
+    epoch = h.compute_epoch_at_slot(int(state.slot), spec)
+    committees = h.get_committee_count_per_slot(state, epoch, spec)
+    t = time.perf_counter()
+    signed = committee_attestations(case, state, root, SCHED_ATTESTATIONS // committees)
+    extra = committee_attestations(case, state, root, SCHED_TAMPERED,
+                                   skip=SCHED_ATTESTATIONS // committees)[:SCHED_TAMPERED]
+    sign_s = time.perf_counter() - t
+    atts, tampered = [a for _, a in signed], [a for _, a in extra]
+    tampered[3].signature = bytes(tampered[4].signature)
+    if len(atts) != SCHED_ATTESTATIONS:
+        raise AssertionError(f"[scheduler] {len(atts)} attestations for {committees} committees")
+    handler = GossipAttestations(chain)
+    processor = BeaconProcessor()
+    dropped0 = metrics_total(proc_mod.WORK_EVENTS_DROPPED)
+    try:
+        # 4,096 attestations from 8 threads, one STANDARD_DEVICE_BATCH,
+        # arriving while every worker is busy (at this traffic the queue
+        # does not empty; with idle workers the burst splits, PERF.md).
+        events = gossip_events(handler, atts)
+        refused_sends = []
+        chunks = [events[i::SCHED_THREADS] for i in range(SCHED_THREADS)]
+
+        def send(chunk):
+            refused_sends.extend(ev for ev in chunk if not processor.send(ev))
+
+        threads = [threading.Thread(target=send, args=(c,)) for c in chunks]
+        mark = runtime_mark()
+        with DispatchLaunches() as per_dispatch:
+            cuda_fq.reset_launch_counts()
+            t0 = time.perf_counter()
+            with HeldWorkers(processor):
+                for th_ in threads:
+                    th_.start()
+                for th_ in threads:
+                    th_.join()
+                sent_s = time.perf_counter() - t0
+            if not processor.wait_idle(SCHED_IDLE_S):
+                raise AssertionError("[scheduler] the processor did not drain")
+            wall = time.perf_counter() - t0
+            launches = dict(cuda_fq.LAUNCHES)
+        sizes = {name: dict(c) for name, c in cuda_fq.SIZES.items()}
+        records = [r for r in assert_on_device("[scheduler]", mark) if r["op"] == "bls_verify"]
+        batches = list(handler.batches)
+        voters = sorted(set(handler.applied))
+        if refused_sends or handler.refused or handler.ignored or handler.invalid:
+            raise AssertionError(f"[scheduler] {len(refused_sends)} sends refused, refused "
+                                 f"{handler.refused}, ignored {handler.ignored}, invalid "
+                                 f"{handler.invalid[:3]}")
+        if voters != sorted(v for v, _ in signed) or len(handler.applied) != len(voters):
+            raise AssertionError(f"[scheduler] {len(handler.applied)} applied "
+                                 f"({len(voters)} validators) of {SCHED_ATTESTATIONS}")
+        if sorted(r["n_live"] for r in records) != sorted(b["n"] for b in batches) or \
+                not all(r["verdict"] is True for r in records):
+            raise AssertionError(f"[scheduler] flight records "
+                                 f"{[(r['shape'], r['n_live'], r['verdict']) for r in records]} "
+                                 f"for batches {[b['n'] for b in batches]}")
+        if processor.metrics.dropped or metrics_total(proc_mod.WORK_EVENTS_DROPPED) != dropped0:
+            raise AssertionError(f"[scheduler] dropped {processor.metrics.dropped}")
+        if processor.metrics.processed.get(W.GOSSIP_ATTESTATION) != SCHED_ATTESTATIONS:
+            raise AssertionError(f"[scheduler] processed {processor.metrics.processed}")
+        votes, fc = chain.fork_choice.votes, chain.fork_choice
+        idx = np.asarray(voters)
+        if not (np.all(votes.next_epoch[idx] == epoch)
+                and np.all(votes.next_root_id[idx] == fc.proto.root_id(root))):
+            raise AssertionError("[scheduler] a sender's vote is not in fork choice")
+        by_start = sorted(batches, key=lambda b: b["start"])
+        rec_of = {r["trace_id"]: r for r in records}
+        traces = {t_.trace_id: span_seconds(t_) for t_ in tracing.TRACES.recent(
+            limit=4 * len(batches), root="work:gossip_attestation")}
+        if sorted(rec_of) != sorted(b["trace_id"] for b in batches) or \
+                not set(rec_of) <= set(traces):
+            raise AssertionError("[scheduler] a batch's flight record or trace is missing")
+        dispatched = list(per_dispatch.dispatches)
+        total = {k: sum(d[k] for _, d in dispatched) for k in launches}
+        if sorted(n for n, _ in dispatched) != sorted(b["n"] for b in batches) or \
+                total != launches:
+            raise AssertionError(f"[scheduler] dispatches {[(n, d) for n, d in dispatched]} "
+                                 f"against the phase's launches {launches}")
+        log(f"[scheduler] {card}: {SCHED_ATTESTATIONS} unaggregated attestations of slot "
+            f"{int(state.slot)} ({committees} committees x {SCHED_ATTESTATIONS // committees} "
+            f"members, signed on the host in {sign_s:.2f} s) sent as gossip WorkEvents from "
+            f"{SCHED_THREADS} threads in {sent_s:.3f} s into BeaconProcessor(max_workers="
+            f"{processor.max_workers}) while its workers were held; drained and applied in "
+            f"{wall:.2f} s: "
+            f"{SCHED_ATTESTATIONS / wall:.1f} attestations/s; {len(batches)} batches of "
+            f"{[b['n'] for b in by_start]}, each one supervised bls_verify batch on the card "
+            f"(verdict True), no host fallback, none dropped; every sender's vote in fork "
+            f"choice; Fq launches {launches} (the sum of the batches' device stages)")
+        for i, b in enumerate(by_start):
+            rec, sp = rec_of[b["trace_id"]], traces[b["trace_id"]]
+            st = rec["stages_s"]
+            n_launches = next(d for n, d in dispatched if n == b["n"])
+            log(f"[scheduler] batch {i}: {b['n']} attestations, bucket {rec['shape']}: queue_wait "
+                f"{sp.get('queue_wait', 0.0):.4f} s, preverify {b['preverify_s']:.3f} s, verify "
+                f"{b['verify_s']:.3f} s (setup {st['setup']:.3f} s, dispatch {st['dispatch']:.3f} "
+                f"s, wait {st['wait']:.3f} s, verdict {st['verdict']:.3f} s), apply "
+                f"{b['apply_s']:.3f} s; the work span {sp.get('work:gossip_attestation', 0.0):.3f} "
+                f"s; Fq launches {n_launches}")
+
+        # A tampered batch: 8 more attestations, one under another key.
+        mark = runtime_mark()
+        n_batches = len(handler.batches)
+        with HeldWorkers(processor):
+            for ev in gossip_events(handler, tampered):
+                if not processor.send(ev):
+                    raise AssertionError("[scheduler] a tampered-batch send was refused")
+        t = time.perf_counter()
+        if not processor.wait_idle(SCHED_IDLE_S):
+            raise AssertionError("[scheduler] the processor did not drain the tampered batch")
+        tampered_s = time.perf_counter() - t
+        rec = [r["verdict"] for r in assert_on_device("[scheduler] tampered", mark)
+               if r["op"] == "bls_verify"]
+        late = handler.batches[n_batches:]
+        if [b["n"] for b in late] != [SCHED_TAMPERED] or late[0]["verdict"] is not False or \
+                rec != [False] + [i != 3 for i in range(SCHED_TAMPERED)] or \
+                handler.refused != [extra[3][0]] or \
+                handler.applied[SCHED_ATTESTATIONS:] != [v for i, (v, _) in enumerate(extra)
+                                                         if i != 3]:
+            raise AssertionError(f"[scheduler] the tampered batch: batches "
+                                 f"{[b['n'] for b in late]}, records {rec}, refused "
+                                 f"{handler.refused}")
+        if processor.metrics.dropped or metrics_total(proc_mod.WORK_EVENTS_DROPPED) != dropped0:
+            raise AssertionError(f"[scheduler] dropped {processor.metrics.dropped}")
+        log(f"[scheduler] {SCHED_TAMPERED} more, one carrying another member's signature, "
+            f"queued while the workers were held: one batch, False on the card, then "
+            f"{SCHED_TAMPERED} single verifies on the card; exactly one refused, "
+            f"{SCHED_TAMPERED - 1} applied, in {tampered_s:.2f} s")
+    finally:
+        processor.shutdown()
+    return {"wall_s": wall, "sent_s": sent_s, "sign_s": sign_s, "launches": launches,
+            "sizes": sizes, "batches": [b["n"] for b in by_start],
+            "buckets": [rec_of[b["trace_id"]]["shape"] for b in by_start],
+            "stages_s": [rec_of[b["trace_id"]]["stages_s"] for b in by_start],
+            "queue_wait_s": [traces[b["trace_id"]].get("queue_wait", 0.0) for b in by_start],
+            "dispatch_launches": dispatched, "tampered_s": tampered_s}
+
+
+def metrics_total(counter) -> float:
+    """The sum of a counter over its label sets."""
+    return sum(counter.snapshot().values())
+
+
 def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
     """A checkpoint-synced node at mainnet width on the default device (see
     the module docstring).  ``anchor`` is a copy of the case's pre-state
@@ -2080,16 +2584,14 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
     import tempfile
 
     from lighthouse_tpu_torch import tracing
-    from lighthouse_tpu_torch.chain import (
-        BeaconChain,
-        BlockError,
-        ManualSlotClock,
-        MockExecutionEngine,
-    )
+    from lighthouse_tpu_torch.chain import BeaconChain, BlockError, ManualSlotClock
     from lighthouse_tpu_torch.chain import beacon_chain as bc_mod
     from lighthouse_tpu_torch.consensus import per_block
     from lighthouse_tpu_torch.crypto.bls import set_backend
     from lighthouse_tpu_torch.crypto.bls.backends import torch_backend
+    from lighthouse_tpu_torch.execution_layer import ExecutionLayer
+    from lighthouse_tpu_torch.execution_layer.engine_api import kzg_commitment_to_versioned_hash
+    from lighthouse_tpu_torch.execution_layer.mock_server import MockEngineServer
     from lighthouse_tpu_torch.ops import cuda_fq, cuda_sha
     from lighthouse_tpu_torch.ops import tree_hash as th
     from lighthouse_tpu_torch.store import DBColumn, HotColdDB, LockboxStore
@@ -2111,6 +2613,18 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
     torch_backend.configure(device=device)
     th.configure(enabled=True, device=device)
     store = None
+    # The node's execution engine: the Engine API over HTTP with JWT, to
+    # the mock engine; every JSON-RPC call it answers is kept.
+    server = MockEngineServer(EL_JWT_SECRET)
+    engine_calls = []
+    answer = server.handle
+
+    def handle(method, params):
+        engine_calls.append((method, params))
+        return answer(method, params)
+
+    server.handle = handle
+    server.start()
     try:
         # The anchor: its hash cache warmed by one full root, then the node.
         t = time.perf_counter()
@@ -2124,9 +2638,10 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
                           (store, "do_atomically", "lockbox_put"),
                           (bc_mod, "ForkChoice", "fork_choice")]) as anchor_s:
             t = time.perf_counter()
+            el = ExecutionLayer(url=server.url, jwt_secret=EL_JWT_SECRET)
             chain = BeaconChain(genesis_state=anchor, types=types, spec=spec,
                                 db=HotColdDB(hot=store), slot_clock=clock,
-                                execution_engine=MockExecutionEngine(), kzg=kzg)
+                                execution_engine=el, kzg=kzg)
             anchor_s["wall"] = time.perf_counter() - t
         if chain.genesis_block_root != bytes(block.parent_root):
             raise AssertionError("[chain] the anchor's block root is not the block's parent")
@@ -2155,6 +2670,10 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
         if [r["verdict"] for r in headers] != [True, False]:
             raise AssertionError(f"[chain] the header checks' records {headers}")
 
+        # [scheduler]: slot S-1's gossip attestations reach the node before
+        # block S does, as on mainnet.
+        sched = phase_scheduler(card, case, chain)
+
         # The import.
         verifier = per_block.BlockSignatureVerifier
         targets = [(st_mod, "process_slots", "process_slots"),
@@ -2164,8 +2683,10 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
                    (state_cls, "copy", "copy"),
                    (state_cls, "as_ssz_bytes", "ssz"),
                    (store, "do_atomically", "lockbox_put"),
-                   (chain.db, "migrate", "migrate")]
+                   (chain.db, "migrate", "migrate"),
+                   (el, "notify_new_payload", "new_payload")]
         mark = runtime_mark()
+        calls_before = len(engine_calls)
         with Patched({}, targets) as spans:
             cuda_fq.reset_launch_counts()
             cuda_sha.reset_launch_counts()
@@ -2173,6 +2694,7 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
             root = chain.process_block_with_blobs(signed, sidecars)
             wall = time.perf_counter() - t
             launches = {**dict(cuda_fq.LAUNCHES), **dict(cuda_sha.LAUNCHES)}
+        import_calls = engine_calls[calls_before:]
         records = assert_on_device("[chain]", mark)
         by_op = {}
         for r in records:
@@ -2188,6 +2710,19 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
         for name in ("fq_mul", "fq2_mul", "sha256_pairs", "tree_hash_subtrees"):
             if launches.get(name, 0) <= 0:
                 raise AssertionError(f"{name} was not launched during the chain's import")
+        new_payloads = [p for m, p in import_calls if m.startswith("engine_newPayload")]
+        fcus = [m for m, _ in import_calls if m.startswith("engine_forkchoiceUpdated")]
+        hashes = ["0x" + kzg_commitment_to_versioned_hash(c).hex()
+                  for c in block.body.blob_kzg_commitments]
+        if [m for m, _ in import_calls if m.startswith("engine_newPayload")] != \
+                ["engine_newPayloadV3"] or new_payloads[0][1] != hashes or \
+                new_payloads[0][2] != "0x" + bytes(block.parent_root).hex() or \
+                new_payloads[0][0]["blockHash"] != \
+                "0x" + bytes(block.body.execution_payload.block_hash).hex():
+            raise AssertionError(f"[chain] the import's Engine API calls "
+                                 f"{[m for m, _ in import_calls]}")
+        if not fcus:
+            raise AssertionError("[chain] no forkchoiceUpdated after the import")
         trace = tracing.TRACES.recent(limit=1, root="block_import")[0]
         sp = span_seconds(trace)
         for name in ("block_import", "da_check", "state_transition", "fork_choice",
@@ -2223,6 +2758,11 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
             f"(SSZ bytes {stages['ssz']:.3f} s, the lockbox put {stages['lockbox_put']:.3f} s), "
             f"head_recompute {stages['head_recompute']:.3f} s (the hot->cold migration "
             f"{stages['migrate']:.3f} s), the rest {stages['other']:.3f} s")
+        log(f"[chain] the Engine API over HTTP with JWT: the import sent "
+            f"{[m for m, _ in import_calls]} to the mock engine; engine_newPayloadV3 carried the "
+            f"{len(hashes)} versioned hashes of the sidecars' commitments and the parent root; "
+            f"notify_new_payload (a {len(block.body.execution_payload.transactions)}-transaction "
+            f"payload as JSON over HTTP, VALID) {spans['new_payload']:.3f} s")
         log(f"[chain] one supervised kzg_batch ({kzgs[0]['shape']}, {kzgs[0]['n_live']} live) and "
             f"one supervised bls_verify batch ({verifies[0]['shape']}, {verifies[0]['n_live']} "
             f"sets) on the card, no host fallback, breakers closed; kernel launches {launches}; "
@@ -2365,18 +2905,180 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
             f"(byte for byte), the post-state's stored value ({len(raw)} bytes, equal to its "
             f"SSZ) and its summary (slot {summary.slot}, the block's root) in {restart_s:.2f} s")
     finally:
+        server.stop()
         if store is not None:
             store.close()
         shutil.rmtree(tmp, ignore_errors=True)
         th.configure(enabled=False)
         torch_backend.reset_for_tests()
-    return {"anchor_s": {"warm_root": warm_root_s, **{k: anchor_s[k] for k in (
+    return {"scheduler": sched, "new_payload_s": spans["new_payload"],
+            "engine_calls": [m for m, _ in engine_calls],
+            "anchor_s": {"warm_root": warm_root_s, **{k: anchor_s[k] for k in (
                 "wall", "root", "ssz", "lockbox_put", "fork_choice")}},
             "wall_s": wall, "stages_s": stages, "launches": launches,
             "kzg_bucket": kzgs[0]["shape"], "verify_bucket": verifies[0]["shape"],
             "sets": verifies[0]["n_live"], "sync_s": sync_s, "sync_sign_s": sign_s,
             "sync_stages_s": sst, "sync_bucket": sync_rec[0]["shape"],
             "sync_tampered_s": tampered_s, "refusals_s": refusals, "restart_s": restart_s}
+
+
+def sign_blinded(hs, block):
+    """``block`` (blinded) signed by its proposer with the harness's keys."""
+    from lighthouse_tpu_torch.consensus import helpers as h
+    from lighthouse_tpu_torch.types.spec import DOMAIN_BEACON_PROPOSER
+
+    slot = int(block.slot)
+    state, _ = hs.chain.state_at_slot(slot)
+    domain = hs._domain_at(state, DOMAIN_BEACON_PROPOSER, slot // hs.spec.slots_per_epoch)
+    sig = hs._sign(int(block.proposer_index),
+                   h.compute_signing_root(block.hash_tree_root(), domain))
+    return hs.types.signed_blinded_block[type(block).fork_name](message=block,
+                                                               signature=sig.to_bytes())
+
+
+def builder_run(validators: int = HARNESS_VALIDATORS, spec=None) -> dict:
+    """The builder path on a fresh harness of ``validators`` interop
+    validators (``spec``: the harness's default where None) on the active
+    BLS backend: a ``MockRelay`` over HTTP, the chain's
+    ``BuilderHttpClient`` with the relay's key pinned; the next slot's
+    blinded block from its bid (``produce_blinded_block``: the bid's
+    signature verified through ``api.verify_signature_sets``), signed by
+    the proposer, revealed and imported (``unblind_and_import``); then the
+    next slot's blinded block with its header changed after the bid,
+    refused.  Blocks carry HARNESS_GRAFFITI.  Returns the roots, the
+    post-state's bytes and the refusal's error."""
+    from lighthouse_tpu_torch.chain import BeaconChainHarness, BlockError
+    from lighthouse_tpu_torch.consensus import helpers as h
+    from lighthouse_tpu_torch.execution_layer.builder_client import BuilderHttpClient, MockRelay
+
+    hs = BeaconChainHarness(validator_count=validators, spec=spec)
+    chain = hs.chain
+    relay = MockRelay(chain).start()
+    try:
+        chain.builder = BuilderHttpClient(relay.url)
+        chain.builder_pubkey = relay.pubkey
+
+        def blinded():
+            slot = hs.advance_slot()
+            state, _ = chain.state_at_slot(slot)
+            reveal = hs.randao_reveal(state, slot, h.get_beacon_proposer_index(state, hs.spec))
+            block, _ = chain.produce_blinded_block(slot, reveal, graffiti=HARNESS_GRAFFITI)
+            return block
+
+        block = blinded()
+        blinded_root = block.hash_tree_root()
+        root, full = chain.unblind_and_import(sign_blinded(hs, block))
+        if root != blinded_root or chain.head_root != root or \
+                type(full.message).__name__.startswith("Blinded"):
+            raise AssertionError("[chain-harness] the unblinded block is not the signed one")
+        tampered = blinded()
+        tampered.body.execution_payload_header.gas_limit = 123
+        try:
+            chain.unblind_and_import(sign_blinded(hs, tampered))
+        except BlockError as err:
+            refusal = f"{type(err).__name__}: {err}"
+        else:
+            raise AssertionError("[chain-harness] a reveal for a changed header was imported")
+        if chain.head_root != root:
+            raise AssertionError("[chain-harness] the refused reveal moved the head")
+        return {"blinded_root": blinded_root, "root": root,
+                "state_root": chain.head_state.hash_tree_root(),
+                "state_ssz": chain.head_state.as_ssz_bytes(),
+                "payload_root": full.message.body.execution_payload.hash_tree_root(),
+                "refusal": refusal}
+    finally:
+        relay.stop()
+
+
+class Eth1Provider:
+    """An eth1 deposit contract's follower view for ``Eth1Service``: one
+    eth1 block per batch of deposits, the deposit tree in a
+    ``DepositCache`` (the provider seam's shape)."""
+
+    def __init__(self, types):
+        from lighthouse_tpu_torch.eth1 import DepositCache
+
+        self.cache, self.blocks = DepositCache(types), []
+
+    def add_deposits(self, datas, timestamp: int) -> None:
+        for d in datas:
+            self.cache.insert_log(len(self.cache), d)
+        self.blocks.append({"number": len(self.blocks), "hash": bytes([len(self.blocks) + 1]) * 32,
+                            "timestamp": timestamp, "deposit_count": len(self.cache),
+                            "deposit_root": self.cache.deposit_root()})
+
+    def eth1_blocks(self):
+        return list(self.blocks)
+
+    def deposit_logs(self, start, end):
+        return self.cache._deposit_data[start:end]
+
+
+def deposit_data(types, spec, index: int):
+    """Interop validator ``index``'s signed 32 ETH ``DepositData``."""
+    from lighthouse_tpu_torch.consensus.genesis import (
+        interop_secret_key,
+        interop_withdrawal_credentials,
+    )
+    from lighthouse_tpu_torch.consensus.signature_sets import deposit_signature_message
+
+    sk = interop_secret_key(index)
+    pk = sk.public_key().to_bytes()
+    data = types.DepositData(pubkey=pk, withdrawal_credentials=interop_withdrawal_credentials(pk),
+                             amount=spec.max_effective_balance)
+    data.signature = sk.sign(deposit_signature_message(data, types, spec)).to_bytes()
+    return data
+
+
+def eth1_run(validators: int = HARNESS_VALIDATORS) -> dict:
+    """One deposit from the eth1 follower into a block, on the active BLS
+    backend, on a harness of ``validators`` interop validators: the
+    provider holds their genesis deposits and
+    then a new one; the chain's genesis has voted in the contract's tip
+    (its ``eth1_data`` counts one more deposit than its registry), so the
+    first block must carry it; ``Eth1Service.update`` fills the
+    ``DepositCache``, the harness produces the block (the deposit and its
+    proof from the service, HARNESS_GRAFFITI), signs and imports it.
+    Returns the roots, the post-state's bytes and the registry after."""
+    from lighthouse_tpu_torch.chain import (
+        BeaconChain,
+        BeaconChainHarness,
+        ManualSlotClock,
+        MockExecutionEngine,
+    )
+    from lighthouse_tpu_torch.chain.harness import interop_genesis_state
+    from lighthouse_tpu_torch.eth1 import Eth1Service
+
+    hs = BeaconChainHarness(validator_count=validators)
+    types, spec = hs.types, hs.spec
+    genesis = interop_genesis_state(validators, types, spec,
+                                    genesis_time=int(hs.chain.genesis_time))
+    provider = Eth1Provider(types)
+    old = int(genesis.genesis_time) - spec.seconds_per_eth1_block * spec.eth1_follow_distance
+    provider.add_deposits([deposit_data(types, spec, i) for i in range(validators)], old - 1010)
+    new = deposit_data(types, spec, ETH1_NEW_VALIDATOR)
+    provider.add_deposits([new], old - 1000)
+    tip = provider.blocks[-1]
+    genesis.eth1_data = types.Eth1Data(deposit_root=tip["deposit_root"],
+                                       deposit_count=tip["deposit_count"], block_hash=tip["hash"])
+    hs.chain = BeaconChain(genesis_state=genesis, types=types, spec=spec,
+                           slot_clock=ManualSlotClock(int(genesis.genesis_time),
+                                                      spec.seconds_per_slot),
+                           execution_engine=MockExecutionEngine())
+    service = Eth1Service(provider=provider, types=types, spec=spec)
+    service.update()
+    hs.chain.eth1_service = service
+    hs.advance_slot()
+    signed = hs.produce_signed_block(graffiti=HARNESS_GRAFFITI)
+    root = hs.chain.process_block(signed)
+    state = hs.chain.head_state
+    if len(signed.message.body.deposits) != 1 or len(state.validators) != validators + 1 \
+            or bytes(state.validators[-1].pubkey) != bytes(new.pubkey) or hs.head_root != root:
+        raise AssertionError(f"[chain-harness] eth1: {len(signed.message.body.deposits)} "
+                             f"deposits, {len(state.validators)} validators")
+    return {"root": root, "state_root": state.hash_tree_root(), "state_ssz": state.as_ssz_bytes(),
+            "deposit_root": bytes(tip["deposit_root"]), "registry": len(state.validators),
+            "balance": int(state.balances[-1])}
 
 
 def finality_run(path, slots: int):
@@ -2559,6 +3261,52 @@ def phase_chain_harness(card: str, device: str = "cuda") -> dict:
             f"epoch kernel launches {epoch_launches}; every block and state root equal to the "
             f"CPU path's (numpy epoch backend, host tree hashing; {cpu_s:.2f} s); reopened, the "
             f"lockbox file gives the same head block and finalized checkpoint")
+
+        # 3. The builder path and the eth1 path, real crypto on the card,
+        #    then each on the CPU path.
+        set_backend("torch")
+        pe.configure(backend="device", device=device)
+        th.configure(enabled=True, device=device)
+        mark = runtime_mark()
+        t = time.perf_counter()
+        builder = builder_run()
+        builder_s = time.perf_counter() - t
+        b_rec = [(r["n_live"], r["verdict"]) for r in assert_on_device(
+            "[chain-harness] builder", mark) if r["op"] == "bls_verify"]
+        mark = runtime_mark()
+        t = time.perf_counter()
+        eth1 = eth1_run()
+        eth1_s = time.perf_counter() - t
+        e_rec = [(r["n_live"], r["verdict"]) for r in assert_on_device(
+            "[chain-harness] eth1", mark) if r["op"] == "bls_verify"]
+        pe.configure(backend="numpy")
+        th.configure(enabled=False)
+        set_backend("fake")
+        t = time.perf_counter()
+        builder_cpu, eth1_cpu = builder_run(), eth1_run()
+        path_cpu_s = time.perf_counter() - t
+        set_backend("torch")
+        # The builder path's batches: the bid, the import, the next bid.
+        if len(b_rec) != 3 or b_rec[0] != (1, True) or b_rec[1][1] is not True or \
+                b_rec[2] != (1, True) or \
+                [v for _, v in e_rec] != [True]:
+            raise AssertionError(f"[chain-harness] the builder path's verifies {b_rec}, the eth1 "
+                                 f"block's {e_rec}")
+        if builder != builder_cpu or eth1 != eth1_cpu:
+            raise AssertionError(
+                f"[chain-harness] the card's builder/eth1 runs != the CPU path's in "
+                f"{[k for k in builder if builder[k] != builder_cpu[k]]} / "
+                f"{[k for k in eth1 if eth1[k] != eth1_cpu[k]]}")
+        log(f"[chain-harness] {card}: the builder path (a MockRelay over HTTP, its key pinned) "
+            f"in {builder_s:.2f} s: the bid's signature verified on the card ({b_rec[0][0]} set, "
+            f"True), the blinded block signed, revealed and imported (its batch of "
+            f"{b_rec[1][0]} sets True on the card), the full block's root the signed blinded "
+            f"root; the next slot's bid verified on the card, its header changed before "
+            f"signing, the reveal refused: {builder['refusal']}; the eth1 path "
+            f"in {eth1_s:.2f} s: one deposit from the provider through Eth1Service and its "
+            f"DepositCache into the produced block, imported (its batch of {e_rec[0][0]} sets "
+            f"True on the card), the registry {eth1['registry']} validators; every root equal to "
+            f"the CPU path's (fake BLS backend, numpy epochs, host hashing; {path_cpu_s:.2f} s)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         set_backend("torch")
@@ -2566,6 +3314,7 @@ def phase_chain_harness(card: str, device: str = "cuda") -> dict:
         pe.reset_for_tests()
         th.configure(enabled=False)
     return {"real_s": real_s, "single_verifies": len(singles), "bls_launches": bls_launches,
+            "builder_s": builder_s, "eth1_s": eth1_s,
             "finality_s": card_s, "cpu_s": cpu_s, "justified": jus, "finalized": fin,
             "split": split, "boundaries": len(boundaries), "epoch_launches": epoch_launches}
 
@@ -2756,8 +3505,8 @@ def phase_epoch_timing(epoch_out: dict, max_err: dict, clock_mhz: float,
     return rows, programs
 
 
-def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, block_out: dict, max_err: dict,
-                 clock_mhz: float) -> list:
+def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, block_out: dict, sched_out: dict,
+                 max_err: dict, clock_mhz: float) -> list:
     import torch
 
     from lighthouse_tpu_torch.bench_kernels import OPS, graph_ms, operands, ops_per_ms, time_library
@@ -2766,6 +3515,7 @@ def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, block_out: dict, max_
     timed = time_library(lib, verify_out["sizes"], clock_mhz)
     per_kzg = {key: time_library(lib, kzg_out[key]["sizes"], clock_mhz) for key in ("kzg6", "kzg192")}
     per_block = time_library(lib, block_out["fq_sizes"], clock_mhz)
+    per_sched = time_library(lib, sched_out["sizes"], clock_mhz)
     out = []
     for name, spec in KERNELS.items():
         t = timed[name]
@@ -2810,6 +3560,15 @@ def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, block_out: dict, max_
             f"({k['verify_bound_ms'] / k['verify_ms']:.1%})")
         row.update({"block_launches": block_out["launches"][name], "block_ms": k["verify_ms"],
                     "block_bound_ms": k["verify_bound_ms"]})
+        k = per_sched[name]
+        log(f"[timing] {name} per [scheduler] drain of {SCHED_ATTESTATIONS} gossip attestations "
+            f"(batches {sched_out['batches']}, buckets {sched_out['buckets']}): "
+            f"{k['verify_ms']:.4f} ms over {k['launches']} launches of {len(k['ms_by_size'])} "
+            f"sizes (largest {k['at_max'][0]} rows), bound {k['verify_bound_ms']:.4f} ms "
+            f"({k['verify_bound_ms'] / k['verify_ms']:.1%})")
+        row.update({"scheduler_launches": sched_out["launches"][name],
+                    "scheduler_ms": k["verify_ms"], "scheduler_bound_ms": k["verify_bound_ms"],
+                    "scheduler_buckets": sched_out["buckets"]})
         out.append(row)
     return out
 
@@ -3023,12 +3782,13 @@ def main() -> int:
     block_out = phase_block(card, case=case, build_s=build_s)
     case = case._replace(pre_state=None)
     gc.collect()
-    phase_chain(card, case, anchor, kzg_in)
+    chain_out = phase_chain(card, case, anchor, kzg_in)
     del case, anchor
     gc.collect()
     phase_chain_harness(card)
     phase_faults(cuda_fq, *kzg_in)
-    kernels = phase_timing(cuda_fq, verify_out, kzg_out, block_out, max_err, clock_mhz)
+    kernels = phase_timing(cuda_fq, verify_out, kzg_out, block_out, chain_out["scheduler"],
+                           max_err, clock_mhz)
     for row in kernels:
         row["runtime_launches"] = runtime_out["launches"][row["name"]]
     kernels += phase_hash_timing(state_out, block_out, max_err, clock_mhz)

@@ -54,14 +54,6 @@ class AttestationError(ChainError):
     pass
 
 
-def kzg_commitment_to_versioned_hash(commitment: bytes) -> bytes:
-    """EIP-4844 versioned hash: 0x01 || sha256(commitment)[1:] (the JAX
-    package's ``execution_layer.engine_api`` helper)."""
-    from hashlib import sha256
-
-    return b"\x01" + sha256(bytes(commitment)).digest()[1:]
-
-
 def genesis_block_root_of(state) -> bytes:
     """Canonical genesis block root: the state's latest header with its
     state_root filled in (how the reference derives it at anchor time)."""
@@ -389,6 +381,7 @@ class BeaconChain:
         from .light_client import LightClientServerCache
 
         self.lc_cache = LightClientServerCache(types, spec)
+        self.builder = None  # external MEV relay client (set by the builder)
         self.eth1_service = None  # deposit follower + eth1 voting (optional)
         # state-advance cache: (head_root, slot, advanced_state)
         self._advanced: Optional[Tuple[bytes, int, object]] = None
@@ -399,6 +392,7 @@ class BeaconChain:
         from .validator_monitor import ValidatorMonitor
 
         self.validator_monitor = ValidatorMonitor(spec)
+        self.builder_pubkey = None  # operator-pinned relay identity (optional)
         from .attester_cache import EarlyAttesterCache
 
         self.early_attester_cache = EarlyAttesterCache()
@@ -915,6 +909,8 @@ class BeaconChain:
             "deneb", "electra",
         ):
             return el.notify_new_payload
+        from ..execution_layer.engine_api import kzg_commitment_to_versioned_hash
+
         versioned = [kzg_commitment_to_versioned_hash(c) for c in commitments]
         parent_root = bytes(signed_block.message.parent_root)
         fork = type(signed_block.message).fork_name
@@ -1742,9 +1738,114 @@ class BeaconChain:
         return block, bytes(block.state_root)
 
     # ------------------------------------------------------- MEV / builder
-    # The builder path (``produce_blinded_block``, ``unblind_and_import``)
-    # comes with the port of ``execution_layer/``, whose relay client it
-    # calls; ``produce_block(payload_header=...)`` builds the blinded block.
+
+    def produce_blinded_block(self, slot: int, randao_reveal: bytes,
+                              graffiti: bytes = b"\x00" * 32):
+        """Builder-path production (reference ``produce_block`` blinded
+        variant): fetch a bid from the configured relay, verify the bid
+        signature and header consistency, build a BLINDED block around the
+        header.  Raises ``ChainError`` when no usable bid exists — the
+        caller (HTTP route / VC) falls back to local production."""
+        from ..consensus.per_block import is_merge_transition_complete
+        from ..crypto.bls import api as bls
+        from ..execution_layer.builder_client import (
+            BuilderError,
+            builder_signing_root,
+        )
+
+        if self.builder is None:
+            raise ChainError("no builder configured")
+        state, parent_root = self.state_at_slot(slot)
+        if not hasattr(state, "latest_execution_payload_header") or (
+            not is_merge_transition_complete(state)
+        ):
+            raise ChainError("builder path requires post-merge execution")
+        parent_hash = bytes(state.latest_execution_payload_header.block_hash)
+        proposer = h.get_beacon_proposer_index(state, self.spec)
+        pubkey = bytes(state.validators[proposer].pubkey)
+        try:
+            fork, signed_bid = self.builder.get_header(slot, parent_hash, pubkey,
+                                                       self.types)
+        except BuilderError as e:
+            raise ChainError(f"builder get_header failed: {e}") from e
+        if signed_bid is None:
+            raise ChainError("builder returned no bid")
+        if fork != type(state).fork_name:
+            # a wrong-fork header would poison the state header field and
+            # surface later as a non-ChainError, defeating the fallback
+            raise ChainError(
+                f"builder bid fork {fork!r} != state fork {type(state).fork_name!r}"
+            )
+        bid = signed_bid.message
+        if int(bid.value) == 0:
+            raise ChainError("builder bid has zero value")
+        if bytes(bid.header.parent_hash) != parent_hash:
+            raise ChainError("builder bid builds on the wrong parent")
+        if self.builder_pubkey is not None and (
+            bytes(bid.pubkey) != bytes(self.builder_pubkey)
+        ):
+            # Without a pinned identity the signature below only proves
+            # internal consistency (bid.pubkey is attacker-chosen over plain
+            # http); pinning is how the operator makes it an AUTH check.
+            raise ChainError("builder bid signed by an unexpected relay key")
+        sig_set = bls.SignatureSet.single_pubkey(
+            bls.Signature.from_bytes(bytes(signed_bid.signature)),
+            bls.PublicKey.from_bytes(bytes(bid.pubkey)),
+            builder_signing_root(bid.hash_tree_root(), self.spec),
+        )
+        if not bls.verify_signature_sets([sig_set]):
+            raise ChainError("builder bid signature invalid")
+        blob_commitments = list(getattr(bid, "blob_kzg_commitments", []) or [])
+        # electra bids carry the EL-triggered requests the blinded body must
+        # embed (builder_bid.rs:14-35 + builder-specs electra).
+        bid_requests = getattr(bid, "execution_requests", None)
+        return self.produce_block(
+            slot, randao_reveal, graffiti=graffiti,
+            parent_root=parent_root, pre_state=state,
+            payload_header=bid.header.copy(),
+            blob_kzg_commitments=blob_commitments or None,
+            execution_requests=bid_requests.copy() if bid_requests is not None else None,
+        )
+
+    def unblind_and_import(self, signed_blinded_block):
+        """POST /eth/v1/beacon/blinded_blocks: reveal the payload at the
+        relay, reconstruct the full block (same root — the header summarizes
+        the payload), import it.  Returns (block_root, signed_full_block)."""
+        from ..consensus.per_block import execution_payload_to_header
+        from ..execution_layer.builder_client import BuilderError
+
+        if self.builder is None:
+            raise ChainError("no builder configured")
+        fork = type(signed_blinded_block.message).fork_name
+        try:
+            payload = self.builder.submit_blinded_block(
+                signed_blinded_block, self.types
+            )
+        except BuilderError as e:
+            raise BlockError(f"builder failed to reveal payload: {e}") from e
+        header = signed_blinded_block.message.body.execution_payload_header
+        rebuilt = execution_payload_to_header(payload, self.types, fork)
+        if rebuilt.hash_tree_root() != header.hash_tree_root():
+            raise BlockError("revealed payload does not match the signed header")
+        blinded = signed_blinded_block.message
+        body_kwargs = {}
+        for name in blinded.body.fields:
+            if name == "execution_payload_header":
+                body_kwargs["execution_payload"] = payload
+            else:
+                body_kwargs[name] = getattr(blinded.body, name)
+        full = self.types.block[fork](
+            slot=blinded.slot,
+            proposer_index=blinded.proposer_index,
+            parent_root=blinded.parent_root,
+            state_root=blinded.state_root,
+            body=self.types.block_body[fork](**body_kwargs),
+        )
+        signed_full = self.types.signed_block[fork](
+            message=full, signature=signed_blinded_block.signature
+        )
+        root = self.process_block(signed_full)
+        return root, signed_full
 
     def _maybe_re_org_parent(self, slot: int) -> Optional[bytes]:
         """Proposer late-block re-org decision (reference

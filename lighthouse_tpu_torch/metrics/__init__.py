@@ -5,8 +5,9 @@ thin helpers over a global prometheus registry) plus the hot-path stage
 timers of batch verification and block import
 (``beacon_node/beacon_chain/src/metrics.rs:40-271``).  The port keeps the
 JAX package's registry and, of its metrics, those the device runtime, the
-BLS API, the KZG path and the chain touch, with their names, labels and
-buckets; the HTTP API's and the mesh's metrics come with those modules.
+BLS API, the KZG path, the chain and the scheduler touch, with their names,
+labels and buckets; the HTTP API's and the mesh's metrics come with those
+modules.
 
 Design: a plain-Python registry with lock-free-enough updates (single
 attribute stores under the GIL), rendered on demand in the Prometheus text
@@ -451,6 +452,22 @@ BLOCK_IMPORTED_DELAY_SECONDS = histogram(
 ATTESTATION_ARRIVAL_DELAY_SECONDS = histogram(
     "beacon_attestation_arrival_delay_seconds",
     "gossip/API attestation application relative to its slot start",
+)
+
+# Scheduler queue depth, sampled by the manager loop (reference
+# beacon_processor per-queue length gauges): read NEXT TO
+# device_pipeline_pending_sets to attribute queue pressure vs batch fill.
+BEACON_PROCESSOR_QUEUE_DEPTH = gauge(
+    "beacon_processor_queue_depth",
+    "events waiting in a priority queue, sampled by the manager, by work class",
+)
+
+# Scheduler queue wait: enqueue→drain per work class (reference
+# beacon_processor queue latency metrics) — fed by the same seam that
+# records the per-trace queue_wait span.
+QUEUE_WAIT_SECONDS = histogram(
+    "beacon_processor_queue_wait_seconds",
+    "enqueue-to-drain wait in the priority queues, by work class",
 )
 
 # The chain's event bus (chain/events.py): a slow subscriber loses events
