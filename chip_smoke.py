@@ -132,7 +132,7 @@ Phases, each of which raises on a failed check:
              JWT to a ``MockEngineServer`` (the anchor's root, store write
              and fork-choice anchor timed apart); the sidecars' header
              signature checked on the card (another signature refused);
-             then [scheduler] on this node; then
+             then [network] on this node; then
              ``process_block_with_blobs`` of the block and its six
              sidecars (``workload.blob_sidecars``): one supervised
              kzg_batch and one supervised bls_verify batch on the card, no
@@ -158,24 +158,37 @@ Phases, each of which raises on a failed check:
              fresh ``HotColdDB`` on the same file reads back the block
              byte for byte, the post-state's stored SSZ bytes and its
              summary;
-    scheduler — gossip attestations through the beacon processor on the
-             [chain] node before its import (slot S-1's attestations arrive
-             before block S): 4,096 unaggregated attestations of the
-             anchor's slot, 64 members of each of its 64 committees, each
-             signed with its own key, sent as ``GOSSIP_ATTESTATION``
-             ``WorkEvent``s from 8 threads into ``BeaconProcessor`` at its
-             default workers while they are held busy (at this traffic the
-             queue does not empty), with ``GossipAttestations`` (a stand-in for
-             the router's batch handler on the chain's public API) as the
-             batch handler; every attestation applied to fork choice (each
-             sender's vote), no event dropped, no host fallback, each
-             drained batch exactly one supervised bls_verify batch on the
-             card; the batches and buckets that formed, each batch's
-             queue wait, preverify, setup, dispatch, wait and apply, its
-             Fq launches (counts set to 0 just before the sends, read
-             after the drain); then 8 more, one under another member's
-             signature, queued while the workers are held: one batch False
-             on the card, 8 single verifies, exactly one refused;
+    network — [chain]'s node on the in-process network before its import
+             (slot S-1's gossip arrives before block S): a ``LocalNode``
+             on a seeded ``Hub`` (four processor workers, the slasher on
+             with a 64-epoch history, the default BLS backend) and a second
+             peer, pub, a ``NetworkService`` on the 64 attestation subnets,
+             the aggregate topic and the attester-slashing topic.  pub
+             publishes, as snappy SSZ on their topics, while the node's
+             workers are held: 4,096 unaggregated attestations of the
+             anchor's slot (64 members of each of its 64 committees, each
+             signed with its own key), then 64 aggregates (one a committee
+             over its 64 attesters, its aggregator a member whose selection
+             proof passes ``is_aggregator``); each drains through the
+             router's batch handler as one batch and one supervised
+             bls_verify batch on the card (4,096 sets; 192 sets, bucket
+             256 x 64); every vote and aggregate applied, every aggregator
+             observed, no host fallback, nothing dropped, nothing
+             forwarded back to pub, no slashing; each batch's items, sets,
+             bucket, queue wait, preverify, setup, dispatch, wait, apply,
+             slasher seconds and Fq launches (counts set to 0 just before
+             the first publish, read after the aggregates' drain), the
+             hub's delivery and the node's receipt seconds; then 8 more,
+             one under another member's signature: one batch False on the
+             card, 8 single verifies, exactly one ``bad_signature``
+             rejection of pub; after the import (with the sync batch and
+             the refusals), a double vote: a validator of slot S+1 with a
+             key votes for the block, then for the anchor, with one
+             target: the first applied, the second verified and fed to the
+             slasher only, which finds the one double vote; the router
+             verifies the ``AttesterSlashing`` on the card, pools it and
+             publishes it to pub, its bytes those of the port's slasher on
+             the CPU; the slasher's seconds and array bytes, the peak RSS;
 14. chain-harness — the SURVEY §7 harness (minimal preset, 64 interop
              validators): two slots of real crypto on the default device
              (each block's bulk batch and 16 single attestation verifies on
@@ -219,7 +232,8 @@ Phases, each of which raises on a failed check:
              4,096-validator block import (split retry, both halves on the
              card, the block imports with its root); the processor's
              requeue: the bls_verify breaker opened by a fault plan, then 8
-             gossip attestations through ``BeaconProcessor``: the batch's
+             gossip attestations through a ``LocalNode``'s processor into
+             its router's batch handler: the batch's
              ``RequeueWork``, each event requeued once
              (``beacon_processor_work_requeued_total`` +8), the retry the
              HALF_OPEN probe on the card, all applied, none dropped;
@@ -228,9 +242,9 @@ Phases, each of which raises on a failed check:
              then each kernel at every launch size of that run (the
              histogram ``cuda_fq.SIZES``), summed to its time per verify,
              beside its bound per verify, and likewise per 6-blob and per
-             192-lane KZG batch, per [block] import and per [scheduler]
-             drain of 4,096 attestations; each SHA-256 kernel
-             at its top bucket and at every launch size of the [state] run
+             192-lane KZG batch, per [block] import and per [network]
+             drain of 4,096 attestations and 64 aggregates; each SHA-256
+             kernel at its top bucket and at every launch size of the [state] run
              and of the [block] import, beside its bound and
              plain version, its launches per state root, and the native
              host pair hasher's rate; the subtree kernel at every T at each
@@ -383,13 +397,16 @@ CHAIN_SYNC_TAMPERED = 8
 #: [chain]'s execution engine: the Engine API's JWT secret of the mock
 #: engine served over HTTP.
 EL_JWT_SECRET = random.Random(0xE1).randbytes(32)
-#: [scheduler]: gossip attestations (one STANDARD_DEVICE_BATCH, spread over
-#: the slot's committees), the threads that send them, the tampered batch
-#: and the seconds the processor may take to drain.
-SCHED_ATTESTATIONS = 4096
-SCHED_THREADS = 8
-SCHED_TAMPERED = 8
-SCHED_IDLE_S = 900.0
+#: [network]: gossip attestations (one STANDARD_DEVICE_BATCH, spread over
+#: the slot's committees; one aggregate a committee comes with them), the
+#: tampered batch, the slasher's history in epochs (cut from Lighthouse's
+#: 4,096: its arrays take 48 bytes a validator and epoch), the hub's seed
+#: and the seconds the node may take to drain.
+NET_ATTESTATIONS = 4096
+NET_TAMPERED = 8
+SLASHER_HISTORY = 64
+NET_SEED = 0x6055
+NET_IDLE_S = 900.0
 HARNESS_VALIDATORS = 64
 HARNESS_REAL_SLOTS = 2
 HARNESS_SLOTS = 40
@@ -1781,9 +1798,9 @@ def phase_epoch_faults(device: str = "cuda") -> None:
 def phase_requeue_faults(device: str = "cuda") -> None:
     """The beacon processor's requeue on the card: the bls_verify breaker
     opened by a fault plan, then an 8-attestation gossip batch of a
-    HARNESS_VALIDATORS-validator harness (real crypto) through
-    ``BeaconProcessor`` with the [scheduler] stand-in handler, drained as
-    one batch by one worker.  Its verify raises ``RequeueWork`` (OPEN, no
+    HARNESS_VALIDATORS-validator harness (real crypto) through a
+    ``LocalNode``'s processor (one worker) into its router's batch handler,
+    drained as one batch.  Its verify raises ``RequeueWork`` (OPEN, no
     launch); the processor requeues each event once
     (``MAX_WORK_RETRIES``), the breaker's cooldown has elapsed by the
     retry (its clock reads the requeue counter), the retry is the
@@ -1796,15 +1813,17 @@ def phase_requeue_faults(device: str = "cuda") -> None:
     from lighthouse_tpu_torch.crypto.bls import api, set_backend
     from lighthouse_tpu_torch.crypto.bls.backends import torch_backend
     from lighthouse_tpu_torch.ops import cuda_fq
+    from lighthouse_tpu_torch.network import LocalNode
+    from lighthouse_tpu_torch.network.transport import Hub
     from lighthouse_tpu_torch.ops import tree_hash as th
-    from lighthouse_tpu_torch.scheduler import BeaconProcessor, W
+    from lighthouse_tpu_torch.scheduler import W
     from lighthouse_tpu_torch.scheduler import processor as proc_mod
     from lighthouse_tpu_torch.scheduler.work import MAX_WORK_RETRIES
 
     set_backend("torch")
     torch_backend.configure(device=device)
     th.configure(enabled=False)
-    processor = BeaconProcessor(max_workers=1)
+    node = None
     wt = W.GOSSIP_ATTESTATION
     try:
         hs = BeaconChainHarness(validator_count=HARNESS_VALIDATORS)
@@ -1823,10 +1842,12 @@ def phase_requeue_faults(device: str = "cuda") -> None:
                     aggregation_bits=bits, data=data,
                     signature=hs.sign_attestation_data(state, data, v).to_bytes()))
                 voters.append(v)
-        if len(atts) != SCHED_TAMPERED:
+        if len(atts) != NET_TAMPERED:
             raise AssertionError(f"[faults] {len(atts)} attesters in slot {slot}")
         hs.advance_slot()
-        handler = GossipAttestations(hs.chain)
+        node = LocalNode(hub=Hub(), peer_id="node", chain=hs.chain, max_workers=1)
+        processor = node.processor
+        items = [gossip_item(node.router.fork_digest, state, att, spec, "peer") for att in atts]
         def requeued():
             return proc_mod.WORK_EVENTS_REQUEUED.get(work=wt)
 
@@ -1860,12 +1881,13 @@ def phase_requeue_faults(device: str = "cuda") -> None:
             before = {k: c.get(work=wt) for k, c in counters.items()}
             mark = runtime_mark()
             launches = dict(cuda_fq.LAUNCHES)
-            with HeldWorkers(processor):
-                for ev in gossip_events(handler, atts):
-                    if not processor.send(ev):
-                        raise AssertionError("[faults] a gossip send was refused")
-            if not processor.wait_idle(SCHED_IDLE_S):
-                raise AssertionError("[faults] the processor did not drain")
+            with RoutedBatches(node) as handler:
+                with HeldWorkers(processor):
+                    for ev in gossip_events(node.router._process_gossip_attestations, items):
+                        if not processor.send(ev):
+                            raise AssertionError("[faults] a gossip send was refused")
+                if not processor.wait_idle(NET_IDLE_S):
+                    raise AssertionError("[faults] the processor did not drain")
             deltas = {k: c.get(work=wt) - before[k] for k, c in counters.items()}
             records = [(r["n_live"], r["verdict"]) for r in assert_on_device(
                 "[faults] requeue", mark) if r["op"] == "bls_verify"]
@@ -1879,15 +1901,16 @@ def phase_requeue_faults(device: str = "cuda") -> None:
                                      f"{handler.batches}")
             log(f"[faults] requeue: the processor's deltas {deltas}; the retry's batch "
                 f"{records} on the card")
-            return sorted(handler.applied) == sorted(voters)
+            return sorted(handler.applied) == sorted(voters) and handler.raised == 1
 
-        fault_case(f"OPEN, then {len(atts)} gossip attestations through BeaconProcessor: "
+        fault_case(f"OPEN, then {len(atts)} gossip attestations through a LocalNode's router: "
                    "RequeueWork, each event requeued once, the retry the HALF_OPEN probe on "
                    "the card, CLOSED, all applied", requeue, True,
                    {"breaker_transitions": {"op=bls_verify,to=half_open": 1.0,
                                             "op=bls_verify,to=closed": 1.0}})
     finally:
-        processor.shutdown()
+        if node is not None:
+            node.shutdown()
         ds.SUPERVISOR.configure(config=ds.BreakerConfig.from_env())
         ds.set_cooldown_clock(None)
         torch_backend.reset_for_tests()
@@ -2239,82 +2262,176 @@ def sync_messages(case, chain, root: bytes, slot: int) -> list:
             for v in members]
 
 
-class GossipAttestations:
-    """A stand-in for the router's handler of a drained batch of gossip
-    attestations (the JAX package's ``network/router.py``
-    ``_process_gossip_attestations``; the port's ``network/`` comes later),
-    for unaggregated attestations, on the port chain's public API only:
-    each item is pre-verified (``preverify_attestation``; a refusal is
-    recorded) and skipped when its validator already attested in its target
-    epoch; the batch's signature sets go through one
-    ``api.verify_signature_sets`` call, and when that is False each item's
-    set is verified alone; every item that verifies goes to
-    ``apply_attestation``.  An error of the verify (``RequeueWork`` from an
-    OPEN breaker, a device error) propagates to the processor's worker, as
-    in the router.  Records each batch (its size, verdict, seconds and the
-    worker's trace id, which its flight record carries) and each item's
-    outcome."""
+class RoutedBatches:
+    """Inside the block, each drained batch of ``node``'s router
+    (``Router._process_gossip_attestations``) recorded on its worker
+    thread: its items and kind, its candidates (the items that preverified
+    and were not ignored), the sets of its first
+    ``api.verify_signature_sets`` call and that call's verdict (the batch
+    verify), the verdicts of the later calls (the per-item fallback), the
+    seconds of its preverify, batch verify, apply and slasher calls, and the
+    worker's trace id, which the batch's flight record carries.  Keeps each
+    applied vote, each applied aggregate's aggregator, each item refused on
+    its signature and each rejection (sender, reason).  A batch whose handler
+    raises (``RequeueWork``) is counted in ``raised``, not recorded."""
 
-    def __init__(self, chain):
-        self.chain = chain
+    def __init__(self, node):
+        self.node = node
         self.lock = threading.Lock()
-        self.batches = []
-        self.applied = []
-        self.refused = []
-        self.ignored = []
-        self.invalid = []
+        self.batches, self.applied, self.aggregated = [], [], []
+        self.refused, self.rejected = [], []
+        self.raised = 0
+        self._local = threading.local()
 
-    def __call__(self, items) -> None:
-        from lighthouse_tpu_torch import device_pipeline, device_telemetry
-        from lighthouse_tpu_torch.chain import AttestationError
-        from lighthouse_tpu_torch.crypto.bls import api
+    def _rec(self):
+        return getattr(self._local, "rec", None)
 
-        chain = self.chain
-        t0 = time.perf_counter()
-        cands = []
-        for att in items:
+    def _timed(self, key: str, fn, after=None):
+        def run(*args, **kw):
+            rec = self._rec()
+            if rec is None or rec["depth"]:
+                return fn(*args, **kw)
+            rec["depth"] += 1
+            t = time.perf_counter()
             try:
-                cand = chain.preverify_attestation(att)
-            except AttestationError as err:
+                out = fn(*args, **kw)
+            finally:
+                rec["depth"] -= 1
+                rec[key] += time.perf_counter() - t
+            if after is not None:
+                after(rec, args, out)
+            return out
+        return run
+
+    def __enter__(self):
+        from lighthouse_tpu_torch import device_telemetry
+        from lighthouse_tpu_torch.crypto.bls import api
+        from lighthouse_tpu_torch.network import topics
+
+        node, chain = self.node, self.node.chain
+        router, slasher = node.router, node.slasher
+        self.api, self.real_verify = api, api.verify_signature_sets
+        self.saved = [(router, "_process_gossip_attestations"), (router, "_drain_slasher"),
+                      (chain, "preverify_attestation"), (chain, "preverify_aggregate"),
+                      (chain, "apply_attestation"), (chain, "apply_verified_aggregate"),
+                      (node.service, "reject_gossip")]
+        if slasher is not None:
+            self.saved.append((slasher, "on_attestation"))
+        self.saved = [(owner, name, owner.__dict__.get(name)) for owner, name in self.saved]
+        handle = router._process_gossip_attestations
+        aggregate_kind = topics.BEACON_AGGREGATE_AND_PROOF
+
+        def batch(items):
+            rec = {"items": len(items), "depth": 0, "cands": [], "singles": [],
+                   "kind": "aggregate" if any(topics.GossipTopic.parse(it[0]).kind ==
+                                              aggregate_kind for it in items) else "attestation",
+                   "start": time.perf_counter(), "preverify_s": 0.0, "verify_s": 0.0,
+                   "single_s": 0.0, "apply_s": 0.0, "slasher_s": 0.0}
+            self._local.rec = rec
+            try:
+                handle(items)
+            except BaseException:
                 with self.lock:
-                    self.invalid.append(str(err))
-                continue
-            (v,) = (int(i) for i in cand.indexed.attesting_indices)
-            if chain.observed.attesters.is_known(int(att.data.target.epoch), v):
-                with self.lock:
-                    self.ignored.append(v)
-                continue
-            cands.append((v, cand))
-        if not cands:
-            return
-        t1 = time.perf_counter()
-        with device_pipeline.work_context("gossip_attestation"):
-            ok = api.verify_signature_sets([c.signature_set for _, c in cands])
-        t2 = time.perf_counter()
-        applied, refused = [], []
-        for v, cand in cands:
-            if ok or api.verify_signature_sets([cand.signature_set]):
-                chain.apply_attestation(cand)
-                applied.append(v)
+                    self.raised += 1
+                raise
+            finally:
+                self._local.rec = None
+            rec["wall_s"] = time.perf_counter() - rec["start"]
+            rec["n"] = len(rec["cands"])
+            rec["trace_id"] = device_telemetry.active_trace_id()
+            refused = ([c for c, ok in zip(rec["cands"], rec["singles"]) if not ok]
+                       if rec.get("verdict") is False else [])
+            with self.lock:
+                self.batches.append(rec)
+                self.refused += refused
+
+        def candidate(rec, args, cand):
+            v = [int(i) for i in cand.indexed.attesting_indices]
+            epoch = int(args[0].data.target.epoch)
+            if not (len(v) == 1 and slasher is None and chain.observed.attesters.is_known(
+                    epoch, v[0])):
+                rec["cands"].append(v[0] if len(v) == 1 else tuple(v))
+
+        def aggregate_candidate(rec, args, cand):
+            rec["cands"].append(int(args[0].message.aggregator_index))
+
+        def verify(sets, *args, **kw):
+            rec = self._rec()
+            if rec is None or rec["depth"]:
+                return self.real_verify(sets, *args, **kw)
+            t = time.perf_counter()
+            out = self.real_verify(sets, *args, **kw)
+            if "verdict" not in rec:
+                rec["verdict"], rec["sets"] = out, len(sets)
+                rec["verify_s"] += time.perf_counter() - t
             else:
-                refused.append(v)
-        with self.lock:
-            self.applied += applied
-            self.refused += refused
-            self.batches.append({"n": len(cands), "verdict": ok, "preverify_s": t1 - t0,
-                                 "verify_s": t2 - t1, "apply_s": time.perf_counter() - t2,
-                                 "start": t0, "trace_id": device_telemetry.active_trace_id()})
+                rec["singles"].append(out)
+                rec["single_s"] += time.perf_counter() - t
+            return out
+
+        def applied(rec, args, out):
+            (v,) = (int(i) for i in args[0].indexed.attesting_indices)
+            with self.lock:
+                self.applied.append(v)
+
+        def aggregated(rec, args, out):
+            with self.lock:
+                self.aggregated.append(int(args[0].signed_aggregate.message.aggregator_index))
+
+        reject = node.service.reject_gossip
+
+        def rejected(sender, topic, reason, *args, **kw):
+            with self.lock:
+                self.rejected.append((sender, reason))
+            return reject(sender, topic, reason, *args, **kw)
+
+        router._process_gossip_attestations = batch
+        router._drain_slasher = self._timed("slasher_s", router._drain_slasher)
+        chain.preverify_attestation = self._timed("preverify_s", chain.preverify_attestation,
+                                                  candidate)
+        chain.preverify_aggregate = self._timed("preverify_s", chain.preverify_aggregate,
+                                                aggregate_candidate)
+        chain.apply_attestation = self._timed("apply_s", chain.apply_attestation, applied)
+        chain.apply_verified_aggregate = self._timed("apply_s", chain.apply_verified_aggregate,
+                                                     aggregated)
+        node.service.reject_gossip = rejected
+        if slasher is not None:
+            slasher.on_attestation = self._timed("slasher_s", slasher.on_attestation)
+        api.verify_signature_sets = verify
+        return self
+
+    def __exit__(self, *exc):
+        self.api.verify_signature_sets = self.real_verify
+        for owner, name, value in self.saved:
+            if value is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, value)
+        return False
 
 
-def gossip_events(handler, attestations: list) -> list:
-    """``attestations`` as gossip ``WorkEvent``s, shaped as the router
-    sends them: the item, the batch handler, a per-item path through it,
-    dropped while syncing."""
+def gossip_item(digest: bytes, state, attestation, spec, sender: str) -> tuple:
+    """``attestation`` as the router's gossip item: the topic of its subnet,
+    its SSZ bytes, their snappy compression and the sender."""
+    from lighthouse_tpu_torch.network import snappy_codec, topics
+
+    subnet = topics.compute_subnet_for_attestation(
+        state, int(attestation.data.slot), int(attestation.data.index), spec)
+    raw = attestation.as_ssz_bytes()
+    return (str(topics.attestation_subnet_topic(digest, subnet)), raw,
+            snappy_codec.compress(raw), sender)
+
+
+def gossip_events(handler, items: list) -> list:
+    """Gossip ``items`` (the router's (topic, SSZ, compressed, sender)
+    tuples) as ``WorkEvent``s, shaped as the router sends them: the item,
+    the batch handler, a per-item path through it, dropped while
+    syncing."""
     from lighthouse_tpu_torch.scheduler import W, WorkEvent
 
     return [WorkEvent(work_type=W.GOSSIP_ATTESTATION, process=lambda it: handler([it]),
-                      process_batch=handler, item=att, drop_during_sync=True)
-            for att in attestations]
+                      process_batch=handler, item=item, drop_during_sync=True)
+            for item in items]
 
 
 class HeldWorkers:
@@ -2334,7 +2451,7 @@ class HeldWorkers:
         for ev in started:
             self.processor.send(WorkEvent(
                 work_type=W.STATUS,
-                process=lambda _, ev=ev: (ev.set(), self.gate.wait(SCHED_IDLE_S))))
+                process=lambda _, ev=ev: (ev.set(), self.gate.wait(NET_IDLE_S))))
         for ev in started:
             if not ev.wait(30.0):
                 raise AssertionError("a processor worker did not take its gated event")
@@ -2345,7 +2462,8 @@ class HeldWorkers:
         return False
 
 
-def committee_attestations(case, state, root: bytes, count: int, skip: int = 0) -> list:
+def committee_attestations(case, state, root: bytes, count: int, skip: int = 0,
+                           points: dict = None) -> list:
     """Unaggregated attestations of ``state``'s slot for the head ``root``,
     as the block's aggregates vote (its slot, the committee's index, the
     state's justified checkpoint as source, the epoch's first block as
@@ -2355,7 +2473,9 @@ def committee_attestations(case, state, root: bytes, count: int, skip: int = 0) 
     hash to G2 a committee, then each signature is the last one plus the
     message's point times the difference of the keys (their keys are
     consecutive integers, apart from validators between them that are not
-    in the committee).  Returns (validator, attestation) pairs."""
+    in the committee).  Returns (validator, attestation) pairs; ``points``,
+    where given, holds each committee's hashed message, reused by a later
+    call with the same dict."""
     from lighthouse_tpu_torch.consensus import helpers as h
     from lighthouse_tpu_torch.crypto.bls import curve, serde
     from lighthouse_tpu_torch.crypto.bls.hash_to_curve import hash_to_g2
@@ -2377,7 +2497,11 @@ def committee_attestations(case, state, root: bytes, count: int, skip: int = 0) 
             slot=slot, index=c, beacon_block_root=root,
             source=state.current_justified_checkpoint,
             target=types.Checkpoint(epoch=epoch, root=root))
-        point = hash_to_g2(h.compute_signing_root(data.hash_tree_root(), domain), DST)
+        point = points.get(c) if points is not None else None
+        if point is None:
+            point = hash_to_g2(h.compute_signing_root(data.hash_tree_root(), domain), DST)
+        if points is not None:
+            points[c] = point
         sig, key = None, 0
         for v in members:
             sig = curve.add(sig, curve.mul(point, sk[v] - key))
@@ -2416,156 +2540,472 @@ class DispatchLaunches:
         return False
 
 
-def phase_scheduler(card: str, case, chain) -> dict:
-    """Gossip attestations through the beacon processor on ``chain``, the
-    [chain] node before its import (see the module docstring)."""
+def committee_aggregates(case, state, signed: list, points: dict) -> list:
+    """One ``SignedAggregateAndProof`` a committee of ``signed`` (the
+    (validator, attestation) pairs of :func:`committee_attestations`, whose
+    data's G2 points it left in ``points``): the aggregate of that
+    committee's attestations in ``signed``, its aggregator the member first
+    in the order of the secret keys whose selection proof passes
+    ``is_aggregator``.  Every member of the slot signs one selection
+    message: it is hashed to G2 once, and each next proof is the last one
+    plus the point times the difference of the keys.  The aggregate's
+    signature is the sum of its members' keys times the data's point; the
+    outer signature one hash to G2 and one multiplication an aggregate.
+    Returns (aggregator, signed aggregate) pairs in committee order."""
+    import hashlib
+
+    from lighthouse_tpu_torch.consensus import helpers as h
+    from lighthouse_tpu_torch.crypto.bls import curve, serde
+    from lighthouse_tpu_torch.crypto.bls.hash_to_curve import hash_to_g2
+    from lighthouse_tpu_torch.crypto.bls.params import DST, R
+    from lighthouse_tpu_torch.types.spec import (
+        DOMAIN_AGGREGATE_AND_PROOF,
+        DOMAIN_SELECTION_PROOF,
+    )
+    from lighthouse_tpu_torch.types.ssz import UintType
+    from lighthouse_tpu_torch.workload import _Signer
+
+    types, spec, sk = case.types, case.spec, case.keys.secret
+    slot = int(state.slot)
+    epoch = h.compute_epoch_at_slot(slot, spec)
+    selection = hash_to_g2(h.compute_signing_root(
+        UintType(8).hash_tree_root(slot),
+        h.get_domain(state, DOMAIN_SELECTION_PROOF, epoch, spec)), DST)
+    outer_domain = h.get_domain(state, DOMAIN_AGGREGATE_AND_PROOF, epoch, spec)
+    by_committee = {}
+    for v, att in signed:
+        by_committee.setdefault(int(att.data.index), []).append((v, att))
+    signer, out = _Signer(), []
+    for c, members in sorted(by_committee.items()):
+        committee = [int(v) for v in h.get_beacon_committee(state, slot, c, spec)]
+        modulo = max(1, len(committee) // spec.target_aggregators_per_committee)
+        proof, key, aggregator = None, 0, None
+        for v in sorted(committee, key=lambda v: sk[v]):
+            proof = curve.add(proof, curve.mul(selection, sk[v] - key))
+            key = sk[v]
+            raw = serde.g2_compress(proof)
+            if int.from_bytes(hashlib.sha256(raw).digest()[:8], "little") % modulo == 0:
+                aggregator = v
+                break
+        if aggregator is None:
+            raise AssertionError(f"no member of committee {c} is an aggregator at slot {slot}")
+        position = {v: i for i, v in enumerate(committee)}
+        bits = [False] * len(committee)
+        for v, _ in members:
+            bits[position[v]] = True
+        data = members[0][1].data
+        total = sum(sk[v] for v, _ in members) % R
+        aggregate = types.Attestation(aggregation_bits=bits, data=data,
+                                      signature=serde.g2_compress(curve.mul(points[c], total)))
+        message = types.AggregateAndProof(aggregator_index=aggregator, aggregate=aggregate,
+                                          selection_proof=raw)
+        outer = signer.sign(h.compute_signing_root(message.hash_tree_root(), outer_domain),
+                            sk[aggregator])
+        out.append((aggregator, types.SignedAggregateAndProof(message=message, signature=outer)))
+    return out
+
+
+def wait_for(label: str, condition, timeout: float) -> float:
+    """Poll ``condition`` until it holds; its seconds, or raise at
+    ``timeout``."""
+    t = time.perf_counter()
+    while not condition():
+        if time.perf_counter() - t > timeout:
+            raise AssertionError(f"{label}: timed out after {timeout:.0f} s")
+        time.sleep(0.002)
+    return time.perf_counter() - t
+
+
+class NetworkCell:
+    """[network]'s fabric around [chain]'s node: a ``Hub``, the node (a
+    ``LocalNode`` on the chain, its slasher on, the default BLS backend) and
+    the publishing peer ``"pub"`` (a ``NetworkService`` subscribed to the 64
+    attestation subnets, the aggregate topic and the attester-slashing
+    topic, answering the node's Status with the node's own).  Times the
+    hub's deliveries of pub's messages and the node's service receipts
+    (snappy, message id, the router's dispatch); keeps every gossip
+    envelope the node sends to pub and every message pub receives."""
+
+    def __init__(self, chain, slots_per_epoch: int):
+        from lighthouse_tpu_torch.network import LocalNode, NetworkService, rpc, topics
+        from lighthouse_tpu_torch.network.transport import Hub
+        from lighthouse_tpu_torch.slasher import SlasherConfig
+
+        self.hub = Hub(seed=NET_SEED)
+        self.node = LocalNode(hub=self.hub, peer_id="node", chain=chain, max_workers=4,
+                              enable_slasher=True,
+                              slasher_config=SlasherConfig(history_length=SLASHER_HISTORY,
+                                                           slots_per_epoch=slots_per_epoch))
+        self.pub = NetworkService(self.hub.register("pub"))
+        self.spans, self.to_pub, self.received = {"deliver": 0.0, "receive": 0.0}, [], []
+        node, pub = self.node, self.pub
+        pub.on_gossip = lambda topic, raw, _c, sender: self.received.append((topic, raw, sender))
+        pub.on_rpc_request = lambda protocol, _req, _sender: (
+            [rpc.encode_response_chunk(rpc.SUCCESS, node.router.local_status().to_bytes())]
+            if protocol == rpc.STATUS else [])
+        digest = node.router.fork_digest
+        self.subnet_topics = [str(topics.attestation_subnet_topic(digest, s))
+                              for s in range(chain.spec.attestation_subnet_count)]
+        self.aggregate_topic = str(topics.GossipTopic(digest, topics.BEACON_AGGREGATE_AND_PROOF))
+        self.slashing_topic = str(topics.GossipTopic(digest, topics.ATTESTER_SLASHING))
+        for topic in self.subnet_topics + [self.aggregate_topic, self.slashing_topic]:
+            pub.subscribe(topic)
+        pub.endpoint.send = timed_calls(self.spans, "deliver", pub.endpoint.send)
+        node.service._on_gossip = timed_calls(self.spans, "receive", node.service._on_gossip)
+        send = node.endpoint.send
+
+        def node_send(peer, env):
+            if peer == "pub" and env.kind == "gossip":
+                self.to_pub.append(env.topic)
+            return send(peer, env)
+
+        node.endpoint.send = node_send
+        self.hub.connect("node", "pub")
+        wanted = set(self.subnet_topics + [self.aggregate_topic])
+
+        def subscribed(service, peer, topics_):
+            with service._mesh_lock:
+                return topics_ <= service.peer_topics.get(peer, set())
+
+        wait_for("[network] subscriptions", lambda: subscribed(pub, "node", wanted) and
+                 subscribed(node.service, "pub", {self.slashing_topic}), 60.0)
+        if not node.wait_idle(60.0):
+            raise AssertionError("[network] the node's Status exchange did not finish")
+
+    def attestation_topic(self, state, attestation, spec) -> str:
+        from lighthouse_tpu_torch.network import topics
+
+        subnet = topics.compute_subnet_for_attestation(
+            state, int(attestation.data.slot), int(attestation.data.index), spec)
+        return str(topics.attestation_subnet_topic(self.node.router.fork_digest, subnet))
+
+    def publish(self, messages: list, work_type: str, label: str) -> tuple:
+        """Publish (topic, SSZ bytes) ``messages`` from pub; returns the
+        seconds of the publishing and until the node's service had handed
+        every one to its processor."""
+        received = self.node.processor.metrics.received
+        before = received.get(work_type, 0)
+        t = time.perf_counter()
+        for topic, raw in messages:
+            if not self.pub.publish(topic, raw):
+                raise AssertionError(f"{label}: pub reached no peer with a message")
+        published = time.perf_counter() - t
+        wait_for(f"{label} handoff",
+                 lambda: received.get(work_type, 0) - before == len(messages), NET_IDLE_S)
+        return published, time.perf_counter() - t
+
+    def shutdown(self) -> None:
+        if self.node is not None:
+            self.node.shutdown()
+            self.pub.shutdown()
+            self.node = None
+
+
+def batch_records(label: str, routed, mark: dict, per_dispatch):
+    """The batches ``routed`` recorded, each matched to its one bls_verify
+    flight record since ``mark``, its trace's spans and its dispatch's Fq
+    launches."""
+    from lighthouse_tpu_torch import tracing
+
+    records = [r for r in assert_on_device(label, mark) if r["op"] == "bls_verify"]
+    by_trace = {r["trace_id"]: r for r in records if r["trace_id"] is not None}
+    traces = {}
+    for root in ("work:gossip_attestation", "work:gossip_aggregate"):
+        for t_ in tracing.TRACES.recent(limit=64, root=root):
+            traces[t_.trace_id] = span_seconds(t_)
+    out = []
+    for b in routed.batches:
+        rec, sp = by_trace.get(b["trace_id"]), traces.get(b["trace_id"])
+        if rec is None or sp is None or rec["n_live"] != b["sets"]:
+            raise AssertionError(f"{label}: the batch of {b['items']} items has flight record "
+                                 f"{rec and (rec['shape'], rec['n_live'])}, trace {sp is not None}")
+        out.append((b, rec, sp, next(d for n, d in per_dispatch.dispatches if n == b["sets"])))
+    return out, records
+
+
+def phase_network(card: str, case, chain) -> dict:
+    """[network] on [chain]'s node before its import (see the module
+    docstring).  Returns its numbers, and under ``"cell"`` the live
+    :class:`NetworkCell` and under ``"routed"`` its recorder, which
+    :func:`network_double_vote` goes on with and [chain] shuts down."""
     import numpy as np
 
-    from lighthouse_tpu_torch import device_pipeline, tracing
+    from lighthouse_tpu_torch import device_pipeline, metrics
     from lighthouse_tpu_torch.consensus import helpers as h
     from lighthouse_tpu_torch.ops import cuda_fq
-    from lighthouse_tpu_torch.scheduler import BeaconProcessor, W
+    from lighthouse_tpu_torch.scheduler import W
     from lighthouse_tpu_torch.scheduler import processor as proc_mod
 
     if device_pipeline.enabled():
-        raise AssertionError("[scheduler] the device pipeline is on; each batch must be one verify")
-    state, root = chain.head_state, chain.head_root
-    spec = case.spec
+        raise AssertionError("[network] the device pipeline is on; each batch must be one verify")
+    state, root, spec = chain.head_state, chain.head_root, case.spec
     epoch = h.compute_epoch_at_slot(int(state.slot), spec)
     committees = h.get_committee_count_per_slot(state, epoch, spec)
+    per = NET_ATTESTATIONS // committees
     t = time.perf_counter()
-    signed = committee_attestations(case, state, root, SCHED_ATTESTATIONS // committees)
-    extra = committee_attestations(case, state, root, SCHED_TAMPERED,
-                                   skip=SCHED_ATTESTATIONS // committees)[:SCHED_TAMPERED]
+    points = {}
+    signed = committee_attestations(case, state, root, per, points=points)
+    extra = committee_attestations(case, state, root, NET_TAMPERED, skip=per,
+                                   points=points)[:NET_TAMPERED]
     sign_s = time.perf_counter() - t
-    atts, tampered = [a for _, a in signed], [a for _, a in extra]
+    t = time.perf_counter()
+    aggregates = committee_aggregates(case, state, signed, points)
+    aggregate_sign_s = time.perf_counter() - t
+    tampered = [a for _, a in extra]
     tampered[3].signature = bytes(tampered[4].signature)
-    if len(atts) != SCHED_ATTESTATIONS:
-        raise AssertionError(f"[scheduler] {len(atts)} attestations for {committees} committees")
-    handler = GossipAttestations(chain)
-    processor = BeaconProcessor()
-    dropped0 = metrics_total(proc_mod.WORK_EVENTS_DROPPED)
+    if len(signed) != NET_ATTESTATIONS:
+        raise AssertionError(f"[network] {len(signed)} attestations for {committees} committees")
+    voters = sorted(v for v, _ in signed)
+    aggregators = [a for a, _ in aggregates]
+    t = time.perf_counter()
+    cell = NetworkCell(chain, spec.slots_per_epoch)
+    node = cell.node
+    fabric_s = time.perf_counter() - t
+    routed = RoutedBatches(node).__enter__()
     try:
-        # 4,096 attestations from 8 threads, one STANDARD_DEVICE_BATCH,
-        # arriving while every worker is busy (at this traffic the queue
-        # does not empty; with idle workers the burst splits, PERF.md).
-        events = gossip_events(handler, atts)
-        refused_sends = []
-        chunks = [events[i::SCHED_THREADS] for i in range(SCHED_THREADS)]
-
-        def send(chunk):
-            refused_sends.extend(ev for ev in chunk if not processor.send(ev))
-
-        threads = [threading.Thread(target=send, args=(c,)) for c in chunks]
+        dropped0 = metrics_total(proc_mod.WORK_EVENTS_DROPPED)
+        slashings0 = metrics_total(metrics.SLASHER_SLASHINGS)
+        att_msgs = [(cell.attestation_topic(state, a, spec), a.as_ssz_bytes()) for _, a in signed]
+        agg_msgs = [(cell.aggregate_topic, a.as_ssz_bytes()) for _, a in aggregates]
         mark = runtime_mark()
         with DispatchLaunches() as per_dispatch:
             cuda_fq.reset_launch_counts()
             t0 = time.perf_counter()
-            with HeldWorkers(processor):
-                for th_ in threads:
-                    th_.start()
-                for th_ in threads:
-                    th_.join()
-                sent_s = time.perf_counter() - t0
-            if not processor.wait_idle(SCHED_IDLE_S):
-                raise AssertionError("[scheduler] the processor did not drain")
-            wall = time.perf_counter() - t0
+            with HeldWorkers(node.processor):
+                att_pub_s, att_handoff_s = cell.publish(att_msgs, W.GOSSIP_ATTESTATION,
+                                                        "[network] attestations")
+            if not node.wait_idle(NET_IDLE_S):
+                raise AssertionError("[network] the node did not drain the attestations")
+            att_wall = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            with HeldWorkers(node.processor):
+                agg_pub_s, agg_handoff_s = cell.publish(agg_msgs, W.GOSSIP_AGGREGATE,
+                                                        "[network] aggregates")
+            if not node.wait_idle(NET_IDLE_S):
+                raise AssertionError("[network] the node did not drain the aggregates")
+            agg_wall = time.perf_counter() - t1
             launches = dict(cuda_fq.LAUNCHES)
         sizes = {name: dict(c) for name, c in cuda_fq.SIZES.items()}
-        records = [r for r in assert_on_device("[scheduler]", mark) if r["op"] == "bls_verify"]
-        batches = list(handler.batches)
-        voters = sorted(set(handler.applied))
-        if refused_sends or handler.refused or handler.ignored or handler.invalid:
-            raise AssertionError(f"[scheduler] {len(refused_sends)} sends refused, refused "
-                                 f"{handler.refused}, ignored {handler.ignored}, invalid "
-                                 f"{handler.invalid[:3]}")
-        if voters != sorted(v for v, _ in signed) or len(handler.applied) != len(voters):
-            raise AssertionError(f"[scheduler] {len(handler.applied)} applied "
-                                 f"({len(voters)} validators) of {SCHED_ATTESTATIONS}")
-        if sorted(r["n_live"] for r in records) != sorted(b["n"] for b in batches) or \
-                not all(r["verdict"] is True for r in records):
-            raise AssertionError(f"[scheduler] flight records "
-                                 f"{[(r['shape'], r['n_live'], r['verdict']) for r in records]} "
-                                 f"for batches {[b['n'] for b in batches]}")
-        if processor.metrics.dropped or metrics_total(proc_mod.WORK_EVENTS_DROPPED) != dropped0:
-            raise AssertionError(f"[scheduler] dropped {processor.metrics.dropped}")
-        if processor.metrics.processed.get(W.GOSSIP_ATTESTATION) != SCHED_ATTESTATIONS:
-            raise AssertionError(f"[scheduler] processed {processor.metrics.processed}")
+        spans = dict(cell.spans)
+        matched, records = batch_records("[network]", routed, mark, per_dispatch)
+        kinds = [(b["kind"], b["items"], b["sets"], b["verdict"]) for b, *_ in matched]
+        if kinds != [("attestation", NET_ATTESTATIONS, NET_ATTESTATIONS, True),
+                     ("aggregate", len(aggregates), 3 * len(aggregates), True)] or \
+                len(records) != 2:
+            raise AssertionError(f"[network] batches {kinds}, records "
+                                 f"{[(r['shape'], r['n_live'], r['verdict']) for r in records]}")
+        if sorted(routed.applied) != voters or sorted(routed.aggregated) != sorted(aggregators):
+            raise AssertionError(f"[network] applied {len(routed.applied)} votes "
+                                 f"({len(set(routed.applied))} validators) and "
+                                 f"{len(routed.aggregated)} aggregates")
+        if not all(chain.observed.aggregators.is_known(epoch, a) for a in aggregators):
+            raise AssertionError("[network] an aggregator is not in observed.aggregators")
+        if routed.rejected or routed.refused or routed.raised:
+            raise AssertionError(f"[network] rejected {routed.rejected}, refused "
+                                 f"{routed.refused}, raised {routed.raised}")
+        if node.processor.metrics.dropped or \
+                metrics_total(proc_mod.WORK_EVENTS_DROPPED) != dropped0:
+            raise AssertionError(f"[network] dropped {node.processor.metrics.dropped}")
+        if cell.to_pub:
+            raise AssertionError(f"[network] the node sent pub gossip: {cell.to_pub[:3]}")
+        slasher = node.slasher
+        if slasher.attester_slashings or slasher.dropped_findings or \
+                metrics_total(metrics.SLASHER_SLASHINGS) != slashings0:
+            raise AssertionError("[network] the slasher found a slashing in honest traffic")
         votes, fc = chain.fork_choice.votes, chain.fork_choice
         idx = np.asarray(voters)
         if not (np.all(votes.next_epoch[idx] == epoch)
                 and np.all(votes.next_root_id[idx] == fc.proto.root_id(root))):
-            raise AssertionError("[scheduler] a sender's vote is not in fork choice")
-        by_start = sorted(batches, key=lambda b: b["start"])
-        rec_of = {r["trace_id"]: r for r in records}
-        traces = {t_.trace_id: span_seconds(t_) for t_ in tracing.TRACES.recent(
-            limit=4 * len(batches), root="work:gossip_attestation")}
-        if sorted(rec_of) != sorted(b["trace_id"] for b in batches) or \
-                not set(rec_of) <= set(traces):
-            raise AssertionError("[scheduler] a batch's flight record or trace is missing")
-        dispatched = list(per_dispatch.dispatches)
-        total = {k: sum(d[k] for _, d in dispatched) for k in launches}
-        if sorted(n for n, _ in dispatched) != sorted(b["n"] for b in batches) or \
-                total != launches:
-            raise AssertionError(f"[scheduler] dispatches {[(n, d) for n, d in dispatched]} "
-                                 f"against the phase's launches {launches}")
-        log(f"[scheduler] {card}: {SCHED_ATTESTATIONS} unaggregated attestations of slot "
-            f"{int(state.slot)} ({committees} committees x {SCHED_ATTESTATIONS // committees} "
-            f"members, signed on the host in {sign_s:.2f} s) sent as gossip WorkEvents from "
-            f"{SCHED_THREADS} threads in {sent_s:.3f} s into BeaconProcessor(max_workers="
-            f"{processor.max_workers}) while its workers were held; drained and applied in "
-            f"{wall:.2f} s: "
-            f"{SCHED_ATTESTATIONS / wall:.1f} attestations/s; {len(batches)} batches of "
-            f"{[b['n'] for b in by_start]}, each one supervised bls_verify batch on the card "
-            f"(verdict True), no host fallback, none dropped; every sender's vote in fork "
-            f"choice; Fq launches {launches} (the sum of the batches' device stages)")
-        for i, b in enumerate(by_start):
-            rec, sp = rec_of[b["trace_id"]], traces[b["trace_id"]]
+            raise AssertionError("[network] a sender's vote is not in fork choice")
+        for name in KERNELS:
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"[network] {name} was not launched in the drain")
+        if {k: sum(d[k] for _, d in per_dispatch.dispatches) for k in launches} != launches:
+            raise AssertionError(f"[network] dispatches {per_dispatch.dispatches} against "
+                                 f"the phase's launches {launches}")
+        rate = NET_ATTESTATIONS / att_wall
+        log(f"[network] {card}: {NET_ATTESTATIONS} unaggregated attestations of slot "
+            f"{int(state.slot)} ({committees} committees x {per} members, signed on the host in "
+            f"{sign_s:.2f} s) and {len(aggregates)} aggregates, one a committee over its {per} "
+            f"attesters (aggregators {aggregators[:4]}..., signed in {aggregate_sign_s:.2f} s), "
+            f"published by pub over the hub as snappy SSZ on their topics to a LocalNode "
+            f"(max_workers={node.processor.max_workers}, slasher on, history {SLASHER_HISTORY} "
+            f"epochs; the fabric {fabric_s:.2f} s) while its workers were held: the "
+            f"attestations published in {att_pub_s:.2f} s, handed to the processor in "
+            f"{att_handoff_s:.2f} s, drained in {att_wall:.2f} s from the first publish to idle: "
+            f"{rate:.1f} attestations/s; the aggregates published in {agg_pub_s:.3f} s, handed "
+            f"over in {agg_handoff_s:.3f} s, drained in {agg_wall:.2f} s; the hub's deliveries "
+            f"{spans['deliver']:.3f} s over {spans['deliver_calls']} sends, the node's service "
+            f"receipts {spans['receive']:.3f} s over {spans['receive_calls']} messages; every "
+            f"vote and aggregate applied, every aggregator observed, each batch one supervised "
+            f"bls_verify batch on the card (verdict True), no host fallback, nothing dropped, "
+            f"nothing forwarded to pub, no slashing; Fq launches {launches}")
+        for b, rec, sp, n_launches in matched:
             st = rec["stages_s"]
-            n_launches = next(d for n, d in dispatched if n == b["n"])
-            log(f"[scheduler] batch {i}: {b['n']} attestations, bucket {rec['shape']}: queue_wait "
+            log(f"[network] {b['kind']} batch of {b['items']} items ({b['n']} candidates, "
+                f"{b['sets']} sets), bucket {rec['shape']}: queue_wait "
                 f"{sp.get('queue_wait', 0.0):.4f} s, preverify {b['preverify_s']:.3f} s, verify "
                 f"{b['verify_s']:.3f} s (setup {st['setup']:.3f} s, dispatch {st['dispatch']:.3f} "
                 f"s, wait {st['wait']:.3f} s, verdict {st['verdict']:.3f} s), apply "
-                f"{b['apply_s']:.3f} s; the work span {sp.get('work:gossip_attestation', 0.0):.3f} "
-                f"s; Fq launches {n_launches}")
+                f"{b['apply_s']:.3f} s, slasher {b['slasher_s']:.3f} s, the handler "
+                f"{b['wall_s']:.3f} s; Fq launches {n_launches}")
 
         # A tampered batch: 8 more attestations, one under another key.
+        first = len(routed.batches)
         mark = runtime_mark()
-        n_batches = len(handler.batches)
-        with HeldWorkers(processor):
-            for ev in gossip_events(handler, tampered):
-                if not processor.send(ev):
-                    raise AssertionError("[scheduler] a tampered-batch send was refused")
-        t = time.perf_counter()
-        if not processor.wait_idle(SCHED_IDLE_S):
-            raise AssertionError("[scheduler] the processor did not drain the tampered batch")
-        tampered_s = time.perf_counter() - t
-        rec = [r["verdict"] for r in assert_on_device("[scheduler] tampered", mark)
+        with DispatchLaunches() as tamper_dispatch:
+            with HeldWorkers(node.processor):
+                cell.publish([(cell.attestation_topic(state, a, spec), a.as_ssz_bytes())
+                              for a in tampered], W.GOSSIP_ATTESTATION, "[network] tampered")
+            t = time.perf_counter()
+            if not node.wait_idle(NET_IDLE_S):
+                raise AssertionError("[network] the node did not drain the tampered batch")
+            tampered_s = time.perf_counter() - t
+        late = routed.batches[first:]
+        rec = [r["verdict"] for r in assert_on_device("[network] tampered", mark)
                if r["op"] == "bls_verify"]
-        late = handler.batches[n_batches:]
-        if [b["n"] for b in late] != [SCHED_TAMPERED] or late[0]["verdict"] is not False or \
-                rec != [False] + [i != 3 for i in range(SCHED_TAMPERED)] or \
-                handler.refused != [extra[3][0]] or \
-                handler.applied[SCHED_ATTESTATIONS:] != [v for i, (v, _) in enumerate(extra)
-                                                         if i != 3]:
-            raise AssertionError(f"[scheduler] the tampered batch: batches "
-                                 f"{[b['n'] for b in late]}, records {rec}, refused "
-                                 f"{handler.refused}")
-        if processor.metrics.dropped or metrics_total(proc_mod.WORK_EVENTS_DROPPED) != dropped0:
-            raise AssertionError(f"[scheduler] dropped {processor.metrics.dropped}")
-        log(f"[scheduler] {SCHED_TAMPERED} more, one carrying another member's signature, "
-            f"queued while the workers were held: one batch, False on the card, then "
-            f"{SCHED_TAMPERED} single verifies on the card; exactly one refused, "
-            f"{SCHED_TAMPERED - 1} applied, in {tampered_s:.2f} s")
-    finally:
-        processor.shutdown()
-    return {"wall_s": wall, "sent_s": sent_s, "sign_s": sign_s, "launches": launches,
-            "sizes": sizes, "batches": [b["n"] for b in by_start],
-            "buckets": [rec_of[b["trace_id"]]["shape"] for b in by_start],
-            "stages_s": [rec_of[b["trace_id"]]["stages_s"] for b in by_start],
-            "queue_wait_s": [traces[b["trace_id"]].get("queue_wait", 0.0) for b in by_start],
-            "dispatch_launches": dispatched, "tampered_s": tampered_s}
+        bad = extra[3][0]
+        if [(b["n"], b["verdict"]) for b in late] != [(NET_TAMPERED, False)] or \
+                rec != [False] + [i != 3 for i in range(NET_TAMPERED)] or \
+                routed.refused != [bad] or routed.rejected != [("pub", "bad_signature")] or \
+                routed.applied[NET_ATTESTATIONS:] != [v for v, _ in extra if v != bad]:
+            raise AssertionError(f"[network] the tampered batch: batches "
+                                 f"{[(b['n'], b['verdict']) for b in late]}, records {rec}, "
+                                 f"refused {routed.refused}, rejected {routed.rejected}")
+        score = node.service.peer_manager.score("pub")
+        if not score < 0 or cell.to_pub or node.processor.metrics.dropped:
+            raise AssertionError(f"[network] after the tampered batch: pub's score {score}, "
+                                 f"sent to pub {cell.to_pub[:3]}")
+        log(f"[network] {NET_TAMPERED} more, one carrying another member's signature, "
+            f"published while the workers were held: one batch, False on the card, then "
+            f"{NET_TAMPERED} single verifies on the card; exactly one bad_signature rejection "
+            f"(pub's score {score:.2f}), {NET_TAMPERED - 1} applied, in {tampered_s:.2f} s; "
+            f"dispatches {[n for n, _ in tamper_dispatch.dispatches]}")
+    except BaseException:
+        routed.__exit__(None, None, None)
+        cell.shutdown()
+        raise
+    return {"launches": launches, "sizes": sizes, "buckets": [r["shape"] for _, r, _, _ in matched],
+            "batches": [(b["kind"], b["items"], b["sets"]) for b, *_ in matched],
+            "dispatch_launches": [(b["sets"], d) for b, _, _, d in matched],
+            "cell": cell, "routed": routed}
+
+
+def network_double_vote(card: str, case, chain, clock, net: dict) -> None:
+    """After [chain]'s import: a validator of slot S+1 that holds a real key
+    in the case (a sync-committee member or another validator the case
+    signs for, not slashed) publishes two attestations of
+    slot S+1 with one target, one voting for the imported block as head and
+    one for the anchor, each after the node went idle.  The first is
+    applied; the second takes the router's slasher-only path; the slasher
+    finds the one double vote, the router verifies the ``AttesterSlashing``
+    on the card, pools it and publishes it to pub.  Its bytes are those of
+    the port's slasher on the CPU fed the same two indexed attestations."""
+    import resource
+
+    from lighthouse_tpu_torch import metrics
+    from lighthouse_tpu_torch.consensus import helpers as h
+    from lighthouse_tpu_torch.ops import cuda_fq
+    from lighthouse_tpu_torch.scheduler import W
+    from lighthouse_tpu_torch.slasher import Slasher, SlasherConfig
+    from lighthouse_tpu_torch.types.spec import DOMAIN_BEACON_ATTESTER
+    from lighthouse_tpu_torch.workload import _Signer
+
+    cell, routed = net["cell"], net["routed"]
+    node, types, spec, sk = cell.node, case.types, case.spec, case.keys.secret
+    state, head = chain.head_state, chain.head_root
+    slot = int(state.slot) + 1
+    epoch = h.compute_epoch_at_slot(slot, spec)
+    voter = None
+    for c in range(h.get_committee_count_per_slot(state, epoch, spec)):
+        committee = [int(v) for v in h.get_beacon_committee(state, slot, c, spec)]
+        keyed = [v for v in committee if v in sk and not state.validators[v].slashed]
+        if keyed:
+            voter, index, position, size = keyed[0], c, committee.index(keyed[0]), len(committee)
+            break
+    if voter is None:
+        raise AssertionError(f"[network] no member of slot {slot}'s committees holds a key")
+    clock.set_slot(slot + 1)
+    anchor = chain.genesis_block_root
+    target = types.Checkpoint(epoch=epoch, root=h.get_block_root(state, epoch, spec))
+    domain = h.get_domain(state, DOMAIN_BEACON_ATTESTER, epoch, spec)
+    signer, votes = _Signer(), []
+    for vote_head in (head, anchor):
+        data = types.AttestationData(slot=slot, index=index, beacon_block_root=vote_head,
+                                     source=state.current_justified_checkpoint.copy(),
+                                     target=target.copy())
+        bits = [False] * size
+        bits[position] = True
+        votes.append(types.Attestation(
+            aggregation_bits=bits, data=data,
+            signature=signer.sign(h.compute_signing_root(data.hash_tree_root(), domain),
+                                  sk[voter])))
+    expected = Slasher(types, SlasherConfig(history_length=SLASHER_HISTORY,
+                                            slots_per_epoch=spec.slots_per_epoch))
+    for att in votes:
+        expected.on_attestation(h.get_indexed_attestation(state, att, types, spec))
+    (want,), _ = expected.drain_slashings()
+    pooled0 = metrics.SLASHER_SLASHINGS.get(kind="attester_slashing", outcome="pooled")
+    others0 = metrics_total(metrics.SLASHER_SLASHINGS) - pooled0
+    first, applied0, received0 = len(routed.batches), len(routed.applied), len(cell.received)
+    pool0 = dict(chain.op_pool._attester_slashings)
+    mark = runtime_mark()
+    cuda_fq.reset_launch_counts()
+    t = time.perf_counter()
+    seconds = []
+    for att in votes:
+        t1 = time.perf_counter()
+        cell.publish([(cell.attestation_topic(state, att, spec), att.as_ssz_bytes())],
+                     W.GOSSIP_ATTESTATION, "[network] double vote")
+        if not node.wait_idle(NET_IDLE_S):
+            raise AssertionError("[network] the node did not drain a double vote")
+        seconds.append(time.perf_counter() - t1)
+    wait_for("[network] the slashing at pub", lambda: len(cell.received) > received0, 60.0)
+    wall = time.perf_counter() - t
+    launches = dict(cuda_fq.LAUNCHES)
+    records = [r for r in assert_on_device("[network] double vote", mark)
+               if r["op"] == "bls_verify"]
+    late = routed.batches[first:]
+    pooled = [s for k, s in chain.op_pool._attester_slashings.items() if k not in pool0]
+    got = cell.received[received0:]
+    slashed = set(pooled[0].attestation_1.attesting_indices) & set(
+        pooled[0].attestation_2.attesting_indices) if pooled else set()
+    if [(b["n"], b["verdict"]) for b in late] != [(1, True), (1, True)] or \
+            routed.applied[applied0:] != [voter] or \
+            [(r["n_live"], r["verdict"]) for r in records] != [(1, True), (1, True), (2, True)]:
+        raise AssertionError(f"[network] the double vote's batches "
+                             f"{[(b['n'], b['verdict']) for b in late]}, applied "
+                             f"{routed.applied[applied0:]}, records "
+                             f"{[(r['n_live'], r['verdict']) for r in records]}")
+    if metrics.SLASHER_SLASHINGS.get(kind="attester_slashing", outcome="pooled") != pooled0 + 1 \
+            or metrics_total(metrics.SLASHER_SLASHINGS) - pooled0 - 1 != others0 or \
+            len(pooled) != 1 or slashed != {voter}:
+        raise AssertionError(f"[network] the slasher: pooled {len(pooled)} slashings of "
+                             f"{sorted(slashed)}, expected one of {voter}")
+    if pooled[0].as_ssz_bytes() != want.as_ssz_bytes() or \
+            [(tp, raw) for tp, raw, _ in got] != [(cell.slashing_topic, want.as_ssz_bytes())] or \
+            cell.to_pub != [cell.slashing_topic]:
+        raise AssertionError(f"[network] the slashing's bytes or its publication: pub received "
+                             f"{[tp for tp, _, _ in got]}, the node sent {cell.to_pub}")
+    for name in KERNELS:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"[network] {name} was not launched for the double vote")
+    db = node.slasher.db
+    array_bytes = db._sources.nbytes + db._targets.nbytes + db._roots.nbytes
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    slasher_s = sum(b["slasher_s"] for b in routed.batches)
+    log(f"[network] {card}: validator {voter} (committee {index} of slot {slot}) voted twice for "
+        f"target epoch {epoch}, head the block then the anchor: the first applied, the second "
+        f"verified on the card and fed to the slasher only ({seconds[0]:.2f} s, {seconds[1]:.2f} "
+        f"s); the slasher found one double vote of {voter}, on_gossip_attester_slashing "
+        f"verified it on the card (2 sets), slasher_slashings_total{{outcome=pooled}} +1, the "
+        f"op pool holds it and pub received it on the attester-slashing topic, its bytes those "
+        f"of the CPU path, in {wall:.2f} s in all; Fq launches {launches}; batches "
+        f"{[(b['n'], round(b['slasher_s'], 3)) for b in late]} (candidates, slasher s)")
+    log(f"[network] the slasher over the whole phase: {slasher_s:.2f} s in its calls; its "
+        f"arrays {db._sources.shape[0]} validators x {SLASHER_HISTORY} epochs, {array_bytes} "
+        f"bytes ({array_bytes / 2**30:.2f} GiB); the process's peak RSS {rss} bytes "
+        f"({rss / 2**30:.2f} GiB)")
 
 
 def metrics_total(counter) -> float:
@@ -2609,6 +3049,7 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
     sidecars_s = time.perf_counter() - t
     tmp = tempfile.mkdtemp(prefix="chip_smoke_chain_")
     path = str(Path(tmp) / "chain.db")
+    net = None
     set_backend("torch")
     torch_backend.configure(device=device)
     th.configure(enabled=True, device=device)
@@ -2670,9 +3111,9 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
         if [r["verdict"] for r in headers] != [True, False]:
             raise AssertionError(f"[chain] the header checks' records {headers}")
 
-        # [scheduler]: slot S-1's gossip attestations reach the node before
+        # [network]: slot S-1's gossip reaches the node over the hub before
         # block S does, as on mainnet.
-        sched = phase_scheduler(card, case, chain)
+        net = phase_network(card, case, chain)
 
         # The import.
         verifier = per_block.BlockSignatureVerifier
@@ -2885,6 +3326,10 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
             f"False on the card) in {refusals['bulk_s']:.2f} s, parent_state.copy() "
             f"{swap_spans['copy']:.2f} s of it")
 
+        # [network]'s double vote, on the node after the import.
+        network_double_vote(card, case, chain, clock, net)
+        net["cell"].shutdown()
+
         # The restart: a fresh HotColdDB on the same file.
         state_root = bytes(block.state_root)
         t = time.perf_counter()
@@ -2905,13 +3350,17 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
             f"(byte for byte), the post-state's stored value ({len(raw)} bytes, equal to its "
             f"SSZ) and its summary (slot {summary.slot}, the block's root) in {restart_s:.2f} s")
     finally:
+        if net is not None:
+            net["routed"].__exit__(None, None, None)
+            net["cell"].shutdown()
         server.stop()
         if store is not None:
             store.close()
         shutil.rmtree(tmp, ignore_errors=True)
         th.configure(enabled=False)
         torch_backend.reset_for_tests()
-    return {"scheduler": sched, "new_payload_s": spans["new_payload"],
+    net = {k: v for k, v in net.items() if k not in ("cell", "routed")}
+    return {"network": net, "new_payload_s": spans["new_payload"],
             "engine_calls": [m for m, _ in engine_calls],
             "anchor_s": {"warm_root": warm_root_s, **{k: anchor_s[k] for k in (
                 "wall", "root", "ssz", "lockbox_put", "fork_choice")}},
@@ -3505,7 +3954,7 @@ def phase_epoch_timing(epoch_out: dict, max_err: dict, clock_mhz: float,
     return rows, programs
 
 
-def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, block_out: dict, sched_out: dict,
+def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, block_out: dict, net_out: dict,
                  max_err: dict, clock_mhz: float) -> list:
     import torch
 
@@ -3515,7 +3964,7 @@ def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, block_out: dict, sche
     timed = time_library(lib, verify_out["sizes"], clock_mhz)
     per_kzg = {key: time_library(lib, kzg_out[key]["sizes"], clock_mhz) for key in ("kzg6", "kzg192")}
     per_block = time_library(lib, block_out["fq_sizes"], clock_mhz)
-    per_sched = time_library(lib, sched_out["sizes"], clock_mhz)
+    per_net = time_library(lib, net_out["sizes"], clock_mhz)
     out = []
     for name, spec in KERNELS.items():
         t = timed[name]
@@ -3560,15 +4009,20 @@ def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, block_out: dict, sche
             f"({k['verify_bound_ms'] / k['verify_ms']:.1%})")
         row.update({"block_launches": block_out["launches"][name], "block_ms": k["verify_ms"],
                     "block_bound_ms": k["verify_bound_ms"]})
-        k = per_sched[name]
-        log(f"[timing] {name} per [scheduler] drain of {SCHED_ATTESTATIONS} gossip attestations "
-            f"(batches {sched_out['batches']}, buckets {sched_out['buckets']}): "
+        k = per_net[name]
+        per_batch = {kind: d[name] for (kind, _, _), (_, d) in
+                     zip(net_out["batches"], net_out["dispatch_launches"])}
+        log(f"[timing] {name} per [network] drain of {NET_ATTESTATIONS} gossip attestations and "
+            f"{net_out['batches'][1][1]} aggregates (batches "
+            f"{net_out['batches']}, buckets {net_out['buckets']}, launches {per_batch}): "
             f"{k['verify_ms']:.4f} ms over {k['launches']} launches of {len(k['ms_by_size'])} "
             f"sizes (largest {k['at_max'][0]} rows), bound {k['verify_bound_ms']:.4f} ms "
             f"({k['verify_bound_ms'] / k['verify_ms']:.1%})")
-        row.update({"scheduler_launches": sched_out["launches"][name],
-                    "scheduler_ms": k["verify_ms"], "scheduler_bound_ms": k["verify_bound_ms"],
-                    "scheduler_buckets": sched_out["buckets"]})
+        row.update({"network_launches": net_out["launches"][name],
+                    "network_attestation_launches": per_batch["attestation"],
+                    "network_aggregate_launches": per_batch["aggregate"],
+                    "network_ms": k["verify_ms"], "network_bound_ms": k["verify_bound_ms"],
+                    "network_buckets": net_out["buckets"]})
         out.append(row)
     return out
 
@@ -3787,7 +4241,7 @@ def main() -> int:
     gc.collect()
     phase_chain_harness(card)
     phase_faults(cuda_fq, *kzg_in)
-    kernels = phase_timing(cuda_fq, verify_out, kzg_out, block_out, chain_out["scheduler"],
+    kernels = phase_timing(cuda_fq, verify_out, kzg_out, block_out, chain_out["network"],
                            max_err, clock_mhz)
     for row in kernels:
         row["runtime_launches"] = runtime_out["launches"][row["name"]]

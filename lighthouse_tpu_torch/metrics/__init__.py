@@ -7,7 +7,7 @@ timers of batch verification and block import
 JAX package's registry and, of its metrics, those the device runtime, the
 BLS API, the KZG path, the chain and the scheduler touch, with their names,
 labels and buckets; the HTTP API's and the mesh's metrics come with those
-modules.
+modules.  The network's and the slasher's counters sit at the end.
 
 Design: a plain-Python registry with lock-free-enough updates (single
 attribute stores under the GIL), rendered on demand in the Prometheus text
@@ -206,6 +206,37 @@ class _HistTimer:
     def __exit__(self, *exc):
         self._hist.observe(time.perf_counter() - self._t0, **self._labels)
         return False
+
+
+class LocalTally:
+    """A scope-local metrics view: name → labeled counter totals, next to
+    (not instead of) the process-global registry.
+
+    ``telemetry_scope.TelemetryScope`` holds one per node so a fleet run
+    can answer "how many journal events did node B emit" without parsing
+    process-cumulative series — the per-node precursor of a per-process
+    registry.  Never
+    rendered on ``/metrics``; surfaced through scope snapshots and the
+    fleet artifact."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._series: Dict[Tuple, float] = {}
+
+    def inc(self, name: str, value: float = 1.0, **labels) -> None:
+        key = (name,) + _labels_key(labels)
+        with self._lock:
+            self._series[key] = self._series.get(key, 0.0) + value
+
+    def get(self, name: str, **labels) -> float:
+        with self._lock:
+            return self._series.get((name,) + _labels_key(labels), 0.0)
+
+    def snapshot(self) -> Dict[str, float]:
+        """``name{label="v",...} -> total`` in stable sorted order."""
+        with self._lock:
+            items = sorted(self._series.items())
+        return {key[0] + _fmt_labels(key[1:]): v for key, v in items}
 
 
 def _register(metric: _Metric) -> _Metric:
@@ -475,4 +506,44 @@ QUEUE_WAIT_SECONDS = histogram(
 SSE_EVENTS_DROPPED = counter(
     "http_sse_events_dropped_total",
     "server-sent events dropped on a full subscriber queue, by topic",
+)
+
+# In-process fault fabric (network/transport.py Hub): what the seeded
+# per-link fault plans and the net.deliver injection point did to traffic.
+NET_ENVELOPES_DROPPED = counter(
+    "net_envelopes_dropped_total",
+    "fabric envelopes not delivered, by reason (unlinked|partition|plan|fault|dead)",
+)
+NET_ENVELOPES_DELAYED = counter(
+    "net_envelopes_delayed_total",
+    "fabric envelopes queued for delayed delivery by a link plan",
+)
+NET_ENVELOPES_DUPLICATED = counter(
+    "net_envelopes_duplicated_total",
+    "fabric envelopes delivered twice by a link plan",
+)
+NET_ENVELOPES_REORDERED = counter(
+    "net_envelopes_reordered_total",
+    "fabric envelopes delivered ahead of earlier-due traffic by a link plan",
+)
+
+# Sync hardening (network/sync.py, network/backfill.py): aborted lookups and
+# backfill batches retried against a different peer — the churn scenarios'
+# evidence that a dead or lying peer cannot stall sync.
+SYNC_LOOKUP_ABORTED = counter(
+    "sync_lookup_aborted_total",
+    "single-block/parent lookups aborted before import, by reason",
+)
+BACKFILL_BATCH_RETRIES = counter(
+    "backfill_batch_retries_total",
+    "backfill batches retried against a different peer, by outcome",
+)
+
+# Slasher pipeline (slasher/__init__.py drained by network/router.py): every
+# slashing the local slasher produced, by kind and what happened to it —
+# pooled+gossiped, or stale (its validator was already slashed / the op
+# failed chain validation).  The byzantine scenarios' detection evidence.
+SLASHER_SLASHINGS = counter(
+    "slasher_slashings_total",
+    "slashings drained from the local slasher, by kind and outcome",
 )

@@ -29,9 +29,10 @@ A parent may close before a late child does (a delayed re-processed event
 whose originating request already returned).  The child still attaches — the
 tree is serialized at read time — it just renders past its parent's end.
 
+Cross-node hops (a gossip block published by another node) resume the
+envelope's trace context as a fresh local root (:func:`resume_remote`).
 The JAX package's HTTP trace surface (trace summaries, Chrome trace-event
-export) and its cross-node trace resumption come with the HTTP API and the
-multi-node simulator; the port reads :data:`TRACES` and
+export) comes with the HTTP API; the port reads :data:`TRACES` and
 :func:`trace_to_dict` directly.
 """
 
@@ -215,6 +216,41 @@ def span(name: str, hist=None, hist_labels: Optional[dict] = None, **fields):
             hist.observe(sp.duration, **(hist_labels or {}))
         if sp.parent is None:
             TRACES.push(trace)
+
+
+@contextmanager
+def resume_remote(ctx: Optional[dict], name: str, **fields):
+    """Resume an envelope-propagated trace context from ANOTHER node as a
+    new local root trace (the receiving half of cross-node propagation).
+
+    The remote linkage rides in fields — ``remote_trace_id`` /
+    ``remote_node`` / ``remote_lamport`` — rather than by reusing the
+    origin's trace id: :data:`TRACES` is process-global across simulated
+    nodes, so id reuse would splice two nodes' spans into one tree.  The
+    fleet artifact joins proposal and import trees on
+    ``remote_trace_id == <proposal trace_id>``.  Always roots a fresh
+    trace: any span active on this worker thread belongs to LOCAL work,
+    not to the remote cause."""
+    ctx = ctx or {}
+    token = _current.set(None)
+    try:
+        with span(name,
+                  remote_trace_id=ctx.get("trace_id"),
+                  remote_node=ctx.get("node"),
+                  remote_lamport=ctx.get("lamport"),
+                  **fields) as sp:
+            yield sp
+    finally:
+        _current.reset(token)
+
+
+def span_event(name: str, **fields) -> Optional[Span]:
+    """A zero-duration marker child on the active span — for point events
+    that explain a trace without timing anything (a response-cache
+    invalidation inside ``head_recompute``, a shed decision inside an HTTP
+    span).  No-op (returns None) outside any trace."""
+    now = time.perf_counter()
+    return record_span(name, start_pc=now, end_pc=now, **fields)
 
 
 def record_span(name: str, start_pc: float, end_pc: Optional[float] = None,

@@ -16,12 +16,14 @@ compositions, counters, decisions, seconds from one scripted clock):
   ``effective_bounds`` and ``snapshot()`` from both, with ``adaptive``
   True, False and None (None is static in both: the JAX package's
   autotune mode is ``pinned`` unless its environment says ``live``);
-- ``chip_smoke.GossipAttestations``, the stand-in for the router's batch
-  handler that ``chip_smoke.py``'s ``[scheduler]`` drives on the card, on
-  a minimal-preset harness: the attestations it applies through the port's
-  processor give the fork-choice weights and head of the JAX chain's
+- the router's batch handler (``Router._process_gossip_attestations``,
+  recorded by ``chip_smoke.RoutedBatches`` as ``chip_smoke.py``'s
+  ``[network]`` records it on the card) fed gossip events through the
+  processor of a ``LocalNode`` on a minimal-preset harness: the attestations
+  it applies give the fork-choice weights and head of the JAX chain's
   ``process_attestation`` on the same attestations; with real crypto on
-  the CPU a tampered item is refused alone, as the JAX chain refuses it.
+  the CPU (the ``"torch"`` backend) a tampered item is refused alone, as the
+  JAX chain refuses it.
 """
 
 import random
@@ -45,6 +47,8 @@ from lighthouse_tpu.scheduler import work as jwork  # noqa: E402
 from lighthouse_tpu_torch import metrics as pmetrics  # noqa: E402
 from lighthouse_tpu_torch import scheduler as psched  # noqa: E402
 from lighthouse_tpu_torch.consensus import helpers as h  # noqa: E402
+from lighthouse_tpu_torch.network import LocalNode  # noqa: E402
+from lighthouse_tpu_torch.network.transport import Hub  # noqa: E402
 from lighthouse_tpu_torch.scheduler import admission as padmission  # noqa: E402
 from lighthouse_tpu_torch.scheduler import processor as pprocessor  # noqa: E402
 from lighthouse_tpu_torch.scheduler import work as pwork  # noqa: E402
@@ -454,7 +458,7 @@ def test_admission_matches_jax(adaptive, monkeypatch):
     assert tightened is bool(adaptive)
 
 
-# ------------------------------------------- the stand-in handler, a harness
+# ---------------------------- the router's batch handler, a harness
 
 
 def unaggregated(hs, helpers, slot: int, root: bytes) -> list:
@@ -480,26 +484,30 @@ def unaggregated(hs, helpers, slot: int, root: bytes) -> list:
     return out
 
 
-def through_processor(chain, attestations) -> "chip_smoke.GossipAttestations":
-    """``attestations`` sent as gossip events into the port's processor
-    with the stand-in handler, drained as one batch."""
-    handler = chip_smoke.GossipAttestations(chain)
-    p = psched.BeaconProcessor(max_workers=1)
+def through_processor(chain, attestations) -> "chip_smoke.RoutedBatches":
+    """``attestations`` sent as the router's gossip events into the
+    processor of a ``LocalNode`` on ``chain`` (one worker, held), drained
+    as one batch through its router's batch handler, recorded by
+    ``chip_smoke.RoutedBatches``."""
+    node = LocalNode(hub=Hub(), peer_id="node", chain=chain, max_workers=1)
     try:
-        gate = hold(PACKAGES["port"], p)
-        for ev in chip_smoke.gossip_events(handler, attestations):
-            assert p.send(ev)
-        gate.set()
-        assert p.wait_idle(60.0)
-        assert not p.metrics.dropped
+        items = [chip_smoke.gossip_item(node.router.fork_digest, chain.head_state, att,
+                                        chain.spec, "peer") for att in attestations]
+        with chip_smoke.RoutedBatches(node) as handler:
+            gate = hold(PACKAGES["port"], node.processor)
+            for ev in chip_smoke.gossip_events(node.router._process_gossip_attestations, items):
+                assert node.processor.send(ev)
+            gate.set()
+            assert node.processor.wait_idle(60.0)
+            assert not node.processor.metrics.dropped
     finally:
-        p.shutdown()
+        node.shutdown()
     return handler
 
 
 def test_stand_in_handler_weights_match_jax():
     """Two slots' committees attest to the head of a 64-validator harness
-    (fake crypto): the port's processor and stand-in apply them all in one
+    (fake crypto): the port's processor and router apply them all in one
     batch, the JAX chain takes each through ``process_attestation``; the
     fork choice's weights and head are equal after the next slot."""
     jhs, phs = harnesses({})
