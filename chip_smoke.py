@@ -132,7 +132,7 @@ Phases, each of which raises on a failed check:
              JWT to a ``MockEngineServer`` (the anchor's root, store write
              and fork-choice anchor timed apart); the sidecars' header
              signature checked on the card (another signature refused);
-             then [network] on this node; then
+             then [wire] and [network] on this node; then
              ``process_block_with_blobs`` of the block and its six
              sidecars (``workload.blob_sidecars``): one supervised
              kzg_batch and one supervised bls_verify batch on the card, no
@@ -158,27 +158,47 @@ Phases, each of which raises on a failed check:
              fresh ``HotColdDB`` on the same file reads back the block
              byte for byte, the post-state's stored SSZ bytes and its
              summary;
-    network — [chain]'s node on the in-process network before its import
-             (slot S-1's gossip arrives before block S): a ``LocalNode``
-             on a seeded ``Hub`` (four processor workers, the slasher on
-             with a 64-epoch history, the default BLS backend) and a second
-             peer, pub, a ``NetworkService`` on the 64 attestation subnets,
-             the aggregate topic and the attester-slashing topic.  pub
-             publishes, as snappy SSZ on their topics, while the node's
-             workers are held: 4,096 unaggregated attestations of the
-             anchor's slot (64 members of each of its 64 committees, each
-             signed with its own key), then 64 aggregates (one a committee
-             over its 64 attesters, its aggregator a member whose selection
-             proof passes ``is_aggregator``); each drains through the
-             router's batch handler as one batch and one supervised
-             bls_verify batch on the card (4,096 sets; 192 sets, bucket
-             256 x 64); every vote and aggregate applied, every aggregator
-             observed, no host fallback, nothing dropped, nothing
-             forwarded back to pub, no slashing; each batch's items, sets,
-             bucket, queue wait, preverify, setup, dispatch, wait, apply,
-             slasher seconds and Fq launches (counts set to 0 just before
-             the first publish, read after the aggregates' drain), the
-             hub's delivery and the node's receipt seconds; then 8 more,
+    wire   — [chain]'s node on the wire before its import (slot S-1's
+             gossip arrives before block S): a ``LocalNode`` on a secured
+             ``TcpEndpoint`` on 127.0.0.1 (four processor workers, the
+             slasher on with a 64-epoch history, the default BLS backend)
+             with discv5 on under its Noise identity key, and a second
+             peer, pub, a ``NetworkService`` on its own secured
+             ``TcpEndpoint`` with its own ``Discv5Service``, on the 64
+             attestation subnets, the aggregate topic and the
+             attester-slashing topic.  pub bootstraps from the node's ENR,
+             reads the node's record as the node serves it (its signature
+             verifies; its ip/tcp are the node's listener, its key the
+             node's Noise identity) and dials it: multistream-select, Noise
+             XX with the secp256k1 identity proof (each side's proven key
+             the other's ENR key), yamux, ``/meshsub/1.1.0``; then each
+             side's mesh holds the other on every topic.  pub publishes,
+             as snappy SSZ on their topics, while the node's workers are
+             held: 4,096 unaggregated attestations of the anchor's slot (64
+             members of each of its 64 committees, each signed with its
+             own key), then 64 aggregates (one a committee over its 64
+             attesters, its aggregator the first member in key order whose
+             selection proof passes ``is_aggregator``); each drains
+             through the router's batch handler as one batch and one
+             supervised bls_verify batch on the card (4,096 sets; 192
+             sets, bucket 256 x 64); the node's service received exactly
+             the messages pub sent (in order, by topic and message id);
+             every vote and aggregate applied, every aggregator observed,
+             no host fallback, nothing dropped, nothing forwarded back to
+             pub, no slashing; each batch's items, sets, bucket, queue
+             wait, preverify, setup, dispatch, wait, apply, slasher
+             seconds and Fq launches (counts set to 0 just before the
+             first publish, read after the aggregates' drain); pub's send
+             and the node's receipt seconds; the wire's own seconds: the
+             discv5 lookup, each step of the handshake ladder on both
+             ends, the native cipher's seal and open calls, yamux's and
+             meshsub's framing;
+    network — then the same over a seeded in-process ``Hub``, cut to 512
+             attestations (8 members of each committee after [wire]'s 64)
+             and 64 aggregates over them (each committee's second
+             aggregator in key order: a node observes one aggregate an
+             aggregator and epoch), with the same gates (512 sets; 192
+             sets, bucket 256 x 8); then 8 more,
              one under another member's signature: one batch False on the
              card, 8 single verifies, exactly one ``bad_signature``
              rejection of pub; after the import (with the sync batch and
@@ -242,8 +262,8 @@ Phases, each of which raises on a failed check:
              then each kernel at every launch size of that run (the
              histogram ``cuda_fq.SIZES``), summed to its time per verify,
              beside its bound per verify, and likewise per 6-blob and per
-             192-lane KZG batch, per [block] import and per [network]
-             drain of 4,096 attestations and 64 aggregates; each SHA-256
+             192-lane KZG batch, per [block] import and per [wire] and
+             [network] drain; each SHA-256
              kernel at its top bucket and at every launch size of the [state] run
              and of the [block] import, beside its bound and
              plain version, its launches per state root, and the native
@@ -266,14 +286,17 @@ through the device supervisor (``device_supervisor.py``); the script fails
 if any of them took the host route or left a breaker open.  Per-batch stages come from
 the flight recorder (``device_telemetry``).
 
-The line before the last is one JSON object naming every kernel with its
-numbers; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA,
+Each phase (and [wire], [network] and the double vote inside [chain])
+prints ``[phase] <name> <seconds> s``, its wall time.  The line before the
+last is one JSON object naming every kernel with its numbers; the last
+line is ``{"ok": true, "device": {...}}``.  Without CUDA,
 or outside the repository, the script exits non-zero and prints no result.
 It needs no network and leaves no process running.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import random
@@ -402,7 +425,8 @@ EL_JWT_SECRET = random.Random(0xE1).randbytes(32)
 #: tampered batch, the slasher's history in epochs (cut from Lighthouse's
 #: 4,096: its arrays take 48 bytes a validator and epoch), the hub's seed
 #: and the seconds the node may take to drain.
-NET_ATTESTATIONS = 4096
+WIRE_ATTESTERS = 64  # [wire]: 4,096 attestations of a 64-committee slot
+NET_ATTESTERS = 8  # [network]: 512, from the members after [wire]'s
 NET_TAMPERED = 8
 SLASHER_HISTORY = 64
 NET_SEED = 0x6055
@@ -425,6 +449,17 @@ SUPERVISOR_COUNTERS = {
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+@contextlib.contextmanager
+def phase_wall(name: str):
+    """Print ``[phase] <name> <seconds> s``, the block's wall time, after it
+    (also when it raises)."""
+    t = time.perf_counter()
+    try:
+        yield
+    finally:
+        log(f"[phase] {name} {time.perf_counter() - t:.1f} s")
 
 
 def nvidia_smi(fields: str) -> str:
@@ -1916,32 +1951,38 @@ def phase_requeue_faults(device: str = "cuda") -> None:
         torch_backend.reset_for_tests()
 
 
+_SPANS_LOCK = threading.Lock()
+
+
 def timed_calls(spans: dict, key: str, fn):
     """``fn`` wrapped to add its seconds to ``spans[key]`` (and count its
-    calls under ``key + "_calls"``)."""
+    calls under ``key + "_calls"``), from any thread."""
     def run(*a, **kw):
         t = time.perf_counter()
         try:
             return fn(*a, **kw)
         finally:
-            spans[key] = spans.get(key, 0.0) + time.perf_counter() - t
-            spans[key + "_calls"] = spans.get(key + "_calls", 0) + 1
+            dt = time.perf_counter() - t
+            with _SPANS_LOCK:
+                spans[key] = spans.get(key, 0.0) + dt
+                spans[key + "_calls"] = spans.get(key + "_calls", 0) + 1
     return run
 
 
 class Patched:
     """Wrap attributes for the length of a ``with`` block: each ``(owner,
-    name, key)`` by :func:`timed_calls` under ``key``; the owner's own
-    attribute (or its absence, where it was inherited) comes back after."""
+    name, key)`` by ``wrap`` (:func:`timed_calls`) under ``key``; the
+    owner's own attribute (or its absence, where it was inherited) comes
+    back after."""
 
-    def __init__(self, spans: dict, targets):
-        self.spans, self.targets = spans, list(targets)
+    def __init__(self, spans: dict, targets, wrap=timed_calls):
+        self.spans, self.targets, self.wrap = spans, list(targets), wrap
 
     def __enter__(self):
         self.saved = []
         for owner, name, key in self.targets:
             self.saved.append((owner, name, vars(owner).get(name, Patched)))
-            setattr(owner, name, timed_calls(self.spans, key, getattr(owner, name)))
+            setattr(owner, name, self.wrap(self.spans, key, getattr(owner, name)))
         return self.spans
 
     def __exit__(self, *exc):
@@ -2540,7 +2581,7 @@ class DispatchLaunches:
         return False
 
 
-def committee_aggregates(case, state, signed: list, points: dict) -> list:
+def committee_aggregates(case, state, signed: list, points: dict, nth: int = 0) -> list:
     """One ``SignedAggregateAndProof`` a committee of ``signed`` (the
     (validator, attestation) pairs of :func:`committee_attestations`, whose
     data's G2 points it left in ``points``): the aggregate of that
@@ -2551,6 +2592,8 @@ def committee_aggregates(case, state, signed: list, points: dict) -> list:
     plus the point times the difference of the keys.  The aggregate's
     signature is the sum of its members' keys times the data's point; the
     outer signature one hash to G2 and one multiplication an aggregate.
+    ``nth`` > 0 takes the committee's next aggregators in that order
+    instead (a node observes one aggregate an aggregator and epoch).
     Returns (aggregator, signed aggregate) pairs in committee order."""
     import hashlib
 
@@ -2579,16 +2622,18 @@ def committee_aggregates(case, state, signed: list, points: dict) -> list:
     for c, members in sorted(by_committee.items()):
         committee = [int(v) for v in h.get_beacon_committee(state, slot, c, spec)]
         modulo = max(1, len(committee) // spec.target_aggregators_per_committee)
-        proof, key, aggregator = None, 0, None
+        proof, key, aggregator, passed = None, 0, None, 0
         for v in sorted(committee, key=lambda v: sk[v]):
             proof = curve.add(proof, curve.mul(selection, sk[v] - key))
             key = sk[v]
             raw = serde.g2_compress(proof)
             if int.from_bytes(hashlib.sha256(raw).digest()[:8], "little") % modulo == 0:
-                aggregator = v
-                break
+                passed += 1
+                if passed > nth:
+                    aggregator = v
+                    break
         if aggregator is None:
-            raise AssertionError(f"no member of committee {c} is an aggregator at slot {slot}")
+            raise AssertionError(f"committee {c} has no aggregator number {nth + 1} at slot {slot}")
         position = {v: i for i, v in enumerate(committee)}
         bits = [False] * len(committee)
         for v, _ in members:
@@ -2617,27 +2662,42 @@ def wait_for(label: str, condition, timeout: float) -> float:
 
 
 class NetworkCell:
-    """[network]'s fabric around [chain]'s node: a ``Hub``, the node (a
-    ``LocalNode`` on the chain, its slasher on, the default BLS backend) and
-    the publishing peer ``"pub"`` (a ``NetworkService`` subscribed to the 64
-    attestation subnets, the aggregate topic and the attester-slashing
-    topic, answering the node's Status with the node's own).  Times the
-    hub's deliveries of pub's messages and the node's service receipts
-    (snappy, message id, the router's dispatch); keeps every gossip
-    envelope the node sends to pub and every message pub receives."""
+    """The fabric around [chain]'s node for [wire] and [network]: the node
+    (a ``LocalNode`` on the chain, its slasher on, the default BLS backend)
+    and the publishing peer ``"pub"`` (a ``NetworkService`` subscribed to
+    the 64 attestation subnets, the aggregate topic and the
+    attester-slashing topic, answering the node's Status with the node's
+    own).  On the hub (``wire=False``) both sit on a seeded ``Hub``.  On
+    the wire both sit on secured ``TcpEndpoint``s on 127.0.0.1, the node
+    with discv5 on under its Noise identity key, pub with its own
+    ``Discv5Service``: pub bootstraps from the node's ENR, reads the node's
+    record as the node serves it (FINDNODE at distance 0), dials its
+    ``ip``/``tcp`` through multistream-select, Noise XX and yamux, and the
+    cell waits until each side's mesh holds the other on every topic pub
+    publishes to (:meth:`_dial`).  Times pub's sends and the node's
+    service receipts (snappy, message id, the router's dispatch); keeps
+    each message the node's service received, every gossip envelope the
+    node sends to pub and every message pub receives."""
 
-    def __init__(self, chain, slots_per_epoch: int):
+    def __init__(self, chain, slots_per_epoch: int, wire: bool = False):
         from lighthouse_tpu_torch.network import LocalNode, NetworkService, rpc, topics
+        from lighthouse_tpu_torch.network.tcp_transport import TcpEndpoint
         from lighthouse_tpu_torch.network.transport import Hub
         from lighthouse_tpu_torch.slasher import SlasherConfig
 
-        self.hub = Hub(seed=NET_SEED)
-        self.node = LocalNode(hub=self.hub, peer_id="node", chain=chain, max_workers=4,
+        self.wire, self.hub, self.pub_discv5 = wire, None, None
+        if wire:
+            node_ep, pub_ep = TcpEndpoint("node", secured=True), TcpEndpoint("pub", secured=True)
+        else:
+            self.hub = Hub(seed=NET_SEED)
+            node_ep, pub_ep = self.hub.register("node"), self.hub.register("pub")
+        self.node = LocalNode(peer_id="node", chain=chain, endpoint=node_ep, max_workers=4,
                               enable_slasher=True,
                               slasher_config=SlasherConfig(history_length=SLASHER_HISTORY,
                                                            slots_per_epoch=slots_per_epoch))
-        self.pub = NetworkService(self.hub.register("pub"))
-        self.spans, self.to_pub, self.received = {"deliver": 0.0, "receive": 0.0}, [], []
+        self.pub = NetworkService(pub_ep)
+        self.spans, self.to_pub, self.received, self.got = (
+            {"deliver": 0.0, "receive": 0.0}, [], [], [])
         node, pub = self.node, self.pub
         pub.on_gossip = lambda topic, raw, _c, sender: self.received.append((topic, raw, sender))
         pub.on_rpc_request = lambda protocol, _req, _sender: (
@@ -2651,7 +2711,13 @@ class NetworkCell:
         for topic in self.subnet_topics + [self.aggregate_topic, self.slashing_topic]:
             pub.subscribe(topic)
         pub.endpoint.send = timed_calls(self.spans, "deliver", pub.endpoint.send)
-        node.service._on_gossip = timed_calls(self.spans, "receive", node.service._on_gossip)
+        on_gossip = node.service._on_gossip
+
+        def receive(env):
+            self.got.append((env.topic, env.data))
+            return on_gossip(env)
+
+        node.service._on_gossip = timed_calls(self.spans, "receive", receive)
         send = node.endpoint.send
 
         def node_send(peer, env):
@@ -2660,17 +2726,83 @@ class NetworkCell:
             return send(peer, env)
 
         node.endpoint.send = node_send
-        self.hub.connect("node", "pub")
         wanted = set(self.subnet_topics + [self.aggregate_topic])
+        if wire:
+            self.wire_s = self._dial(wanted)
+        else:
+            self.hub.connect("node", "pub")
 
-        def subscribed(service, peer, topics_):
-            with service._mesh_lock:
-                return topics_ <= service.peer_topics.get(peer, set())
+            def subscribed(service, peer, topics_):
+                with service._mesh_lock:
+                    return topics_ <= service.peer_topics.get(peer, set())
 
-        wait_for("[network] subscriptions", lambda: subscribed(pub, "node", wanted) and
-                 subscribed(node.service, "pub", {self.slashing_topic}), 60.0)
+            wait_for("[network] subscriptions", lambda: subscribed(pub, "node", wanted) and
+                     subscribed(node.service, "pub", {self.slashing_topic}), 60.0)
         if not node.wait_idle(60.0):
-            raise AssertionError("[network] the node's Status exchange did not finish")
+            raise AssertionError("the node's Status exchange did not finish")
+
+    def _dial(self, wanted: set) -> dict:
+        """[wire]'s discovery and connection (see the class docstring), with
+        its gates: the node's record verifies, its ``ip``/``tcp`` are the
+        node's listener and its key the node's Noise identity; each side's
+        Noise-proven identity is the other's ENR key.  Returns the seconds
+        of the lookup, of each step of the dialer's and the acceptor's
+        handshake ladder, of the dial and of the meshes."""
+        from lighthouse_tpu_torch.network.discv5 import Discv5Service, KeyPair, rlp, secp256k1
+        from lighthouse_tpu_torch.network.discv5.enr import ENR
+        from lighthouse_tpu_torch.network.noise import multistream, secure
+        from lighthouse_tpu_torch.network.tcp_transport import TcpEndpoint
+
+        node, pub = self.node, self.pub
+        node_ep, pub_ep = node.endpoint, pub.endpoint
+        node.enable_discv5(KeyPair(node_ep.identity_priv))
+        self.pub_discv5 = Discv5Service(KeyPair(pub_ep.identity_priv)).start()
+        boot = ENR.from_text(node.discv5.enr.to_text())  # as an operator hands it out
+        out = {}
+        t = time.perf_counter()
+        table = self.pub_discv5.bootstrap(boot)
+        served = [e for e in self.pub_discv5.find_node(boot, [0])
+                  if e.node_id == node.discv5.node_id]
+        out["lookup"] = time.perf_counter() - t
+        if not served or node.discv5.node_id not in self.pub_discv5.table:
+            raise AssertionError(f"[wire] pub's discv5 did not find the node (table {table})")
+        enr = served[0]
+        key = secp256k1.compress(secp256k1.pubkey(node_ep.identity_priv))
+        if not enr.verify() or (enr.ip(), rlp.decode_uint(enr.pairs[b"tcp"])) != \
+                tuple(node_ep.listen_addr) or enr.pairs[b"secp256k1"] != key:
+            raise AssertionError(f"[wire] the node's record {enr} does not verify or does not "
+                                 f"name its listener {node_ep.listen_addr} and its key")
+        self.enr, self.listen = enr, tuple(node_ep.listen_addr)
+        steps = {}
+
+        def step_key(name):
+            return lambda *a: f"{name} {a[1][0]}" if name == "negotiate" else name
+
+        targets = [(multistream, "negotiate_outbound", step_key("negotiate")),
+                   (multistream, "negotiate_inbound", step_key("negotiate")),
+                   (secure, "secure_dial", step_key("noise_xx")),
+                   (secure, "secure_accept", step_key("noise_xx")),
+                   (TcpEndpoint, "_open_meshsub", step_key("meshsub_open"))]
+        wanted_topics = sorted(wanted)
+
+        def meshed():
+            return all("node" in pub.mesh.get(tp, ()) and "pub" in node.service.mesh.get(tp, ())
+                       for tp in wanted_topics)
+
+        with Patched(steps, targets, wrap=role_timed):
+            t = time.perf_counter()
+            peer = pub_ep.dial(enr.ip(), rlp.decode_uint(enr.pairs[b"tcp"]))
+            out["dial"] = time.perf_counter() - t
+            out["connected"] = wait_for("[wire] the node's side of the connection",
+                                        lambda: "pub" in node_ep.connected_peers(), 30.0)
+        if peer != "node":
+            raise AssertionError(f"[wire] pub dialled the node's record and reached {peer!r}")
+        if pub_ep._peer_identities.get("node") != key or \
+                node_ep._peer_identities.get("pub") != self.pub_discv5.enr.pairs[b"secp256k1"]:
+            raise AssertionError("[wire] a Noise-proven identity is not the peer's ENR key")
+        out["mesh"] = wait_for("[wire] the meshes", meshed, 60.0)
+        out["steps"] = steps
+        return out
 
     def attestation_topic(self, state, attestation, spec) -> str:
         from lighthouse_tpu_torch.network import topics
@@ -2698,7 +2830,47 @@ class NetworkCell:
         if self.node is not None:
             self.node.shutdown()
             self.pub.shutdown()
+            if self.pub_discv5 is not None:
+                self.pub_discv5.stop()
+            if self.wire:
+                self.pub.endpoint.close()
             self.node = None
+
+
+def role_timed(spans: dict, key, fn):
+    """``fn`` wrapped to add its seconds to ``spans["<role> <key(args)>"]``,
+    the role ``dial`` on the main thread (where pub dials) and ``accept``
+    on any other (the node's handshake threads)."""
+    def run(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            role = "dial" if threading.current_thread() is threading.main_thread() else "accept"
+            k, dt = f"{role} {key(*a)}", time.perf_counter() - t
+            with _SPANS_LOCK:
+                spans[k] = spans.get(k, 0.0) + dt
+    return run
+
+
+def wire_targets() -> list:
+    """What [wire] times around its burst, process-wide (both ends):
+    the native cipher's seal and open calls, yamux's frame sends (each
+    with its Noise seal and socket write) and receipts (a frame's bytes
+    into its stream), and meshsub's framing (an envelope into a protobuf
+    frame; a frame's protobuf into envelopes)."""
+    from lighthouse_tpu_torch import native
+    from lighthouse_tpu_torch.network import pb, tcp_transport
+    from lighthouse_tpu_torch.network.noise.yamux import YamuxSession, YamuxStream
+
+    return [(native, "chacha20_poly1305_seal", "seal"),
+            (native, "chacha20_poly1305_open", "open"),
+            (YamuxSession, "_send_frame", "yamux_send"),
+            (YamuxStream, "_on_data", "yamux_receive"),
+            (tcp_transport, "_env_to_rpc", "meshsub_encode"),
+            (pb, "encode_frame", "meshsub_encode"),
+            (pb.RPC, "decode", "meshsub_decode"),
+            (tcp_transport, "_rpc_to_envs", "meshsub_decode")]
 
 
 def batch_records(label: str, routed, mark: dict, per_dispatch):
@@ -2723,132 +2895,223 @@ def batch_records(label: str, routed, mark: dict, per_dispatch):
     return out, records
 
 
-def phase_network(card: str, case, chain) -> dict:
-    """[network] on [chain]'s node before its import (see the module
-    docstring).  Returns its numbers, and under ``"cell"`` the live
-    :class:`NetworkCell` and under ``"routed"`` its recorder, which
-    :func:`network_double_vote` goes on with and [chain] shuts down."""
+def gossip_burst(label: str, card: str, cell, routed, chain, spec, signed: list,
+                 aggregates: list) -> dict:
+    """pub publishes ``signed`` (the (validator, attestation) pairs of
+    :func:`committee_attestations`) on their subnets, then ``aggregates``,
+    each while the node's workers are held, and each drains into one
+    batch and one supervised bls_verify batch on the card.  The gates:
+    every vote in fork choice and every aggregate applied, every
+    aggregator observed, nothing dropped, rejected or forwarded to pub,
+    no slashing, no host fallback, both Fq kernels launched in the drain
+    (counts set to 0 just before the first publish, read after the
+    aggregates' drain), and the node's service received exactly the
+    messages pub sent, in order, by topic and message id."""
     import numpy as np
 
-    from lighthouse_tpu_torch import device_pipeline, metrics
+    from lighthouse_tpu_torch import metrics
     from lighthouse_tpu_torch.consensus import helpers as h
+    from lighthouse_tpu_torch.network import snappy_codec
+    from lighthouse_tpu_torch.network.service import message_id
     from lighthouse_tpu_torch.ops import cuda_fq
     from lighthouse_tpu_torch.scheduler import W
     from lighthouse_tpu_torch.scheduler import processor as proc_mod
 
-    if device_pipeline.enabled():
-        raise AssertionError("[network] the device pipeline is on; each batch must be one verify")
-    state, root, spec = chain.head_state, chain.head_root, case.spec
+    node, state, root = cell.node, chain.head_state, chain.head_root
     epoch = h.compute_epoch_at_slot(int(state.slot), spec)
-    committees = h.get_committee_count_per_slot(state, epoch, spec)
-    per = NET_ATTESTATIONS // committees
-    t = time.perf_counter()
-    points = {}
-    signed = committee_attestations(case, state, root, per, points=points)
-    extra = committee_attestations(case, state, root, NET_TAMPERED, skip=per,
-                                   points=points)[:NET_TAMPERED]
-    sign_s = time.perf_counter() - t
-    t = time.perf_counter()
-    aggregates = committee_aggregates(case, state, signed, points)
-    aggregate_sign_s = time.perf_counter() - t
-    tampered = [a for _, a in extra]
-    tampered[3].signature = bytes(tampered[4].signature)
-    if len(signed) != NET_ATTESTATIONS:
-        raise AssertionError(f"[network] {len(signed)} attestations for {committees} committees")
     voters = sorted(v for v, _ in signed)
     aggregators = [a for a, _ in aggregates]
+    dropped0 = metrics_total(proc_mod.WORK_EVENTS_DROPPED)
+    slashings0 = metrics_total(metrics.SLASHER_SLASHINGS)
+    att_msgs = [(cell.attestation_topic(state, a, spec), a.as_ssz_bytes()) for _, a in signed]
+    agg_msgs = [(cell.aggregate_topic, a.as_ssz_bytes()) for _, a in aggregates]
+    got0, deliver0 = len(cell.got), dict(cell.spans)
+    mark = runtime_mark()
+    with DispatchLaunches() as per_dispatch:
+        cuda_fq.reset_launch_counts()
+        t0 = time.perf_counter()
+        with HeldWorkers(node.processor):
+            att_pub_s, att_handoff_s = cell.publish(att_msgs, W.GOSSIP_ATTESTATION,
+                                                    f"{label} attestations")
+        if not node.wait_idle(NET_IDLE_S):
+            raise AssertionError(f"{label} the node did not drain the attestations")
+        att_wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        with HeldWorkers(node.processor):
+            agg_pub_s, agg_handoff_s = cell.publish(agg_msgs, W.GOSSIP_AGGREGATE,
+                                                    f"{label} aggregates")
+        if not node.wait_idle(NET_IDLE_S):
+            raise AssertionError(f"{label} the node did not drain the aggregates")
+        agg_wall = time.perf_counter() - t1
+        launches = dict(cuda_fq.LAUNCHES)
+    sizes = {name: dict(c) for name, c in cuda_fq.SIZES.items()}
+    fabric = {k: v - deliver0.get(k, 0) for k, v in cell.spans.items()}
+    sent = [(tp, message_id(raw)) for tp, raw in att_msgs + agg_msgs]
+    got = [(tp, message_id(snappy_codec.decompress(data))) for tp, data in cell.got[got0:]]
+    if got != sent:
+        raise AssertionError(f"{label} the node's service received {len(got)} messages, "
+                             f"{sum(a != b for a, b in zip(got, sent))} of them not pub's in "
+                             f"order; pub sent {len(sent)}")
+    matched, records = batch_records(label, routed, mark, per_dispatch)
+    kinds = [(b["kind"], b["items"], b["sets"], b["verdict"]) for b, *_ in matched]
+    if kinds != [("attestation", len(signed), len(signed), True),
+                 ("aggregate", len(aggregates), 3 * len(aggregates), True)] or len(records) != 2:
+        raise AssertionError(f"{label} batches {kinds}, records "
+                             f"{[(r['shape'], r['n_live'], r['verdict']) for r in records]}")
+    if sorted(routed.applied) != voters or sorted(routed.aggregated) != sorted(aggregators):
+        raise AssertionError(f"{label} applied {len(routed.applied)} votes "
+                             f"({len(set(routed.applied))} validators) and "
+                             f"{len(routed.aggregated)} aggregates")
+    if not all(chain.observed.aggregators.is_known(epoch, a) for a in aggregators):
+        raise AssertionError(f"{label} an aggregator is not in observed.aggregators")
+    if routed.rejected or routed.refused or routed.raised:
+        raise AssertionError(f"{label} rejected {routed.rejected}, refused "
+                             f"{routed.refused}, raised {routed.raised}")
+    if node.processor.metrics.dropped or metrics_total(proc_mod.WORK_EVENTS_DROPPED) != dropped0:
+        raise AssertionError(f"{label} dropped {node.processor.metrics.dropped}")
+    if cell.to_pub:
+        raise AssertionError(f"{label} the node sent pub gossip: {cell.to_pub[:3]}")
+    slasher = node.slasher
+    if slasher.attester_slashings or slasher.dropped_findings or \
+            metrics_total(metrics.SLASHER_SLASHINGS) != slashings0:
+        raise AssertionError(f"{label} the slasher found a slashing in honest traffic")
+    votes, fc = chain.fork_choice.votes, chain.fork_choice
+    idx = np.asarray(voters)
+    if not (np.all(votes.next_epoch[idx] == epoch)
+            and np.all(votes.next_root_id[idx] == fc.proto.root_id(root))):
+        raise AssertionError(f"{label} a sender's vote is not in fork choice")
+    for name in KERNELS:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"{label} {name} was not launched in the drain")
+    if {k: sum(d[k] for _, d in per_dispatch.dispatches) for k in launches} != launches:
+        raise AssertionError(f"{label} dispatches {per_dispatch.dispatches} against "
+                             f"the phase's launches {launches}")
+    committees = len({int(a.data.index) for _, a in signed})
+    fabric_name = "the wire" if cell.wire else "the hub"
+    log(f"{label} {card}: pub published {len(signed)} unaggregated attestations of slot "
+        f"{int(state.slot)} ({committees} committees x {len(signed) // committees} members) "
+        f"and {len(aggregates)} aggregates (aggregators {aggregators[:4]}...) over "
+        f"{fabric_name} as snappy SSZ on their topics to a LocalNode (max_workers="
+        f"{node.processor.max_workers}, slasher on, history {SLASHER_HISTORY} epochs) while its "
+        f"workers were held: the attestations published in {att_pub_s:.3f} s, handed to the "
+        f"processor in {att_handoff_s:.3f} s, drained in {att_wall:.2f} s from the first "
+        f"publish to idle: {len(signed) / att_wall:.1f} attestations/s; the aggregates "
+        f"published in {agg_pub_s:.3f} s, handed over in {agg_handoff_s:.3f} s, drained in "
+        f"{agg_wall:.2f} s; pub's sends {fabric['deliver']:.3f} s over "
+        f"{fabric['deliver_calls']} calls, the node's service receipts "
+        f"{fabric['receive']:.3f} s over {fabric['receive_calls']} messages (every one pub "
+        f"sent, in order, by topic and message id); every vote and aggregate applied, every "
+        f"aggregator observed, each batch one supervised bls_verify batch on the card (verdict "
+        f"True), no host fallback, nothing dropped, nothing forwarded to pub, no slashing; Fq "
+        f"launches {launches}")
+    for b, rec, sp, n_launches in matched:
+        st = rec["stages_s"]
+        log(f"{label} {b['kind']} batch of {b['items']} items ({b['n']} candidates, "
+            f"{b['sets']} sets), bucket {rec['shape']}: queue_wait "
+            f"{sp.get('queue_wait', 0.0):.4f} s, preverify {b['preverify_s']:.3f} s, verify "
+            f"{b['verify_s']:.3f} s (setup {st['setup']:.3f} s, dispatch {st['dispatch']:.3f} "
+            f"s, wait {st['wait']:.3f} s, verdict {st['verdict']:.3f} s), apply "
+            f"{b['apply_s']:.3f} s, slasher {b['slasher_s']:.3f} s, the handler "
+            f"{b['wall_s']:.3f} s; Fq launches {n_launches}")
+    return {"launches": launches, "sizes": sizes, "buckets": [r["shape"] for _, r, _, _ in matched],
+            "batches": [(b["kind"], b["items"], b["sets"]) for b, *_ in matched],
+            "dispatch_launches": [(b["sets"], d) for b, _, _, d in matched],
+            "fabric_s": fabric}
+
+
+def burst_inputs(label: str, case, chain, count: int, skip: int, nth: int, tampered: int = 0):
+    """``count`` attestations of each committee of the head state's slot
+    after its first ``skip`` members, the aggregates over them (each
+    committee's ``nth`` aggregator) and ``tampered`` more after those;
+    with the seconds of the signing."""
+    from lighthouse_tpu_torch.consensus import helpers as h
+
+    state, root = chain.head_state, chain.head_root
+    committees = h.get_committee_count_per_slot(
+        state, h.compute_epoch_at_slot(int(state.slot), case.spec), case.spec)
     t = time.perf_counter()
+    points = {}
+    signed = committee_attestations(case, state, root, count, skip=skip, points=points)
+    extra = committee_attestations(case, state, root, tampered, skip=skip + count,
+                                   points=points)[:tampered] if tampered else []
+    sign_s = time.perf_counter() - t
+    t = time.perf_counter()
+    aggregates = committee_aggregates(case, state, signed, points, nth=nth)
+    aggregate_sign_s = time.perf_counter() - t
+    if len(signed) != count * committees:
+        raise AssertionError(f"{label} {len(signed)} attestations for {committees} committees")
+    log(f"{label} {len(signed)} attestations ({committees} committees x {count} members after "
+        f"the first {skip}) signed on the host in {sign_s:.2f} s; {len(aggregates)} aggregates "
+        f"(each committee's aggregator number {nth + 1} in key order) in "
+        f"{aggregate_sign_s:.2f} s")
+    return signed, aggregates, extra
+
+
+def phase_wire(card: str, case, chain) -> dict:
+    """[wire] on [chain]'s node before [network] and the import (see the
+    module docstring).  Returns its burst's numbers; the cell is shut
+    down."""
+    from lighthouse_tpu_torch import device_pipeline
+
+    if device_pipeline.enabled():
+        raise AssertionError("[wire] the device pipeline is on; each batch must be one verify")
+    signed, aggregates, _ = burst_inputs("[wire]", case, chain, WIRE_ATTESTERS, skip=0, nth=0)
+    t = time.perf_counter()
+    cell = NetworkCell(chain, case.spec.slots_per_epoch, wire=True)
+    fabric_s = time.perf_counter() - t
+    routed = RoutedBatches(cell.node).__enter__()
+    try:
+        with Patched({}, wire_targets()) as spans:
+            out = gossip_burst("[wire]", card, cell, routed, chain, case.spec, signed,
+                               aggregates)
+    finally:
+        routed.__exit__(None, None, None)
+        cell.shutdown()
+    ws, n = cell.wire_s, len(signed) + len(aggregates)
+    steps = ", ".join(f"{k} {v:.4f} s" for k, v in sorted(ws["steps"].items()))
+    log(f"[wire] {card}: the fabric in {fabric_s:.2f} s: pub's discv5 lookup (bootstrap from "
+        f"the node's ENR: the WHOAREYOU handshake, PING, FINDNODE sweeps; then the node's own "
+        f"record at distance 0) {ws['lookup']:.3f} s; its signature verifies, its ip/tcp "
+        f"{cell.listen[0]}:{cell.listen[1]} are the node's listener and its key the node's "
+        f"Noise identity; the dial {ws['dial']:.3f} s (the ladder: {steps}), the node's side "
+        f"connected {ws['connected']:.3f} s later; both Noise-proven identities are the peers' "
+        f"ENR keys; the meshes held each other on all {len(cell.subnet_topics) + 1} topics "
+        f"after {ws['mesh']:.2f} s")
+    log(f"[wire] the wire during the burst ({n} messages), both ends: the native "
+        f"ChaCha20-Poly1305 seal {spans.get('seal', 0.0):.3f} s over {spans.get('seal_calls', 0)} "
+        f"calls, open {spans.get('open', 0.0):.3f} s over {spans.get('open_calls', 0)} calls; "
+        f"yamux frame sends (each with its seal and socket write) "
+        f"{spans.get('yamux_send', 0.0):.3f} s over {spans.get('yamux_send_calls', 0)}, frame "
+        f"receipts {spans.get('yamux_receive', 0.0):.3f} s over "
+        f"{spans.get('yamux_receive_calls', 0)}; meshsub framing: encode "
+        f"{spans.get('meshsub_encode', 0.0):.3f} s over {spans.get('meshsub_encode_calls', 0)} "
+        f"calls, decode {spans.get('meshsub_decode', 0.0):.3f} s over "
+        f"{spans.get('meshsub_decode_calls', 0)} calls; pub's sends "
+        f"{out['fabric_s']['deliver']:.3f} s, the node's service receipts "
+        f"{out['fabric_s']['receive']:.3f} s")
+    return out
+
+
+def phase_network(card: str, case, chain) -> dict:
+    """[network] on [chain]'s node before its import, after [wire] (see
+    the module docstring).  Returns its numbers, and under ``"cell"`` the
+    live :class:`NetworkCell` and under ``"routed"`` its recorder, which
+    :func:`network_double_vote` goes on with and [chain] shuts down."""
+    from lighthouse_tpu_torch import device_pipeline
+    from lighthouse_tpu_torch.scheduler import W
+
+    if device_pipeline.enabled():
+        raise AssertionError("[network] the device pipeline is on; each batch must be one verify")
+    state, spec = chain.head_state, case.spec
+    signed, aggregates, extra = burst_inputs("[network]", case, chain, NET_ATTESTERS,
+                                             skip=WIRE_ATTESTERS, nth=1, tampered=NET_TAMPERED)
+    tampered = [a for _, a in extra]
+    tampered[3].signature = bytes(tampered[4].signature)
     cell = NetworkCell(chain, spec.slots_per_epoch)
     node = cell.node
-    fabric_s = time.perf_counter() - t
     routed = RoutedBatches(node).__enter__()
     try:
-        dropped0 = metrics_total(proc_mod.WORK_EVENTS_DROPPED)
-        slashings0 = metrics_total(metrics.SLASHER_SLASHINGS)
-        att_msgs = [(cell.attestation_topic(state, a, spec), a.as_ssz_bytes()) for _, a in signed]
-        agg_msgs = [(cell.aggregate_topic, a.as_ssz_bytes()) for _, a in aggregates]
-        mark = runtime_mark()
-        with DispatchLaunches() as per_dispatch:
-            cuda_fq.reset_launch_counts()
-            t0 = time.perf_counter()
-            with HeldWorkers(node.processor):
-                att_pub_s, att_handoff_s = cell.publish(att_msgs, W.GOSSIP_ATTESTATION,
-                                                        "[network] attestations")
-            if not node.wait_idle(NET_IDLE_S):
-                raise AssertionError("[network] the node did not drain the attestations")
-            att_wall = time.perf_counter() - t0
-            t1 = time.perf_counter()
-            with HeldWorkers(node.processor):
-                agg_pub_s, agg_handoff_s = cell.publish(agg_msgs, W.GOSSIP_AGGREGATE,
-                                                        "[network] aggregates")
-            if not node.wait_idle(NET_IDLE_S):
-                raise AssertionError("[network] the node did not drain the aggregates")
-            agg_wall = time.perf_counter() - t1
-            launches = dict(cuda_fq.LAUNCHES)
-        sizes = {name: dict(c) for name, c in cuda_fq.SIZES.items()}
-        spans = dict(cell.spans)
-        matched, records = batch_records("[network]", routed, mark, per_dispatch)
-        kinds = [(b["kind"], b["items"], b["sets"], b["verdict"]) for b, *_ in matched]
-        if kinds != [("attestation", NET_ATTESTATIONS, NET_ATTESTATIONS, True),
-                     ("aggregate", len(aggregates), 3 * len(aggregates), True)] or \
-                len(records) != 2:
-            raise AssertionError(f"[network] batches {kinds}, records "
-                                 f"{[(r['shape'], r['n_live'], r['verdict']) for r in records]}")
-        if sorted(routed.applied) != voters or sorted(routed.aggregated) != sorted(aggregators):
-            raise AssertionError(f"[network] applied {len(routed.applied)} votes "
-                                 f"({len(set(routed.applied))} validators) and "
-                                 f"{len(routed.aggregated)} aggregates")
-        if not all(chain.observed.aggregators.is_known(epoch, a) for a in aggregators):
-            raise AssertionError("[network] an aggregator is not in observed.aggregators")
-        if routed.rejected or routed.refused or routed.raised:
-            raise AssertionError(f"[network] rejected {routed.rejected}, refused "
-                                 f"{routed.refused}, raised {routed.raised}")
-        if node.processor.metrics.dropped or \
-                metrics_total(proc_mod.WORK_EVENTS_DROPPED) != dropped0:
-            raise AssertionError(f"[network] dropped {node.processor.metrics.dropped}")
-        if cell.to_pub:
-            raise AssertionError(f"[network] the node sent pub gossip: {cell.to_pub[:3]}")
-        slasher = node.slasher
-        if slasher.attester_slashings or slasher.dropped_findings or \
-                metrics_total(metrics.SLASHER_SLASHINGS) != slashings0:
-            raise AssertionError("[network] the slasher found a slashing in honest traffic")
-        votes, fc = chain.fork_choice.votes, chain.fork_choice
-        idx = np.asarray(voters)
-        if not (np.all(votes.next_epoch[idx] == epoch)
-                and np.all(votes.next_root_id[idx] == fc.proto.root_id(root))):
-            raise AssertionError("[network] a sender's vote is not in fork choice")
-        for name in KERNELS:
-            if launches.get(name, 0) <= 0:
-                raise AssertionError(f"[network] {name} was not launched in the drain")
-        if {k: sum(d[k] for _, d in per_dispatch.dispatches) for k in launches} != launches:
-            raise AssertionError(f"[network] dispatches {per_dispatch.dispatches} against "
-                                 f"the phase's launches {launches}")
-        rate = NET_ATTESTATIONS / att_wall
-        log(f"[network] {card}: {NET_ATTESTATIONS} unaggregated attestations of slot "
-            f"{int(state.slot)} ({committees} committees x {per} members, signed on the host in "
-            f"{sign_s:.2f} s) and {len(aggregates)} aggregates, one a committee over its {per} "
-            f"attesters (aggregators {aggregators[:4]}..., signed in {aggregate_sign_s:.2f} s), "
-            f"published by pub over the hub as snappy SSZ on their topics to a LocalNode "
-            f"(max_workers={node.processor.max_workers}, slasher on, history {SLASHER_HISTORY} "
-            f"epochs; the fabric {fabric_s:.2f} s) while its workers were held: the "
-            f"attestations published in {att_pub_s:.2f} s, handed to the processor in "
-            f"{att_handoff_s:.2f} s, drained in {att_wall:.2f} s from the first publish to idle: "
-            f"{rate:.1f} attestations/s; the aggregates published in {agg_pub_s:.3f} s, handed "
-            f"over in {agg_handoff_s:.3f} s, drained in {agg_wall:.2f} s; the hub's deliveries "
-            f"{spans['deliver']:.3f} s over {spans['deliver_calls']} sends, the node's service "
-            f"receipts {spans['receive']:.3f} s over {spans['receive_calls']} messages; every "
-            f"vote and aggregate applied, every aggregator observed, each batch one supervised "
-            f"bls_verify batch on the card (verdict True), no host fallback, nothing dropped, "
-            f"nothing forwarded to pub, no slashing; Fq launches {launches}")
-        for b, rec, sp, n_launches in matched:
-            st = rec["stages_s"]
-            log(f"[network] {b['kind']} batch of {b['items']} items ({b['n']} candidates, "
-                f"{b['sets']} sets), bucket {rec['shape']}: queue_wait "
-                f"{sp.get('queue_wait', 0.0):.4f} s, preverify {b['preverify_s']:.3f} s, verify "
-                f"{b['verify_s']:.3f} s (setup {st['setup']:.3f} s, dispatch {st['dispatch']:.3f} "
-                f"s, wait {st['wait']:.3f} s, verdict {st['verdict']:.3f} s), apply "
-                f"{b['apply_s']:.3f} s, slasher {b['slasher_s']:.3f} s, the handler "
-                f"{b['wall_s']:.3f} s; Fq launches {n_launches}")
+        out = gossip_burst("[network]", card, cell, routed, chain, spec, signed, aggregates)
 
         # A tampered batch: 8 more attestations, one under another key.
         first = len(routed.batches)
@@ -2868,7 +3131,7 @@ def phase_network(card: str, case, chain) -> dict:
         if [(b["n"], b["verdict"]) for b in late] != [(NET_TAMPERED, False)] or \
                 rec != [False] + [i != 3 for i in range(NET_TAMPERED)] or \
                 routed.refused != [bad] or routed.rejected != [("pub", "bad_signature")] or \
-                routed.applied[NET_ATTESTATIONS:] != [v for v, _ in extra if v != bad]:
+                routed.applied[len(signed):] != [v for v, _ in extra if v != bad]:
             raise AssertionError(f"[network] the tampered batch: batches "
                                  f"{[(b['n'], b['verdict']) for b in late]}, records {rec}, "
                                  f"refused {routed.refused}, rejected {routed.rejected}")
@@ -2885,10 +3148,8 @@ def phase_network(card: str, case, chain) -> dict:
         routed.__exit__(None, None, None)
         cell.shutdown()
         raise
-    return {"launches": launches, "sizes": sizes, "buckets": [r["shape"] for _, r, _, _ in matched],
-            "batches": [(b["kind"], b["items"], b["sets"]) for b, *_ in matched],
-            "dispatch_launches": [(b["sets"], d) for b, _, _, d in matched],
-            "cell": cell, "routed": routed}
+    out.update({"cell": cell, "routed": routed})
+    return out
 
 
 def network_double_vote(card: str, case, chain, clock, net: dict) -> None:
@@ -3111,9 +3372,13 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
         if [r["verdict"] for r in headers] != [True, False]:
             raise AssertionError(f"[chain] the header checks' records {headers}")
 
-        # [network]: slot S-1's gossip reaches the node over the hub before
-        # block S does, as on mainnet.
-        net = phase_network(card, case, chain)
+        # [wire], then [network]: slot S-1's gossip reaches the node before
+        # block S does, as on mainnet; first over a socket from a peer found
+        # through discv5, then over the hub.
+        with phase_wall("wire"):
+            wire = phase_wire(card, case, chain)
+        with phase_wall("network"):
+            net = phase_network(card, case, chain)
 
         # The import.
         verifier = per_block.BlockSignatureVerifier
@@ -3327,7 +3592,8 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
             f"{swap_spans['copy']:.2f} s of it")
 
         # [network]'s double vote, on the node after the import.
-        network_double_vote(card, case, chain, clock, net)
+        with phase_wall("network-double-vote"):
+            network_double_vote(card, case, chain, clock, net)
         net["cell"].shutdown()
 
         # The restart: a fresh HotColdDB on the same file.
@@ -3360,7 +3626,7 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
         th.configure(enabled=False)
         torch_backend.reset_for_tests()
     net = {k: v for k, v in net.items() if k not in ("cell", "routed")}
-    return {"network": net, "new_payload_s": spans["new_payload"],
+    return {"wire": wire, "network": net, "new_payload_s": spans["new_payload"],
             "engine_calls": [m for m, _ in engine_calls],
             "anchor_s": {"warm_root": warm_root_s, **{k: anchor_s[k] for k in (
                 "wall", "root", "ssz", "lockbox_put", "fork_choice")}},
@@ -3954,8 +4220,8 @@ def phase_epoch_timing(epoch_out: dict, max_err: dict, clock_mhz: float,
     return rows, programs
 
 
-def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, block_out: dict, net_out: dict,
-                 max_err: dict, clock_mhz: float) -> list:
+def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, block_out: dict, wire_out: dict,
+                 net_out: dict, max_err: dict, clock_mhz: float) -> list:
     import torch
 
     from lighthouse_tpu_torch.bench_kernels import OPS, graph_ms, operands, ops_per_ms, time_library
@@ -3964,7 +4230,8 @@ def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, block_out: dict, net_
     timed = time_library(lib, verify_out["sizes"], clock_mhz)
     per_kzg = {key: time_library(lib, kzg_out[key]["sizes"], clock_mhz) for key in ("kzg6", "kzg192")}
     per_block = time_library(lib, block_out["fq_sizes"], clock_mhz)
-    per_net = time_library(lib, net_out["sizes"], clock_mhz)
+    per_drain = {key: time_library(lib, drain["sizes"], clock_mhz)
+                 for key, drain in (("wire", wire_out), ("network", net_out))}
     out = []
     for name, spec in KERNELS.items():
         t = timed[name]
@@ -4009,20 +4276,21 @@ def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, block_out: dict, net_
             f"({k['verify_bound_ms'] / k['verify_ms']:.1%})")
         row.update({"block_launches": block_out["launches"][name], "block_ms": k["verify_ms"],
                     "block_bound_ms": k["verify_bound_ms"]})
-        k = per_net[name]
-        per_batch = {kind: d[name] for (kind, _, _), (_, d) in
-                     zip(net_out["batches"], net_out["dispatch_launches"])}
-        log(f"[timing] {name} per [network] drain of {NET_ATTESTATIONS} gossip attestations and "
-            f"{net_out['batches'][1][1]} aggregates (batches "
-            f"{net_out['batches']}, buckets {net_out['buckets']}, launches {per_batch}): "
-            f"{k['verify_ms']:.4f} ms over {k['launches']} launches of {len(k['ms_by_size'])} "
-            f"sizes (largest {k['at_max'][0]} rows), bound {k['verify_bound_ms']:.4f} ms "
-            f"({k['verify_bound_ms'] / k['verify_ms']:.1%})")
-        row.update({"network_launches": net_out["launches"][name],
-                    "network_attestation_launches": per_batch["attestation"],
-                    "network_aggregate_launches": per_batch["aggregate"],
-                    "network_ms": k["verify_ms"], "network_bound_ms": k["verify_bound_ms"],
-                    "network_buckets": net_out["buckets"]})
+        for key, drain in (("wire", wire_out), ("network", net_out)):
+            k = per_drain[key][name]
+            per_batch = {kind: d[name] for (kind, _, _), (_, d) in
+                         zip(drain["batches"], drain["dispatch_launches"])}
+            log(f"[timing] {name} per [{key}] drain of {drain['batches'][0][1]} gossip "
+                f"attestations and {drain['batches'][1][1]} aggregates (batches "
+                f"{drain['batches']}, buckets {drain['buckets']}, launches {per_batch}): "
+                f"{k['verify_ms']:.4f} ms over {k['launches']} launches of "
+                f"{len(k['ms_by_size'])} sizes (largest {k['at_max'][0]} rows), bound "
+                f"{k['verify_bound_ms']:.4f} ms ({k['verify_bound_ms'] / k['verify_ms']:.1%})")
+            row.update({f"{key}_launches": drain["launches"][name],
+                        f"{key}_attestation_launches": per_batch["attestation"],
+                        f"{key}_aggregate_launches": per_batch["aggregate"],
+                        f"{key}_ms": k["verify_ms"], f"{key}_bound_ms": k["verify_bound_ms"],
+                        f"{key}_buckets": drain["buckets"]})
         out.append(row)
     return out
 
@@ -4213,42 +4481,59 @@ def main() -> int:
     log(f"[card] {torch.cuda.get_device_name(0)}, max SM clock {clock_mhz:.0f} MHz, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    phase_build()
-    max_err = phase_kernels(cuda_fq)
-    max_err.update(phase_hash_kernels())
-    max_err.update(phase_epoch_kernels())
-    verify_out = phase_verify(cuda_fq)
-    phase_parity()
-    kzg_in = kzg_inputs()
-    lanes = blob_lanes(*kzg_in)
-    kzg_out = phase_kzg(cuda_fq, *kzg_in, lanes)
-    phase_kzg_parity(lanes)
-    runtime_out = phase_runtime(cuda_fq, card, *kzg_in)
-    phase_hash_runtime(card)
-    state_out = phase_state(card)
-    epoch_out = phase_epoch(card)
+    with phase_wall("build"):
+        phase_build()
+    with phase_wall("kernels"):
+        max_err = phase_kernels(cuda_fq)
+    with phase_wall("hash-kernels"):
+        max_err.update(phase_hash_kernels())
+    with phase_wall("epoch-kernels"):
+        max_err.update(phase_epoch_kernels())
+    with phase_wall("verify"):
+        verify_out = phase_verify(cuda_fq)
+    with phase_wall("parity"):
+        phase_parity()
+    with phase_wall("kzg"):
+        kzg_in = kzg_inputs()
+        lanes = blob_lanes(*kzg_in)
+        kzg_out = phase_kzg(cuda_fq, *kzg_in, lanes)
+    with phase_wall("kzg-parity"):
+        phase_kzg_parity(lanes)
+    with phase_wall("runtime"):
+        runtime_out = phase_runtime(cuda_fq, card, *kzg_in)
+    with phase_wall("hash-runtime"):
+        phase_hash_runtime(card)
+    with phase_wall("state"):
+        state_out = phase_state(card)
+    with phase_wall("epoch"):
+        epoch_out = phase_epoch(card)
     # [block] and [chain] share one case whose block carries the six KZG
     # commitments; [block] applies the block to its pre-state in place, so
     # [chain]'s anchor is a copy taken before, and [block]'s states go
     # before [chain] builds its node.
-    case, build_s = block_case(commitments=kzg_in[2])
-    anchor = clone_state(case.pre_state)
-    block_out = phase_block(card, case=case, build_s=build_s)
-    case = case._replace(pre_state=None)
-    gc.collect()
-    chain_out = phase_chain(card, case, anchor, kzg_in)
-    del case, anchor
-    gc.collect()
-    phase_chain_harness(card)
-    phase_faults(cuda_fq, *kzg_in)
-    kernels = phase_timing(cuda_fq, verify_out, kzg_out, block_out, chain_out["network"],
-                           max_err, clock_mhz)
-    for row in kernels:
-        row["runtime_launches"] = runtime_out["launches"][row["name"]]
-    kernels += phase_hash_timing(state_out, block_out, max_err, clock_mhz)
-    epoch_rows, programs = phase_epoch_timing(epoch_out, max_err, clock_mhz)
-    kernels += epoch_rows
-    log(f"[timing] epoch programs {json.dumps(programs)}")
+    with phase_wall("block"):
+        case, build_s = block_case(commitments=kzg_in[2])
+        anchor = clone_state(case.pre_state)
+        block_out = phase_block(card, case=case, build_s=build_s)
+        case = case._replace(pre_state=None)
+        gc.collect()
+    with phase_wall("chain"):
+        chain_out = phase_chain(card, case, anchor, kzg_in)
+        del case, anchor
+        gc.collect()
+    with phase_wall("chain-harness"):
+        phase_chain_harness(card)
+    with phase_wall("faults"):
+        phase_faults(cuda_fq, *kzg_in)
+    with phase_wall("timing"):
+        kernels = phase_timing(cuda_fq, verify_out, kzg_out, block_out, chain_out["wire"],
+                               chain_out["network"], max_err, clock_mhz)
+        for row in kernels:
+            row["runtime_launches"] = runtime_out["launches"][row["name"]]
+        kernels += phase_hash_timing(state_out, block_out, max_err, clock_mhz)
+        epoch_rows, programs = phase_epoch_timing(epoch_out, max_err, clock_mhz)
+        kernels += epoch_rows
+        log(f"[timing] epoch programs {json.dumps(programs)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,13 @@ and loaded with ctypes:
   slice;
 - ``lockbox.cc``: the embedded key-value engine behind
   ``store.lockbox_store.LockboxStore`` (the reference links LevelDB there),
-  a byte-for-byte copy of the JAX package's.
+  a byte-for-byte copy of the JAX package's;
+- ``wire_cipher.cc``: the wire's ciphers, ChaCha20-Poly1305 (RFC 8439) for
+  Noise frames and AES-128-CTR / AES-128-GCM (NIST SP 800-38D) for discv5
+  packets, where the JAX package calls the ``cryptography`` package: the
+  functions below take the same inputs, give the same bytes and raise
+  :class:`InvalidTag` where a tag does not verify.  ctypes releases the GIL
+  for each call.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 _BUILD_LOCK = threading.Lock()
 _HASH_LIB = None
 _LOCKBOX_LIB = None
+_CIPHER_LIB = None
+TAG_BYTES = 16
 
 
 def _compile_and_load(src_name: str, stem: str, extra_flags=()) -> ctypes.CDLL:
@@ -102,3 +110,94 @@ def load_lockbox() -> ctypes.CDLL:
         lib.lockbox_compact.argtypes = [ctypes.c_void_p]
         _LOCKBOX_LIB = lib
         return lib
+
+
+def load_wire_cipher() -> ctypes.CDLL:
+    """Compile (if needed) and load the wire's ciphers."""
+    global _CIPHER_LIB
+    if _CIPHER_LIB is not None:
+        return _CIPHER_LIB
+    with _BUILD_LOCK:
+        if _CIPHER_LIB is not None:
+            return _CIPHER_LIB
+        lib = _compile_and_load("wire_cipher.cc", "wirecipher")
+        buf, n = ctypes.c_char_p, ctypes.c_uint64
+        for name in ("wc_chacha20_poly1305_seal", "wc_chacha20_poly1305_open"):
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = [buf, buf, buf, n, buf, n, buf]
+        lib.wc_aes128_ctr.restype = ctypes.c_int
+        lib.wc_aes128_ctr.argtypes = [buf, buf, buf, n, buf]
+        for name in ("wc_aes128_gcm_seal", "wc_aes128_gcm_open"):
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = [buf, buf, n, buf, n, buf, n, buf]
+        _CIPHER_LIB = lib
+        return lib
+
+
+class InvalidTag(Exception):
+    """An AEAD tag did not verify (the ciphertext, its tag, the key, the
+    nonce or the associated data is not the one sealed)."""
+
+
+def _sizes(key: bytes, key_len: int, nonce: bytes, nonce_ok, what: str) -> None:
+    if len(key) != key_len:
+        raise ValueError(f"{what} needs a {key_len}-byte key, not {len(key)}")
+    if not nonce_ok(len(nonce)):
+        raise ValueError(f"{what}: a nonce of {len(nonce)} bytes")
+
+
+def chacha20_poly1305_seal(key: bytes, nonce: bytes, plaintext: bytes, ad: bytes = b"") -> bytes:
+    """RFC 8439 ChaCha20-Poly1305: the ciphertext and its 16-byte tag."""
+    _sizes(key, 32, nonce, lambda n: n == 12, "ChaCha20-Poly1305")
+    out = ctypes.create_string_buffer(len(plaintext) + TAG_BYTES)
+    load_wire_cipher().wc_chacha20_poly1305_seal(
+        bytes(key), bytes(nonce), bytes(ad), len(ad), bytes(plaintext), len(plaintext), out)
+    return out.raw
+
+
+def chacha20_poly1305_open(key: bytes, nonce: bytes, ciphertext: bytes, ad: bytes = b"") -> bytes:
+    """The plaintext of :func:`chacha20_poly1305_seal`'s output; raises
+    :class:`InvalidTag` where its tag does not verify."""
+    _sizes(key, 32, nonce, lambda n: n == 12, "ChaCha20-Poly1305")
+    if len(ciphertext) < TAG_BYTES:
+        raise InvalidTag("ciphertext shorter than its tag")
+    out = ctypes.create_string_buffer(len(ciphertext) - TAG_BYTES)
+    if load_wire_cipher().wc_chacha20_poly1305_open(
+            bytes(key), bytes(nonce), bytes(ad), len(ad), bytes(ciphertext), len(ciphertext),
+            out):
+        raise InvalidTag("ChaCha20-Poly1305 tag mismatch")
+    return out.raw
+
+
+def aes128_ctr(key: bytes, iv: bytes, data: bytes) -> bytes:
+    """AES-128 in CTR mode, the 16-byte ``iv`` the initial counter block
+    (incremented as one big-endian integer): encrypts and decrypts."""
+    _sizes(key, 16, iv, lambda n: n == 16, "AES-128-CTR")
+    out = ctypes.create_string_buffer(len(data))
+    load_wire_cipher().wc_aes128_ctr(bytes(key), bytes(iv), bytes(data), len(data), out)
+    return out.raw
+
+
+def aes128_gcm_seal(key: bytes, nonce: bytes, plaintext: bytes, ad: bytes = b"") -> bytes:
+    """AES-128-GCM (NIST SP 800-38D): the ciphertext and its 16-byte tag.
+    Nonces of 8 to 128 bytes, as the ``cryptography`` package takes."""
+    _sizes(key, 16, nonce, lambda n: 8 <= n <= 128, "AES-128-GCM")
+    out = ctypes.create_string_buffer(len(plaintext) + TAG_BYTES)
+    load_wire_cipher().wc_aes128_gcm_seal(
+        bytes(key), bytes(nonce), len(nonce), bytes(ad), len(ad), bytes(plaintext),
+        len(plaintext), out)
+    return out.raw
+
+
+def aes128_gcm_open(key: bytes, nonce: bytes, ciphertext: bytes, ad: bytes = b"") -> bytes:
+    """The plaintext of :func:`aes128_gcm_seal`'s output; raises
+    :class:`InvalidTag` where its tag does not verify."""
+    _sizes(key, 16, nonce, lambda n: 8 <= n <= 128, "AES-128-GCM")
+    if len(ciphertext) < TAG_BYTES:
+        raise InvalidTag("ciphertext shorter than its tag")
+    out = ctypes.create_string_buffer(len(ciphertext) - TAG_BYTES)
+    if load_wire_cipher().wc_aes128_gcm_open(
+            bytes(key), bytes(nonce), len(nonce), bytes(ad), len(ad), bytes(ciphertext),
+            len(ciphertext), out):
+        raise InvalidTag("AES-128-GCM tag mismatch")
+    return out.raw

@@ -4,11 +4,12 @@ sync, wired on the hub fabric.
 The building block of the N-node simulator (reference:
 ``testing/node_test_rig`` ``LocalBeaconNode`` + ``testing/simulator``).
 
-A copy of the JAX package's ``lighthouse_tpu/network/node.py``.  The wire
-(``tcp_transport``, ``noise/``, ``discv5/``, ``persisted_dht``) is not in the
-port yet: ``enable_discv5`` and ``discover_peers_discv5`` import ``.discv5``
-when called and raise ``ImportError`` until it is; ``discover_peers`` returns
-0 on the in-process hub, whose topology is explicit.
+A copy of the JAX package's ``lighthouse_tpu/network/node.py``.  On a
+socket endpoint (``tcp_transport.TcpEndpoint``) ``enable_discv5``,
+``discover_peers_discv5`` and ``discover_peers`` find and dial peers over
+the wire, and shutdown persists the discv5 table (``persisted_dht``);
+``discover_peers`` returns 0 on the in-process hub, whose topology is
+explicit.
 """
 
 from __future__ import annotations

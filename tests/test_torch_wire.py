@@ -1,0 +1,1240 @@
+"""The port's wire (``network/tcp_transport.py``, ``network/noise/``,
+``network/boot_node.py``) vs the JAX package's.
+
+- parity: the TCP envelope frames and the Noise XX handshake's bytes (with
+  both packages fed the same seeded randomness) are the JAX package's;
+- interop both ways: a port ``TcpEndpoint(secured=True)`` and a JAX one in
+  one process run multistream-select, Noise XX with the secp256k1 identity
+  proof and yamux, exchange envelope frames and meshsub gossip, the port
+  dialling and then the JAX package dialling;
+- the JAX package's ``test_noise_yamux.py``, ``test_wire_format.py``,
+  ``test_meshsub.py`` and ``test_tcp_checkpoint.py`` cases, re-pointed at
+  the port; its two-process sync case runs this file as the child
+  (``python tests/test_torch_wire.py --child GENESIS_TIME N_BLOCKS``);
+- the cases of its ``test_subnet_service.py`` that need signed ENRs, of
+  its ``test_discovery.py`` that need the boot node (the client builder's
+  and the HTTP checkpoint sync's wait for ``client/`` and ``http_api/``),
+  and its ``test_discv5.py`` case of nodes that discover and dial each
+  other over the fabric;
+- a ``NetworkService`` on a bare ``TcpEndpoint`` publishes (the JAX
+  package's endpoint lacks ``scope`` there);
+- neither the port nor ``chip_smoke.py`` imports ``jax``,
+  ``lighthouse_tpu`` or ``cryptography``.
+
+The JAX package's secured endpoints need the ``cryptography`` package; the
+cases that run them skip where it is missing.  The port needs it nowhere.
+"""
+
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def child(genesis_time: int, n_blocks: int) -> int:
+    """The two-process case's server: a fake-crypto harness chain of
+    ``n_blocks`` served on a port ``TcpEndpoint``; prints its port and head
+    as JSON, then waits until stdin closes."""
+    import json
+
+    sys.path.insert(0, str(REPO))
+    from lighthouse_tpu_torch.chain import BeaconChainHarness
+    from lighthouse_tpu_torch.consensus import per_epoch
+    from lighthouse_tpu_torch.crypto.bls.backends import set_backend
+    from lighthouse_tpu_torch.network.node import LocalNode
+    from lighthouse_tpu_torch.network.tcp_transport import TcpEndpoint
+    from lighthouse_tpu_torch.ops import tree_hash
+
+    tree_hash.configure(enabled=False)
+    per_epoch.configure(backend="numpy")
+    set_backend("fake")
+    harness = BeaconChainHarness(validator_count=16, fake_crypto=True, genesis_time=genesis_time)
+    harness.extend_chain(n_blocks)
+    endpoint = TcpEndpoint("server")
+    node = LocalNode(peer_id="server", harness=harness, endpoint=endpoint)
+    print(json.dumps({"port": endpoint.listen_addr[1], "head": harness.chain.head_root.hex(),
+                      "head_slot": harness.chain._blocks_slot(harness.chain.head_root)}),
+          flush=True)
+    sys.stdin.read()  # the parent closes stdin to stop us
+    node.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] != ["--child"] or len(sys.argv) != 4:
+        sys.exit("usage: python tests/test_torch_wire.py --child GENESIS_TIME N_BLOCKS")
+    sys.exit(child(int(sys.argv[2]), int(sys.argv[3])))
+
+import ast  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
+import random  # noqa: E402
+import secrets  # noqa: E402
+import socket  # noqa: E402
+import subprocess  # noqa: E402
+import threading  # noqa: E402
+import time  # noqa: E402
+from types import SimpleNamespace  # noqa: E402
+
+import pytest  # noqa: E402
+
+from lighthouse_tpu_torch.chain import BeaconChainHarness  # noqa: E402
+from lighthouse_tpu_torch.chain.beacon_chain import BeaconChain  # noqa: E402
+from lighthouse_tpu_torch.chain.slot_clock import ManualSlotClock  # noqa: E402
+from lighthouse_tpu_torch.network import pb  # noqa: E402
+from lighthouse_tpu_torch.network import rpc as rpc_mod  # noqa: E402
+from lighthouse_tpu_torch.network import snappy_codec  # noqa: E402
+from lighthouse_tpu_torch.network.boot_node import BootNode  # noqa: E402
+from lighthouse_tpu_torch.network.discv5 import ENR, Discv5Service, KeyPair  # noqa: E402
+from lighthouse_tpu_torch.network.discv5 import rlp, secp256k1  # noqa: E402
+from lighthouse_tpu_torch.network.node import LocalNode  # noqa: E402
+from lighthouse_tpu_torch.network.noise import (  # noqa: E402
+    YamuxSession,
+    multistream,
+    secure,
+    secure_accept,
+    secure_dial,
+    x25519,
+)
+from lighthouse_tpu_torch.network.noise.protocol import HandshakeState, NoiseError  # noqa: E402
+from lighthouse_tpu_torch.network.noise.yamux import INITIAL_WINDOW, TYPE_DATA  # noqa: E402
+from lighthouse_tpu_torch.network.rate_limiter import (  # noqa: E402
+    Quota,
+    RateLimitExceeded,
+    RPCRateLimiter,
+    request_cost,
+)
+from lighthouse_tpu_torch.network.service import NetworkService, message_id  # noqa: E402
+from lighthouse_tpu_torch.network.subnet_service import (  # noqa: E402
+    attnets_bitfield,
+    enr_attnets,
+    subnet_predicate,
+)
+from lighthouse_tpu_torch.network.tcp_transport import (  # noqa: E402
+    TcpEndpoint,
+    TcpTransportError,
+    _decode,
+    _encode,
+)
+from lighthouse_tpu_torch.network.transport import (  # noqa: E402
+    Envelope,
+    Hub,
+    decode_prune_data,
+    encode_prune_data,
+)
+from test_torch_chain import one_torch_thread, port_cpu  # noqa: E402,F401
+
+GENESIS_TIME = 1_600_000_000
+SEED = 0x3113
+
+
+def wait_until(cond, timeout=20.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(0.02)
+    return cond()
+
+
+def jax_wire() -> SimpleNamespace:
+    """The JAX package's wire (its secured endpoints need ``cryptography``)."""
+    pytest.importorskip("cryptography", reason="the JAX package's Noise needs `cryptography`")
+    from lighthouse_tpu.network import service, tcp_transport
+    from lighthouse_tpu.network.noise import protocol
+
+    return SimpleNamespace(tcp=tcp_transport, service=service, protocol=protocol)
+
+
+def envelopes(rng: random.Random, n: int) -> list:
+    kinds = ("hello", "gossip", "rpc_request", "rpc_response")
+    return [Envelope(kind=rng.choice(kinds), sender=f"peer{rng.randrange(100)}",
+                     topic=f"/eth2/{rng.randbytes(4).hex()}/beacon_block/ssz_snappy",
+                     protocol=rng.choice((rpc_mod.STATUS, rpc_mod.BLOCKS_BY_RANGE, None)),
+                     request_id=rng.randrange(2**64), data=rng.randbytes(rng.choice((0, 5, 3000))))
+            for _ in range(n)]
+
+
+# ---------------------------------------------------------------- parity
+
+
+def test_envelope_frames_match_jax():
+    from lighthouse_tpu.network import tcp_transport as j_tcp
+    from lighthouse_tpu.network import transport as j_transport
+
+    rng = random.Random(SEED)
+    for env in envelopes(rng, 40):
+        j_env = j_transport.Envelope(kind=env.kind, sender=env.sender, topic=env.topic,
+                                     protocol=env.protocol, request_id=env.request_id,
+                                     data=env.data)
+        frame = _encode(env)
+        assert frame == j_tcp._encode(j_env)
+        assert _decode(frame[4:]) == env
+        back = j_tcp._decode(frame[4:])
+        assert (back.kind, back.sender, back.topic, back.data) == (
+            env.kind, env.sender, env.topic, env.data)
+
+
+def noise_transcript(protocol, payloads) -> list:
+    """Every byte of one XX handshake and transport frames both ways."""
+    ini = protocol.HandshakeState(initiator=True)
+    res = protocol.HandshakeState(initiator=False)
+    m1 = ini.write_message_1(b"p1")
+    res.read_message_1(m1)
+    m2 = res.write_message_2(b"payload-2")
+    ini.read_message_2(m2)
+    m3, i_send, i_recv = ini.write_message_3(b"payload-3")
+    _, r_send, r_recv = res.read_message_3(m3)
+    out = [m1, m2, m3]
+    for p in payloads:
+        out.append(i_send.encrypt_with_ad(b"", p))
+        assert r_recv.decrypt_with_ad(b"", out[-1]) == p
+        out.append(r_send.encrypt_with_ad(b"ad", p))
+        assert i_recv.decrypt_with_ad(b"ad", out[-1]) == p
+    return out
+
+
+def test_noise_transcript_matches_jax(monkeypatch):
+    """Both packages' handshakes drawing the same seeded ephemeral and
+    static keys give the same messages and transport frames: the port's
+    native ChaCha20-Poly1305 inside Noise is ``cryptography``'s."""
+    j = jax_wire()
+    from lighthouse_tpu_torch.network.noise import protocol
+
+    rng = random.Random(SEED + 1)
+    payloads = [rng.randbytes(n) for n in (0, 1, 100, 65_000)]
+    transcripts = []
+    for mod in (protocol, j.protocol):
+        keys = random.Random(SEED + 2)
+        monkeypatch.setattr(secrets, "token_bytes", lambda n=32: keys.randbytes(n))
+        transcripts.append(noise_transcript(mod, payloads))
+    assert transcripts[0] == transcripts[1]
+
+
+# ------------------------------------------------------------ interop
+
+
+def identity(priv: int) -> bytes:
+    return secp256k1.compress(secp256k1.pubkey(priv))
+
+
+@pytest.mark.parametrize("dialer", ["port", "jax"])
+def test_secured_interop_frames(dialer):
+    """Raw endpoints: the ladder both ways, each side's Noise-proven
+    identity the other's key, envelope frames (one spanning many Noise
+    frames) both ways, and gossip over the negotiated meshsub streams."""
+    j = jax_wire()
+    rng = random.Random(SEED + 3)
+    port_priv, jax_priv = rng.randrange(1, secp256k1.N), rng.randrange(1, secp256k1.N)
+    port = TcpEndpoint("port", secured=True, identity_priv=port_priv)
+    jax = j.tcp.TcpEndpoint("jax", secured=True, identity_priv=jax_priv)
+    try:
+        if dialer == "port":
+            assert port.dial(*jax.listen_addr) == "jax"
+        else:
+            assert jax.dial(*port.listen_addr) == "port"
+        assert wait_until(lambda: "jax" in port._meshsub_out and "port" in jax._meshsub_out, 10)
+        assert port._peer_identities["jax"] == identity(jax_priv)
+        assert jax._peer_identities["port"] == identity(port_priv)
+        big = rng.randbytes(150_000)
+        assert port.send("jax", Envelope(kind="rpc_request", sender="port",
+                                         protocol=rpc_mod.STATUS, request_id=5, data=big))
+        got = jax.inbound.get(timeout=10)
+        assert (got.kind, got.sender, got.request_id, got.data) == ("rpc_request", "port", 5, big)
+        assert jax.send("port", j.tcp.Envelope(kind="rpc_response", sender="jax",
+                                               request_id=5, data=b"answer"))
+        got = port.inbound.get(timeout=10)
+        assert (got.kind, got.request_id, got.data) == ("rpc_response", 5, b"answer")
+        topic = "/eth2/00000000/beacon_attestation_3/ssz_snappy"
+        assert port.send("jax", Envelope(kind="gossip", sender="port", topic=topic, data=b"a"))
+        assert jax.send("port", j.tcp.Envelope(kind="gossip", sender="jax", topic=topic,
+                                               data=b"b"))
+        got_j, got_p = jax.inbound.get(timeout=10), port.inbound.get(timeout=10)
+        assert (got_j.kind, got_j.sender, got_j.topic, got_j.data) == ("gossip", "port", topic, b"a")
+        assert (got_p.kind, got_p.sender, got_p.topic, got_p.data) == ("gossip", "jax", topic, b"b")
+    finally:
+        port.close()
+        jax.close()
+
+
+@pytest.mark.parametrize("dialer", ["port", "jax"])
+def test_secured_interop_meshsub_gossip(dialer):
+    """Services on both: subscriptions and GRAFTs cross as meshsub control
+    frames, both meshes form, and each side's published gossip reaches the
+    other under the same message id."""
+    j = jax_wire()
+    port_ep = TcpEndpoint("port", secured=True)
+    jax_ep = j.tcp.TcpEndpoint("jax", secured=True)
+    jax_ep.scope = None  # the JAX package's TcpEndpoint lacks it (ROADMAP C2)
+    port_svc, jax_svc = NetworkService(port_ep), j.service.NetworkService(jax_ep)
+    topic = "/eth2/00000000/beacon_attestation_7/ssz_snappy"
+    got = {"port": [], "jax": []}
+    port_svc.on_gossip = lambda t, raw, _c, s: got["port"].append((t, raw, s)) or True
+    jax_svc.on_gossip = lambda t, raw, _c, s: got["jax"].append((t, raw, s)) or True
+    try:
+        port_svc.subscribe(topic)
+        jax_svc.subscribe(topic)
+        if dialer == "port":
+            port_ep.dial(*jax_ep.listen_addr)
+        else:
+            jax_ep.dial(*port_ep.listen_addr)
+        assert wait_until(lambda: "jax" in port_svc.mesh.get(topic, set())
+                          and "port" in jax_svc.mesh.get(topic, set()), 10)
+        assert port_svc.publish(topic, b"from the port") == 1
+        assert jax_svc.publish(topic, b"from jax") == 1
+        assert wait_until(lambda: got["port"] and got["jax"], 10)
+        assert got == {"port": [(topic, b"from jax", "jax")],
+                       "jax": [(topic, b"from the port", "port")]}
+        # each side's seen cache holds both messages under the same ids
+        ids = [message_id(b"from the port"), message_id(b"from jax")]
+        assert ids == [j.service.message_id(b"from the port"), j.service.message_id(b"from jax")]
+        assert set(ids) <= set(port_svc._seen) and set(ids) <= set(jax_svc._seen)
+    finally:
+        port_svc.shutdown()
+        jax_svc.shutdown()
+        port_ep.close()
+        jax_ep.close()
+
+
+def test_service_on_bare_tcp_endpoint_publishes():
+    """The JAX package's ``TcpEndpoint`` has no ``scope``, so a service on
+    a bare one raises ``AttributeError`` on its first publish; the port's
+    endpoint declares it as ``transport.Endpoint`` does."""
+    a, b = TcpEndpoint("bareA", secured=True), TcpEndpoint("bareB", secured=True)
+    assert a.scope is None
+    svc_a, svc_b = NetworkService(a), NetworkService(b)
+    got = []
+    svc_b.on_gossip = lambda t, raw, _c, s: got.append((t, raw, s)) or True
+    try:
+        svc_a.subscribe("bare-topic")
+        svc_b.subscribe("bare-topic")
+        a.dial(*b.listen_addr)
+        assert wait_until(lambda: "bare-topic" in svc_a.peer_topics.get("bareB", set()), 10)
+        assert svc_a.publish("bare-topic", b"published") == 1
+        assert wait_until(lambda: got, 10)
+        assert got == [("bare-topic", b"published", "bareA")]
+    finally:
+        svc_a.shutdown()
+        svc_b.shutdown()
+        a.close()
+        b.close()
+
+
+def test_port_imports_no_jax_and_no_cryptography():
+    """No module of the port and not ``chip_smoke.py`` imports ``jax``,
+    ``lighthouse_tpu`` or ``cryptography``; every wire module is there."""
+    banned = ("jax", "jaxlib", "lighthouse_tpu", "cryptography")
+    files = sorted((REPO / "lighthouse_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    found = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom) and not node.level
+                     else [])
+            found += [(path.name, n) for n in names if n.split(".")[0] in banned]
+    assert found == []
+    wire = ["tcp_transport.py", "persisted_dht.py", "boot_node.py", "noise/__init__.py",
+            "noise/x25519.py", "noise/protocol.py", "noise/secure.py", "noise/yamux.py",
+            "noise/multistream.py", "discv5/__init__.py", "discv5/rlp.py", "discv5/keccak.py",
+            "discv5/secp256k1.py", "discv5/enr.py", "discv5/packets.py", "discv5/session.py",
+            "discv5/service.py"]
+    for rel in wire:
+        assert (REPO / "lighthouse_tpu_torch" / "network" / rel).is_file(), rel
+        assert (REPO / "lighthouse_tpu" / "network" / rel).is_file(), rel
+
+
+# --------------------- the JAX package's test_noise_yamux.py, re-pointed
+
+
+class TestX25519:
+    def test_rfc7748_section_5_2_vector(self):
+        out = x25519.x25519(
+            bytes.fromhex("a546e36bf0527c9d3b16154b82465edd62144c0ac1fc5a18506a2244ba449ac4"),
+            bytes.fromhex("e6db6867583030db3594c1a424b15f7c726624ec26b3353b10a903a6d0ab1c4c"))
+        assert out.hex() == "c3da55379de9c6908e94ea4df28d084f32eccf03491c71f754b4075577a28552"
+
+    def test_rfc7748_section_6_1_dh(self):
+        a_priv = bytes.fromhex("77076d0a7318a57d3c16c17251b26645df4c2f87ebc0992ab177fba51db92c2a")
+        b_priv = bytes.fromhex("5dab087e624a8a4b79e17f8b83800ee66f3bb1292618b6fd1c2f8b27ff88e0eb")
+        _, a_pub = x25519.keypair(a_priv)
+        _, b_pub = x25519.keypair(b_priv)
+        assert a_pub.hex() == "8520f0098930a754748b7ddcb43ef75a0dbf3a0d26381af4eba4a98eaa9b4e6a"
+        assert b_pub.hex() == "de9edb7d7b7dc1b4d35b61c2ece435373f8343c85b78674dadfc7e146f882b4f"
+        shared = x25519.x25519(a_priv, b_pub)
+        assert shared == x25519.x25519(b_priv, a_pub)
+        assert shared.hex() == "4a5d9d5ba4ce2de1728e3bf480350f25e07e21c947d19e3376f09b3c1e161742"
+
+
+class TestNoiseCore:
+    def test_xx_handshake_and_transport(self):
+        ini = HandshakeState(initiator=True)
+        res = HandshakeState(initiator=False)
+        res.read_message_1(ini.write_message_1(b"hi"))
+        assert ini.read_message_2(res.write_message_2(b"payload-2")) == b"payload-2"
+        m3, i_send, i_recv = ini.write_message_3(b"payload-3")
+        p3, r_send, r_recv = res.read_message_3(m3)
+        assert p3 == b"payload-3"
+        assert r_recv.decrypt_with_ad(b"", i_send.encrypt_with_ad(b"", b"secret")) == b"secret"
+        assert i_recv.decrypt_with_ad(b"", r_send.encrypt_with_ad(b"", b"reply")) == b"reply"
+        assert ini.rs == res.s_pub and res.rs == ini.s_pub
+
+    def test_tampered_message_fails(self):
+        ini = HandshakeState(initiator=True)
+        res = HandshakeState(initiator=False)
+        res.read_message_1(ini.write_message_1())
+        msg2 = bytearray(res.write_message_2(b""))
+        msg2[-1] ^= 0x01
+        with pytest.raises(NoiseError):
+            ini.read_message_2(bytes(msg2))
+
+
+def _tcp_pair():
+    lst = socket.socket()
+    lst.bind(("127.0.0.1", 0))
+    lst.listen(1)
+    cli = socket.socket()
+    cli.connect(lst.getsockname())
+    srv, _ = lst.accept()
+    lst.close()
+    return cli, srv
+
+
+def _handshake_pair(dial_priv=0x1111, accept_priv=0x2222):
+    cli, srv = _tcp_pair()
+    out = {}
+    t = threading.Thread(target=lambda: out.setdefault("srv", secure_accept(srv, accept_priv)))
+    t.start()
+    out["cli"] = secure_dial(cli, dial_priv)
+    t.join(timeout=10)
+    return out["cli"], out["srv"]
+
+
+class TestLibp2pNoiseOverTcp:
+    def test_handshake_identity_and_transport(self):
+        a, b = _handshake_pair()
+        try:
+            assert a.remote_peer_pub == secp256k1.pubkey(0x2222)
+            assert b.remote_peer_pub == secp256k1.pubkey(0x1111)
+            a.send(b"over the encrypted channel")
+            assert b.recv_exact(26) == b"over the encrypted channel"
+            b.send(b"x" * 200_000)  # multi-frame chunking
+            assert a.recv_exact(200_000) == b"x" * 200_000
+        finally:
+            a.close(); b.close()
+
+    def test_forged_identity_rejected(self):
+        """A payload whose identity signs another Noise key is refused.  The
+        patch is live for both sides, so the dialer refuses the responder's
+        message 2; closing its socket then ends the responder's wait."""
+        cli, srv = _tcp_pair()
+        real_payload = secure._handshake_payload
+        errors = []
+
+        def acceptor():
+            try:
+                secure.secure_accept(srv, 0x2222)
+            except Exception as e:
+                errors.append(e)
+
+        t = threading.Thread(target=acceptor)
+        t.start()
+        secure._handshake_payload = lambda priv, _noise_pub: real_payload(priv, b"\x42" * 32)
+        try:
+            with pytest.raises(NoiseError):
+                conn = secure.secure_dial(cli, 0x1111)
+                conn.recv_exact(1)
+        finally:
+            secure._handshake_payload = real_payload
+            cli.close()
+        t.join(timeout=10)
+        assert not t.is_alive() and errors
+        srv.close()
+
+
+class TestMultistream:
+    def _upgraded(self):
+        cli, srv = _tcp_pair()
+        out = {}
+        t = threading.Thread(target=lambda: out.setdefault(
+            "s", multistream.upgrade_inbound(srv, 0x2222)))
+        t.start()
+        sa = multistream.upgrade_outbound(cli, 0x1111)
+        t.join(timeout=10)
+        return sa, out["s"]
+
+    def test_full_libp2p_upgrade_ladder(self):
+        sa, sb = self._upgraded()
+        out = {}
+        try:
+            stream = sa.open_stream()
+            proto = "/eth2/beacon_chain/req/status/1/ssz_snappy"
+
+            def answer():
+                r = sb.accept_stream()
+                out["proto"] = multistream.negotiate_inbound(r, [proto])
+                r.send(b"status-body")
+
+            t2 = threading.Thread(target=answer)
+            t2.start()
+            accepted = multistream.negotiate_outbound(stream, [proto])
+            t2.join(timeout=10)
+            assert accepted == proto and out["proto"] == proto
+            assert stream.recv_exact(11) == b"status-body"
+        finally:
+            sa.close(); sb.close()
+
+    def test_unsupported_protocol_gets_na(self):
+        sa, sb = self._upgraded()
+        try:
+            stream = sa.open_stream()
+            t2 = threading.Thread(target=lambda: multistream.negotiate_inbound(
+                sb.accept_stream(), ["/only/this/1.0.0"]), daemon=True)
+            t2.start()
+            accepted = multistream.negotiate_outbound(
+                stream, ["/not/supported/1.0.0", "/only/this/1.0.0"])
+            assert accepted == "/only/this/1.0.0"
+        finally:
+            sa.close(); sb.close()
+
+
+class TestYamux:
+    def test_streams_over_noise(self):
+        a, b = _handshake_pair()
+        sa, sb = YamuxSession(a, dialer=True), YamuxSession(b, dialer=False)
+        try:
+            s1 = sa.open_stream()
+            s1.send(b"request")
+            r1 = sb.accept_stream()
+            assert r1.stream_id == 1
+            assert r1.recv_exact(7) == b"request"
+            r1.send(b"response")
+            assert s1.recv_exact(8) == b"response"
+            s2 = sb.open_stream()
+            assert s2.stream_id == 2
+            s2.send(b"push")
+            assert sa.accept_stream().recv_exact(4) == b"push"
+            assert sa.ping() and sb.ping()
+            s1.send(b"tail")
+            s1.close()
+            assert r1.recv_exact(4) == b"tail"
+            assert r1.recv(1) == b""
+        finally:
+            sa.close(); sb.close()
+
+    def test_window_violation_rsts_stream(self):
+        a, b = _handshake_pair()
+        sa, sb = YamuxSession(a, dialer=True), YamuxSession(b, dialer=False)
+        try:
+            s = sa.open_stream()
+            sa._send_frame(TYPE_DATA, 0, s.stream_id, b"z" * (INITIAL_WINDOW + 1))
+            r = sb.accept_stream()
+            assert r.recv(16, timeout=5.0) == b""
+        finally:
+            sa.close(); sb.close()
+
+    def test_on_stream_callback_may_reenter_session(self):
+        a, b = _handshake_pair()
+        opened, holder = [], {}
+        sa = YamuxSession(a, dialer=True)
+        holder["s"] = YamuxSession(b, dialer=False,
+                                   on_stream=lambda stream: opened.append(holder["s"].open_stream()))
+        sb = holder["s"]
+        try:
+            sa.open_stream().send(b"ping")
+            reply = sa.accept_stream(timeout=10.0)
+            assert reply.stream_id % 2 == 0 and opened
+        finally:
+            sa.close(); sb.close()
+
+    def test_window_accounting_large_transfer(self):
+        a, b = _handshake_pair()
+        sa, sb = YamuxSession(a, dialer=True), YamuxSession(b, dialer=False)
+        try:
+            s = sa.open_stream()
+            blob = bytes(range(256)) * 4096  # 1 MiB > INITIAL_WINDOW
+            assert len(blob) > INITIAL_WINDOW
+            t = threading.Thread(target=lambda: s.send(blob))
+            t.start()
+            got = sb.accept_stream().recv_exact(len(blob), timeout=30.0)
+            t.join(timeout=30)
+            assert got == blob
+        finally:
+            sa.close(); sb.close()
+
+
+# -------------------- the JAX package's test_wire_format.py, re-pointed
+
+
+def test_spec_protocol_ids():
+    assert rpc_mod.STATUS == "/eth2/beacon_chain/req/status/1/ssz_snappy"
+    assert rpc_mod.BLOCKS_BY_RANGE == "/eth2/beacon_chain/req/beacon_blocks_by_range/2/ssz_snappy"
+    assert rpc_mod.BLOBS_BY_ROOT == "/eth2/beacon_chain/req/blob_sidecars_by_root/1/ssz_snappy"
+
+
+def test_envelope_roundtrip_all_kinds():
+    for env in (
+        Envelope(kind="hello", sender="n0"),
+        Envelope(kind="gossip", sender="n1", topic="/eth2/01020304/beacon_block/ssz_snappy",
+                 data=b"\x00\x01payload"),
+        Envelope(kind="rpc_request", sender="n2", protocol=rpc_mod.STATUS, request_id=7,
+                 data=b"req-bytes"),
+        Envelope(kind="rpc_response", sender="n3", request_id=9, data=b""),
+    ):
+        assert _decode(_encode(env)[4:]) == env
+
+
+def test_wire_carries_raw_ssz_snappy_not_json():
+    status = rpc_mod.Status(fork_digest=b"\x01\x02\x03\x04", finalized_root=b"\x05" * 32,
+                            finalized_epoch=3, head_root=b"\x06" * 32, head_slot=99)
+    body = rpc_mod.encode_request(rpc_mod.STATUS, status)
+    frame = _encode(Envelope(kind="rpc_request", sender="n0", protocol=rpc_mod.STATUS,
+                             request_id=1, data=body))
+    assert body in frame
+    assert b"base64" not in frame and b"{" not in frame.split(body)[0]
+    assert rpc_mod.decode_request(rpc_mod.STATUS, body) == status
+
+
+def test_gossip_payload_is_snappy_compressed_ssz():
+    raw = b"block-ssz-bytes" * 10
+    compressed = snappy_codec.compress(raw)
+    frame = _encode(Envelope(kind="gossip", sender="n0",
+                             topic="/eth2/00000000/beacon_block/ssz_snappy", data=compressed))
+    assert compressed in frame
+    assert snappy_codec.decompress(compressed) == raw
+
+
+def test_malformed_envelopes_rejected():
+    with pytest.raises(TcpTransportError):
+        _decode(b"\xff\x00")
+    with pytest.raises(TcpTransportError):
+        _decode(b"")
+    good = _encode(Envelope(kind="gossip", sender="n0", topic="t", data=b"xyz"))[4:]
+    with pytest.raises(TcpTransportError):
+        _decode(good[:-1])
+    with pytest.raises(TcpTransportError):
+        _decode(good + b"\x00")
+
+
+def test_rate_limiter_throttles_and_replenishes():
+    t = [0.0]
+    rl = RPCRateLimiter({rpc_mod.PING: Quota(2, 10.0)}, clock=lambda: t[0])
+    rl.allow("p1", rpc_mod.PING)
+    rl.allow("p1", rpc_mod.PING)
+    with pytest.raises(RateLimitExceeded) as ei:
+        rl.allow("p1", rpc_mod.PING)
+    assert not ei.value.fatal
+    rl.allow("p2", rpc_mod.PING)
+    t[0] = 10.0
+    rl.allow("p1", rpc_mod.PING)
+
+
+def test_rate_limiter_cost_weighted_and_fatal_oversize():
+    rl = RPCRateLimiter({rpc_mod.BLOCKS_BY_RANGE: Quota(64, 10.0)}, clock=lambda: 0.0)
+    req = rpc_mod.BlocksByRangeRequest(start_slot=0, count=60)
+    assert request_cost(rpc_mod.BLOCKS_BY_RANGE, req) == 60
+    rl.allow("p1", rpc_mod.BLOCKS_BY_RANGE, 60)
+    with pytest.raises(RateLimitExceeded):
+        rl.allow("p1", rpc_mod.BLOCKS_BY_RANGE, 60)
+    with pytest.raises(RateLimitExceeded) as ei:
+        rl.allow("p1", rpc_mod.BLOCKS_BY_RANGE, 65)
+    assert ei.value.fatal
+
+
+def test_service_rate_limit_penalizes_spammer():
+    harness = BeaconChainHarness(validator_count=16, fake_crypto=True)
+    hub = Hub()
+    node = LocalNode(hub=hub, peer_id="srv", harness=harness)
+    try:
+        spammer = hub.register("spammer")
+        hub.connect("srv", "spammer")
+        body = rpc_mod.encode_request(rpc_mod.PING, rpc_mod.Ping(0))
+        for i in range(10):
+            node.service.endpoint.inbound.put(Envelope(
+                kind="rpc_request", sender="spammer", protocol=rpc_mod.PING,
+                request_id=100 + i, data=body))
+        deadline, limited = time.time() + 5, False
+        while time.time() < deadline and not limited:
+            try:
+                env = spammer.inbound.get(timeout=0.5)
+            except Exception:
+                break
+            if env.kind == "rpc_response" and env.data:
+                limited = env.data[0] == rpc_mod.RESOURCE_UNAVAILABLE
+        assert limited, "spammer never saw a rate-limit response"
+        assert node.service.peer_manager.score("spammer") < 0
+    finally:
+        node.shutdown()
+
+
+# ------------------------ the JAX package's test_meshsub.py, re-pointed
+
+
+def test_rpc_publish_golden_bytes():
+    msg = pb.Message(data=b"\xde\xad\xbe\xef", topic="/eth2/abcd/beacon_block/ssz_snappy")
+    topic = b"/eth2/abcd/beacon_block/ssz_snappy"
+    inner = b"\x12\x04\xde\xad\xbe\xef" + b"\x22" + bytes([len(topic)]) + topic
+    expect = b"\x12" + bytes([len(inner)]) + inner
+    assert pb.RPC(publish=[msg]).encode() == expect
+    back = pb.RPC.decode(expect)
+    assert len(back.publish) == 1
+    assert back.publish[0].data == b"\xde\xad\xbe\xef"
+    assert back.publish[0].topic == topic.decode()
+
+
+def test_rpc_subscription_and_control_roundtrip():
+    rpc = pb.RPC(
+        subscriptions=[pb.SubOpts(True, "t1"), pb.SubOpts(False, "t2")],
+        control=pb.ControlMessage(
+            ihave=[pb.ControlIHave("t1", [b"m" * 20, b"n" * 20])],
+            iwant=[pb.ControlIWant([b"w" * 20])],
+            graft=[pb.ControlGraft("t1")],
+            prune=[pb.ControlPrune("t2", [pb.PeerInfo(b"p1", b"1.2.3.4:9000|p1")], 60)]))
+    back = pb.RPC.decode(rpc.encode())
+    assert [(s.subscribe, s.topic_id) for s in back.subscriptions] == [(True, "t1"), (False, "t2")]
+    assert back.control.ihave[0].message_ids == [b"m" * 20, b"n" * 20]
+    assert back.control.iwant[0].message_ids == [b"w" * 20]
+    assert back.control.graft[0].topic_id == "t1"
+    prune = back.control.prune[0]
+    assert prune.topic_id == "t2" and prune.backoff == 60
+    assert prune.peers[0].signed_peer_record == b"1.2.3.4:9000|p1"
+
+
+def test_strict_no_sign_rejects_signed_messages():
+    topic_field = b"\x22\x02t1"
+    for forbidden in (b"\x0a\x03abc", b"\x1a\x08\x00\x00\x00\x00\x00\x00\x00\x01",
+                      b"\x2a\x04sig!", b"\x32\x02pk"):
+        buf = b"\x12" + bytes([len(forbidden + topic_field)]) + forbidden + topic_field
+        with pytest.raises(pb.PbError, match="StrictNoSign"):
+            pb.RPC.decode(buf)
+
+
+def test_message_requires_topic():
+    with pytest.raises(pb.PbError, match="topic"):
+        pb.Message.decode(b"\x12\x03abc")
+
+
+def test_varint_edges():
+    assert pb.write_uvarint(0) == b"\x00"
+    assert pb.write_uvarint(300) == b"\xac\x02"
+    assert pb.read_uvarint(b"\xac\x02", 0) == (300, 2)
+    with pytest.raises(pb.PbError):
+        pb.read_uvarint(b"\x80", 0)
+    with pytest.raises(pb.PbError):
+        pb.read_uvarint(b"\xff" * 10 + b"\x01", 0)
+    rpc = pb.RPC.decode(b"\x28\x07")
+    assert rpc.publish == [] and rpc.control is None
+
+
+def test_invalid_utf8_topic_is_a_framing_violation():
+    bad_topic = b"\x22\x02\xff\xfe"
+    buf = b"\x12" + bytes([len(b"\x12\x01x" + bad_topic)]) + b"\x12\x01x" + bad_topic
+    with pytest.raises(pb.PbError, match="utf-8"):
+        pb.RPC.decode(buf)
+    with pytest.raises(pb.PbError, match="utf-8"):
+        pb.SubOpts.decode(b"\x08\x01\x12\x01\xff")
+
+
+def test_px_hint_budget_never_displaces_authoritative():
+    ep = TcpEndpoint("pxbudget", secured=False)
+    try:
+        ep._store_peer_addr("real-peer", ("10.0.0.1", 9000))
+        for i in range(ep.MAX_PX_HINTS + 50):
+            ep.px_hint(f"fake{i}", ("6.6.6.6", 1000 + i))
+        book = ep.known_peer_addrs()
+        assert book["real-peer"] == ("10.0.0.1", 9000)
+        assert len([p for p in book if p.startswith("fake")]) <= ep.MAX_PX_HINTS
+    finally:
+        ep.close()
+
+
+def test_prune_data_codec():
+    data = encode_prune_data(90, ["1.2.3.4:9000|peerA", "5.6.7.8:9001|peerB"])
+    assert decode_prune_data(data) == (90, ["1.2.3.4:9000|peerA", "5.6.7.8:9001|peerB"])
+    assert decode_prune_data(b"") == (60, [])
+
+
+def _mk_services(n):
+    hub = Hub()
+    return hub, [NetworkService(hub.register(f"p{i}")) for i in range(n)]
+
+
+def test_subscription_exchange_and_filtering():
+    hub, svcs = _mk_services(3)
+    a, b, c = svcs
+    try:
+        a.subscribe("topic-x")
+        b.subscribe("topic-x")
+        c.subscribe("topic-other")
+        hub.connect("p0", "p1")
+        hub.connect("p0", "p2")
+        assert wait_until(lambda: "topic-x" in a.peer_topics.get("p1", set())
+                          and "topic-other" in a.peer_topics.get("p2", set()), 5)
+        assert "topic-x" not in a.peer_topics.get("p2", set())
+        got = []
+        b.on_gossip = lambda t, u, comp, s: got.append((t, u)) or True
+        c.on_gossip = lambda t, u, comp, s: got.append(("WRONG", u)) or True
+        a.publish("topic-x", b"payload")
+        assert wait_until(lambda: ("topic-x", b"payload") in got, 5)
+        time.sleep(0.2)  # a wrong delivery would land in this window
+        assert not any(t == "WRONG" for t, _ in got)
+    finally:
+        for s in svcs:
+            s.shutdown()
+
+
+def test_graft_forms_mesh_and_prune_backoff():
+    hub, svcs = _mk_services(2)
+    a, b = svcs
+    try:
+        a.subscribe("t")
+        b.subscribe("t")
+        hub.connect("p0", "p1")
+        assert wait_until(lambda: "p1" in a.mesh.get("t", set())
+                          and "p0" in b.mesh.get("t", set()), 5)
+        a.unsubscribe("t")
+        assert wait_until(lambda: "p0" not in b.mesh.get("t", set()), 5)
+        assert b._graft_backoff.get(("p0", "t"), 0) > time.monotonic()
+    finally:
+        for s in svcs:
+            s.shutdown()
+
+
+def test_graft_on_unsubscribed_topic_pruned():
+    hub, svcs = _mk_services(2)
+    a, b = svcs
+    try:
+        b.subscribe("t")  # a does not
+        hub.connect("p0", "p1")
+        assert wait_until(lambda: "t" in a.peer_topics.get("p1", set()), 5)
+        a.endpoint.inbound.put(Envelope(kind="graft", sender="p1", topic="t"))
+        assert wait_until(lambda: b._graft_backoff.get(("p0", "t")), 3)
+        assert "p1" not in a.mesh.get("t", set())
+        assert b._graft_backoff.get(("p0", "t"), 0) > time.monotonic()
+    finally:
+        for s in svcs:
+            s.shutdown()
+
+
+@pytest.fixture(scope="module")
+def secured_pair():
+    ep_a, ep_b = TcpEndpoint("wireA", secured=True), TcpEndpoint("wireB", secured=True)
+    ep_a.dial(*ep_b.listen_addr)
+    assert wait_until(lambda: "wireB" in ep_a._meshsub_out and "wireA" in ep_b._meshsub_out, 5)
+    yield ep_a, ep_b
+    ep_a.close()
+    ep_b.close()
+
+
+def test_meshsub_stream_negotiated(secured_pair):
+    ep_a, ep_b = secured_pair
+    assert "wireB" in ep_a._meshsub_out and "wireA" in ep_b._meshsub_out
+
+
+def test_gossip_rides_protobuf_frames(secured_pair):
+    ep_a, ep_b = secured_pair
+    env = Envelope(kind="gossip", sender="wireA", topic="/eth2/0011/beacon_block/ssz_snappy",
+                   data=b"block!")
+    assert ep_a.send("wireB", env)
+    got = ep_b.inbound.get(timeout=5)
+    while got.kind != "gossip":
+        got = ep_b.inbound.get(timeout=5)
+    assert (got.topic, got.data, got.sender) == (
+        "/eth2/0011/beacon_block/ssz_snappy", b"block!", "wireA")
+
+
+def test_control_and_subscriptions_ride_protobuf(secured_pair):
+    ep_a, ep_b = secured_pair
+    mid = b"\x01" * 20
+    for env in (
+        Envelope(kind="subscribe", sender="wireA", topic="tS"),
+        Envelope(kind="ihave", sender="wireA", topic="tS", data=mid),
+        Envelope(kind="iwant", sender="wireA", data=mid),
+        Envelope(kind="graft", sender="wireA", topic="tS"),
+        Envelope(kind="prune", sender="wireA", topic="tS",
+                 data=encode_prune_data(60, ["9.9.9.9:1234|pxpeer"])),
+        Envelope(kind="unsubscribe", sender="wireA", topic="tS"),
+    ):
+        assert ep_a.send("wireB", env)
+    seen = [ep_b.inbound.get(timeout=5) for _ in range(6)]
+    assert [e.kind for e in seen] == ["subscribe", "ihave", "iwant", "graft", "prune",
+                                      "unsubscribe"]
+    assert decode_prune_data(seen[4].data) == (60, ["9.9.9.9:1234|pxpeer"])
+    ep_b.px_hint("pxpeer", ("9.9.9.9", 1234))
+    assert ep_b.known_peer_addrs().get("pxpeer") == ("9.9.9.9", 1234)
+    ep_b.px_hint("pxpeer", ("6.6.6.6", 1))
+    assert ep_b.known_peer_addrs().get("pxpeer") == ("9.9.9.9", 1234)
+
+
+def test_strict_no_sign_violation_drops_connection():
+    ep_a, ep_b = TcpEndpoint("strictA", secured=True), TcpEndpoint("strictB", secured=True)
+    try:
+        ep_a.dial(*ep_b.listen_addr)
+        assert wait_until(lambda: "strictB" in ep_a._meshsub_out, 5)
+        stream, lock = ep_a._meshsub_out["strictB"]
+        bad_msg = b"\x2a\x03sig" + b"\x22\x02t1"  # Message.signature, then its topic
+        frame_body = b"\x12" + bytes([len(bad_msg)]) + bad_msg
+        with lock:
+            stream.send(pb.write_uvarint(len(frame_body)) + frame_body)
+        assert wait_until(lambda: "strictA" not in ep_b.connected_peers(), 5)
+    finally:
+        ep_a.close()
+        ep_b.close()
+
+
+def test_mesh_forms_over_real_wire():
+    ep_a, ep_b = TcpEndpoint("meshA", secured=True), TcpEndpoint("meshB", secured=True)
+    svc_a, svc_b = NetworkService(ep_a), NetworkService(ep_b)
+    try:
+        svc_a.subscribe("wire-topic")
+        svc_b.subscribe("wire-topic")
+        ep_a.dial(*ep_b.listen_addr)
+        assert wait_until(lambda: "meshB" in svc_a.mesh.get("wire-topic", set())
+                          and "meshA" in svc_b.mesh.get("wire-topic", set()), 10)
+        got = []
+        svc_b.on_gossip = lambda t, u, comp, s: got.append((t, u)) or True
+        svc_a.publish("wire-topic", b"over-the-wire")
+        assert wait_until(lambda: got, 5)
+        assert got == [("wire-topic", b"over-the-wire")]
+    finally:
+        svc_a.shutdown()
+        svc_b.shutdown()
+        ep_a.close()
+        ep_b.close()
+
+
+# ------------------ the JAX package's test_tcp_checkpoint.py, re-pointed
+
+
+def harness_node(peer_id: str, secured: bool = False) -> LocalNode:
+    h = BeaconChainHarness(validator_count=16, fake_crypto=True, genesis_time=GENESIS_TIME)
+    return LocalNode(peer_id=peer_id, harness=h, endpoint=TcpEndpoint(peer_id, secured=secured))
+
+
+class TestTcpEndpoint:
+    def test_handshake_and_frames(self):
+        a, b = TcpEndpoint("alice"), TcpEndpoint("bob")
+        try:
+            assert a.dial(*b.listen_addr) == "bob"
+            assert wait_until(lambda: "alice" in b.connected_peers(), 5)
+            assert a.send("bob", Envelope(kind="gossip", sender="alice", topic="t",
+                                          data=b"\x00\x01" * 500))
+            env = b.inbound.get(timeout=5)
+            assert env.sender == "alice" and env.data == b"\x00\x01" * 500
+            assert b.send("alice", Envelope(kind="gossip", sender="bob", topic="t", data=b"hi"))
+            assert a.inbound.get(timeout=5).data == b"hi"
+        finally:
+            a.close()
+            b.close()
+
+    def test_secured_endpoint_full_ladder(self):
+        a, b = TcpEndpoint("alice", secured=True), TcpEndpoint("bob", secured=True)
+        try:
+            assert a.dial(*b.listen_addr) == "bob"
+            assert wait_until(lambda: "alice" in b.connected_peers(), 10)
+            big = b"\x5a\xa5" * 40_000  # spans many noise frames
+            assert a.send("bob", Envelope(kind="gossip", sender="alice", topic="t", data=big))
+            env = b.inbound.get(timeout=10)
+            assert env.sender == "alice" and env.data == big
+            assert b.send("alice", Envelope(kind="gossip", sender="bob", topic="t", data=b"enc"))
+            assert a.inbound.get(timeout=10).data == b"enc"
+        finally:
+            a.close()
+            b.close()
+
+    def test_nodes_gossip_over_secured_fabric(self):
+        na, nb = harness_node("a", secured=True), harness_node("b", secured=True)
+        try:
+            na.endpoint.dial(*nb.endpoint.listen_addr)
+            assert wait_until(lambda: "a" in nb.endpoint.connected_peers(), 10)
+            na.harness.advance_slot()
+            nb.harness.advance_slot()
+            blk = na.harness.produce_signed_block()
+            root = na.chain.process_block(blk, block_delay_seconds=1.0)
+            na.publish_block(blk)
+            assert wait_until(lambda: nb.chain.head_root == root, 15)
+        finally:
+            na.shutdown()
+            nb.shutdown()
+
+    def test_range_sync_over_secured_fabric(self):
+        na, nb = harness_node("a", secured=True), harness_node("b", secured=True)
+        try:
+            roots = []
+            for _ in range(16):
+                na.harness.advance_slot()
+                nb.harness.advance_slot()
+                roots.append(na.chain.process_block(na.harness.produce_signed_block(),
+                                                    block_delay_seconds=1.0))
+            na.endpoint.dial(*nb.endpoint.listen_addr)
+            assert wait_until(lambda: nb.chain.head_root == roots[-1], 30.0)
+        finally:
+            na.shutdown()
+            nb.shutdown()
+
+    def test_secured_connection_survives_idle(self):
+        a, b = TcpEndpoint("alice", secured=True), TcpEndpoint("bob", secured=True)
+        try:
+            a.dial(*b.listen_addr)
+            time.sleep(6.5)  # longer than any handshake timeout, no traffic
+            assert "bob" in a.connected_peers()
+            assert "alice" in b.connected_peers()
+            assert a.send("bob", Envelope(kind="gossip", sender="alice", topic="t",
+                                          data=b"post-idle"))
+            assert b.inbound.get(timeout=5).data == b"post-idle"
+        finally:
+            a.close()
+            b.close()
+
+    def test_secured_impersonation_refused(self):
+        a, b = TcpEndpoint("alice", secured=True), TcpEndpoint("bob", secured=True)
+        evil = TcpEndpoint("alice", secured=True)  # same id, another identity
+        try:
+            a.dial(*b.listen_addr)
+            assert wait_until(lambda: "alice" in b.connected_peers(), 10)
+            bound = b._peer_identities["alice"]
+            try:
+                evil.dial(*b.listen_addr)
+            except Exception:
+                pass  # the refusal may surface as a dial error
+            assert b._peer_identities["alice"] == bound == identity(a.identity_priv)
+            assert a.send("bob", Envelope(kind="gossip", sender="alice", topic="t",
+                                          data=b"still-me"))
+            assert b.inbound.get(timeout=5).data == b"still-me"
+        finally:
+            a.close()
+            b.close()
+            evil.close()
+
+    def test_disconnect_fires_callback(self):
+        a, b = TcpEndpoint("alice"), TcpEndpoint("bob")
+        events = []
+        b.on_disconnect = events.append
+        try:
+            a.dial(*b.listen_addr)
+            assert wait_until(lambda: "alice" in b.connected_peers(), 5)
+            a.close()
+            assert wait_until(lambda: events == ["alice"], 5)
+        finally:
+            b.close()
+
+
+def test_two_os_processes_sync_over_tcp():
+    """A second OS process (this file as ``--child``) serves a 6-block
+    chain on a port ``TcpEndpoint``; this process dials it and range sync
+    converges the heads."""
+    child_proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--child", str(GENESIS_TIME), "6"],
+        stdout=subprocess.PIPE, stdin=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": str(REPO)})
+    node = None
+    try:
+        info = json.loads(child_proc.stdout.readline())
+        harness = BeaconChainHarness(validator_count=16, fake_crypto=True,
+                                     genesis_time=GENESIS_TIME)
+        for _ in range(info["head_slot"]):
+            harness.advance_slot()
+        endpoint = TcpEndpoint("client")
+        node = LocalNode(peer_id="client", harness=harness, endpoint=endpoint)
+        assert endpoint.dial("127.0.0.1", info["port"]) == "server"
+        node.router.on_peer_connected("server")
+        assert wait_until(lambda: harness.chain.head_root == bytes.fromhex(info["head"]), 30)
+    finally:
+        if node is not None:
+            node.shutdown()
+        child_proc.stdin.close()
+        assert child_proc.wait(timeout=30) == 0
+
+
+def test_checkpoint_boot_and_backfill():
+    from lighthouse_tpu_torch.network.backfill import BackfillSync
+
+    ha = BeaconChainHarness(validator_count=16, fake_crypto=True, genesis_time=GENESIS_TIME)
+    ha.extend_chain(ha.spec.slots_per_epoch * 5)
+    f_epoch, f_root = ha.chain.finalized_checkpoint()
+    assert f_epoch >= 2
+    anchor_state = ha.chain.get_state(f_root).copy()
+    clock = ManualSlotClock(GENESIS_TIME, ha.spec.seconds_per_slot)
+    clock.set_slot(ha.chain.current_slot())
+    chain_b = BeaconChain(genesis_state=anchor_state, types=ha.types, spec=ha.spec,
+                          slot_clock=clock, anchor_block=ha.chain.get_block(f_root))
+    assert chain_b.genesis_block_root == f_root
+    assert chain_b.anchor_slot == int(anchor_state.slot)
+    hub = Hub()
+    na = LocalNode(hub=hub, peer_id="a", harness=ha)
+    nb = LocalNode(hub=hub, peer_id="b", chain=chain_b)
+    try:
+        hub.connect("a", "b")
+        assert wait_until(lambda: chain_b.head_root == ha.chain.head_root, 30)
+        backfill = BackfillSync(chain=chain_b, service=nb.service)
+        assert not backfill.complete
+        filled = backfill.backfill_from("a")
+        assert backfill.complete
+        assert filled == int(anchor_state.slot) - 1
+        early_root = ha.chain.db.cold_block_root_at_slot(1) or ha.chain.block_root_at_slot(1)
+        assert chain_b.db.get_block(early_root) is not None
+    finally:
+        na.shutdown()
+        nb.shutdown()
+
+
+def test_backfill_rejects_forged_history():
+    from lighthouse_tpu_torch.network.backfill import BackfillSync
+
+    ha = BeaconChainHarness(validator_count=16, fake_crypto=True, genesis_time=GENESIS_TIME)
+    hb = BeaconChainHarness(validator_count=16, fake_crypto=True, genesis_time=GENESIS_TIME)
+    ha.extend_chain(ha.spec.slots_per_epoch * 5)
+    for _ in range(hb.spec.slots_per_epoch * 5):  # another chain: other graffiti
+        hb.advance_slot()
+        hb.chain.process_block(hb.produce_signed_block(graffiti=b"\xee" * 32),
+                               block_delay_seconds=1.0)
+        hb.attest_to_head()
+    _, f_root = ha.chain.finalized_checkpoint()
+    clock = ManualSlotClock(GENESIS_TIME, ha.spec.seconds_per_slot)
+    clock.set_slot(ha.chain.current_slot())
+    chain_c = BeaconChain(genesis_state=ha.chain.get_state(f_root).copy(), types=ha.types,
+                          spec=ha.spec, slot_clock=clock, anchor_block=ha.chain.get_block(f_root))
+    hub = Hub()
+    nb = LocalNode(hub=hub, peer_id="b", harness=hb)  # the liar
+    nc = LocalNode(hub=hub, peer_id="c", chain=chain_c)
+    try:
+        hub.connect("b", "c")
+        backfill = BackfillSync(chain=chain_c, service=nc.service)
+        assert backfill.backfill_from("b") == 0
+        assert not backfill.complete
+        assert nc.service.peer_manager._peer("b").score < 0
+    finally:
+        nb.shutdown()
+        nc.shutdown()
+
+
+# ------ the JAX package's test_subnet_service.py cases with signed ENRs
+
+
+def test_attnets_bitfield_and_predicate():
+    bits = attnets_bitfield({3, 17, 63})
+    assert len(bits) == 8
+    enr = ENR.build(KeyPair(), seq=1, ip="10.0.0.1", udp=9000, extra={b"attnets": bits})
+    assert enr_attnets(enr) == {3, 17, 63}
+    assert subnet_predicate(enr, {17, 40})
+    assert not subnet_predicate(enr, {4, 40})
+    assert subnet_predicate(enr, set())
+    bare = ENR.build(KeyPair(), seq=1, ip="10.0.0.2", udp=9001)
+    assert enr_attnets(bare) == set()
+    assert not subnet_predicate(bare, {1})
+
+
+def subnet_node(peer_id: str) -> LocalNode:
+    h = BeaconChainHarness(validator_count=8, fake_crypto=True)
+    return LocalNode(peer_id=peer_id, harness=h, endpoint=TcpEndpoint(peer_id),
+                     subscribe_all_subnets=False)
+
+
+def test_node_enr_advertises_backbone():
+    node = subnet_node("attnet-node")
+    try:
+        node.enable_discv5()
+        advertised = enr_attnets(node.discv5.enr)
+        assert advertised == node.subnets.active_attestation_subnets()
+        assert {i for i in range(64) if node.router.metadata.attnets >> i & 1} == advertised
+        assert node.discv5.enr.verify()
+        assert rlp.decode_uint(node.discv5.enr.pairs[b"tcp"]) == node.endpoint.listen_addr[1]
+    finally:
+        node.shutdown()
+
+
+def test_enr_refresh_on_rotation():
+    node = subnet_node("rot-node")
+    try:
+        node.enable_discv5()
+        seq0, meta0 = node.discv5.enr.seq, node.router.metadata.seq_number
+        assert node.refresh_subnet_advertisement() is False
+        backbone = node.subnets.active_attestation_subnets()
+        new_subnet = next(s for s in range(64) if s not in backbone)
+        with node.subnets._lock:
+            node.subnets._duty_until_slot[new_subnet] = 10**9
+        assert node.refresh_subnet_advertisement() is True
+        assert node.discv5.enr.seq == seq0 + 1
+        assert node.router.metadata.seq_number == meta0 + 1
+        assert new_subnet in enr_attnets(node.discv5.enr)
+    finally:
+        node.shutdown()
+
+
+# ---------------------- the JAX package's test_discovery.py, re-pointed
+
+
+def test_peer_exchange_roundtrip_codec():
+    entries = [rpc_mod.PeerEntry("n1", "127.0.0.1", 9000),
+               rpc_mod.PeerEntry("n2", "10.0.0.2", 12345)]
+    assert rpc_mod.decode_peer_entries(rpc_mod.encode_peer_entries(entries)) == entries
+
+
+def test_bootstrap_via_boot_node():
+    """Three nodes each dial only the boot node; discovery rounds make
+    them dial each other."""
+    boot = BootNode()
+    nodes = [harness_node(f"d{i}") for i in range(3)]
+    try:
+        for n in nodes:
+            n.endpoint.dial(*boot.listen_addr)
+        for n in nodes:
+            assert n.endpoint.connected_peers() == {"boot"}
+        assert sum(n.discover_peers() for n in nodes) > 0
+        deadline = time.time() + 15
+        while time.time() < deadline:
+            if all(len(n.endpoint.connected_peers()) == 3 for n in nodes):
+                break
+            for n in nodes:  # a concurrent-dial collision resolves next round
+                n.discover_peers()
+            time.sleep(0.2)
+        for n in nodes:
+            assert len(n.endpoint.connected_peers()) == 3, n.endpoint.connected_peers()
+    finally:
+        for n in nodes:
+            n.shutdown()
+        boot.stop()
+
+
+def test_discovered_peers_sync_chain():
+    boot = BootNode()
+    synced, fresh = harness_node("synced"), harness_node("fresh")
+    try:
+        synced.harness.extend_chain(6)
+        for _ in range(6):
+            fresh.harness.advance_slot()
+        synced.endpoint.dial(*boot.listen_addr)
+        fresh.endpoint.dial(*boot.listen_addr)
+        assert fresh.discover_peers() >= 1
+        assert wait_until(lambda: fresh.chain.head_root == synced.chain.head_root, 10)
+    finally:
+        synced.shutdown()
+        fresh.shutdown()
+        boot.stop()
+
+
+def test_node_discovers_and_dials_over_fabric():
+    """The JAX package's ``test_discv5.py`` case: nodes advertise their TCP
+    port in their ENRs, a newcomer finds them by FINDNODE sweeps against a
+    discv5 boot node, dials them over TCP, and imports a gossiped block."""
+    boot = Discv5Service(KeyPair()).start()
+    nodes = []
+    try:
+        for name in ("a", "b", "c"):
+            nodes.append(harness_node(name))
+            nodes[-1].enable_discv5()
+        na, nb, nc = nodes
+        assert na.discv5.ping(boot.enr) == 1
+        assert nb.discv5.ping(boot.enr) == 1
+        assert len(boot.table) >= 2
+        assert nc.discover_peers_discv5([boot.enr], max_new=8) >= 2
+        assert wait_until(lambda: {"a", "b"} <= nc.endpoint.connected_peers(), 10)
+        for n in nodes:
+            n.harness.advance_slot()
+        blk = na.harness.produce_signed_block()
+        root = na.chain.process_block(blk, block_delay_seconds=1.0)
+        na.publish_block(blk)
+        assert wait_until(lambda: nc.chain.head_root == root, 15)
+    finally:
+        for n in nodes:
+            n.shutdown()
+        boot.stop()
