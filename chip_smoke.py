@@ -47,7 +47,6 @@ Phases, each of which raises on a failed check:
              ``ops.kzg_device.verify_kzg_proof_batch_device`` on 192 lanes,
              the six tiled 32 times (valid -> True, one y + 1 -> False); the
              launch counters of both kernels must rise in each valid run;
-             one traced run of the 192-lane program (torch.profiler);
 7. kzg parity — a fixed-seed 2-blob batch of the KZG device program on the
              card and on the CPU: ``fe`` equal limb for limb;
 8. runtime — the device runtime at full width: ``device_pipeline.enable()``
@@ -87,9 +86,11 @@ Phases, each of which raises on a failed check:
              validators); the staged ``epoch_deltas_device`` once on its
              registry against the numpy pass; then it crosses the boundary
              through ``per_slot.process_slots``
-             with the fused boundary on the card, once in an inactivity
-             leak and once not; each result equals a numpy-backend run of
-             the port on a copy of the state in balances, inactivity,
+             with the fused boundary on the card, out of an inactivity
+             leak, and a state of 2^16 validators from the same seed
+             (EPOCH_LEAK_VALIDATORS) crosses it in one; each result equals
+             a numpy-backend run of the port on the state itself (the card
+             runs on a copy) in balances, inactivity,
              validator fields, committees, proposers and state root, with
              no host fallback; host seconds, device seconds (flight record)
              and the kernels' launches (counts set to 0 just before the
@@ -148,16 +149,15 @@ Phases, each of which raises on a failed check:
              state_transition, fork_choice, store_write, head_recompute)
              and ``parent_state.copy()`` timed apart; the state's sync
              committee signs the head (512 messages): all accepted by one
-             512 x 1 batch on the card, and 8 messages with one foreign
-             signature give exactly one error (the batch, then 8 single
+             512 x 1 batch on the card, and 4 messages with one foreign
+             signature give exactly one error (the batch, then 4 single
              verifies, on the card); refused, the head, the store's key
              count and the block caches unchanged: a copy of the block
              whose sidecar 3 carries sidecar 4's proof (the kzg_batch
-             False on the card) and the block with two attestation
-             signatures swapped (the bulk batch False on the card); a
+             False on the card); then [http] on this node; a
              fresh ``HotColdDB`` on the same file reads back the block
-             byte for byte, the post-state's stored SSZ bytes and its
-             summary;
+             byte for byte, the post-state's stored SSZ bytes (those of
+             [http]'s download) and its summary;
     wire   — [chain]'s node on the wire before its import (slot S-1's
              gossip arrives before block S): a ``LocalNode`` on a secured
              ``TcpEndpoint`` on 127.0.0.1 (four processor workers, the
@@ -209,13 +209,38 @@ Phases, each of which raises on a failed check:
              verifies the ``AttesterSlashing`` on the card, pools it and
              publishes it to pub, its bytes those of the port's slasher on
              the CPU; the slasher's seconds and array bytes, the peak RSS;
+    http   — then the Beacon API on [chain]'s node: ``HttpApiServer``
+             (a ``BeaconProcessor`` of two workers, the response cache on)
+             on 127.0.0.1, read by ``BeaconNodeHttpClient`` over a socket:
+             the node's version, syncing and health, genesis, the head
+             state's root and finality checkpoints, 4 validators, 64
+             balances, the 64 committees of the head's slot, 64 attester
+             duties of its epoch and 64 attestation rewards of the epoch
+             before (against ``rewards.attestation_rewards`` called on the
+             head state), the head's header, its block as SSZ byte for
+             byte, its six blob sidecars, and the checkpoint-sync download
+             of the head state as SSZ (148.6 MB), byte for byte the host
+             run's post-state; the root, the committees and the duties
+             asked twice, each second answer a cache hit (byte for byte,
+             no handler run), the arbiter's ``http_api`` grants equal to
+             the misses; then nine attestations of the head's slot, one
+             from each of nine committees, the last under another
+             member's signature, POSTed to the pool: HTTP 400 naming index
+             8 only, nine single-set supervised bls_verify batches on the
+             card (eight True, then False), both Fq kernels launched, the
+             eight good ones published and pooled, and
+             ``/lighthouse/device/batches`` listing the nine records; beside
+             the POST, ``POST /lighthouse/device/profile?seconds=3``: 200,
+             its trace naming ``fq_mul_kernel``; each request's seconds on
+             the client and in ``http_api_request_seconds``;
 14. chain-harness — the SURVEY §7 harness (minimal preset, 64 interop
              validators): two slots of real crypto on the default device
              (each block's bulk batch and 16 single attestation verifies on
              the card, no host fallback), the same chain as a replay on
-             the fake backend, a block under another signature and an
-             attestation by another validator refused by verdicts on the
-             card; then 40 fake-crypto slots on a HotColdDB over a lockbox
+             the fake backend, a block under another signature, an
+             attestation by another validator and the block with two
+             attestation signatures swapped (the chain unchanged) refused
+             by verdicts on the card; then 40 fake-crypto slots on a HotColdDB over a lockbox
              file: justified epoch >= 4, finalized >= 3, the hot->cold
              migration (a cold state equal to the chain's), each boundary's
              fused program on the card and both epoch kernels launched,
@@ -260,7 +285,8 @@ Phases, each of which raises on a failed check:
 16. timing — each kernel and its plain version at the largest shape the
              128 x 32 run gave it, beside the least time the card could take;
              then each kernel at every launch size of that run (the
-             histogram ``cuda_fq.SIZES``), summed to its time per verify,
+             histogram ``cuda_fq.SIZES``; a size timed once whichever runs
+             gave it), summed to its time per verify,
              beside its bound per verify, and likewise per 6-blob and per
              192-lane KZG batch, per [block] import and per [wire] and
              [network] drain; each SHA-256
@@ -286,7 +312,8 @@ through the device supervisor (``device_supervisor.py``); the script fails
 if any of them took the host route or left a breaker open.  Per-batch stages come from
 the flight recorder (``device_telemetry``).
 
-Each phase (and [wire], [network] and the double vote inside [chain])
+Each phase (and [wire], [network], the double vote and [http] inside
+[chain])
 prints ``[phase] <name> <seconds> s``, its wall time.  The line before the
 last is one JSON object naming every kernel with its numbers; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA,
@@ -405,7 +432,11 @@ EPOCH_HOST_MAX = 65536
 #: The walk's rounds checked at every lookahead: the mainnet and minimal
 #: presets' shuffle_round_count.
 WALK_CHECK_ROUNDS = (90, 10)
+#: [epoch]: the no-leak boundary's registry (mainnet's order), the leak
+#: boundary's (the same program at a smaller bucket; its own state from the
+#: same seed) and the [faults] boundary's.
 EPOCH_VALIDATORS = 1 << 20
+EPOCH_LEAK_VALIDATORS = 1 << 16
 EPOCH_FAULT_VALIDATORS = 4096
 #: [block]: validators in the registry (mainnet's order), the [faults]
 #: block's registry, and the seed both cases are made from.
@@ -416,7 +447,7 @@ BLOCK_SEED = 0xB10C
 #: each message alone, so it stays small).  [chain-harness]: the harness's
 #: interop validators, its real-crypto slots and its slots to finality (five
 #: minimal-preset epochs).
-CHAIN_SYNC_TAMPERED = 8
+CHAIN_SYNC_TAMPERED = 4
 #: [chain]'s execution engine: the Engine API's JWT secret of the mock
 #: engine served over HTTP.
 EL_JWT_SECRET = random.Random(0xE1).randbytes(32)
@@ -431,6 +462,15 @@ NET_TAMPERED = 8
 SLASHER_HISTORY = 64
 NET_SEED = 0x6055
 NET_IDLE_S = 900.0
+#: [http]: the Beacon API on [chain]'s node: the indices of the balance,
+#: duty and reward reads (seeded), the attestations POSTed to the pool (one
+#: a committee; the last under another member's signature), the
+#: profiler's window and the client's timeout.
+HTTP_IDS = 64
+HTTP_ATTESTERS = 9
+HTTP_PROFILE_S = 3
+HTTP_SEED = 0x4777
+HTTP_TIMEOUT_S = 600.0
 HARNESS_VALIDATORS = 64
 HARNESS_REAL_SLOTS = 2
 HARNESS_SLOTS = 40
@@ -789,10 +829,12 @@ def blob_lanes(kzg, blobs, commitments, proofs):
 
 
 def phase_kzg(cuda_fq, kzg, blobs, commitments, proofs, lanes) -> dict:
-    import torch
-
+    """The six blobs through ``Kzg`` and the 192 lanes through
+    ``ops.kzg_device`` (see the module docstring).  Where the program's
+    device time goes is not traced here: ``profile_verify.trace`` of one
+    192-lane run gave 45,127–45,292 launches and a device busy share of
+    5.8–7.0 % in every run that took it (PERF.md)."""
     from lighthouse_tpu_torch.ops import kzg_device
-    from lighthouse_tpu_torch.profile_verify import trace
 
     # One block's blobs through the user's entry point, at the default device.
     block, block_counts = counted(cuda_fq, f"{KZG_BLOBS} blobs", lambda: timed_kzg(
@@ -811,25 +853,7 @@ def phase_kzg(cuda_fq, kzg, blobs, commitments, proofs, lanes) -> dict:
               lambda: kzg_device.verify_kzg_proof_batch_device(*lanes(reps, bad=KZG_LANES // 2)),
               False, KZG_LANES)
 
-    # Where the device program's time goes: one traced run at each width.
-    def device_run(host_batch):
-        fe = kzg_device._device_kzg_batch(*kzg_device.batch_from_numpy(host_batch, "cuda"))
-        torch.cuda.synchronize()
-        return fe
-
-    traced = {}
-    for key, n_reps, timed in (("kzg6", 1, block), ("kzg192", reps, wide)):
-        host_batch = kzg_device._build_kzg_batch(*lanes(n_reps),
-                                                 kzg_device._bucket(n_reps * KZG_BLOBS))
-        t = traced[key] = trace(lambda: device_run(host_batch), timed["stages"]["device"])
-        log(f"[kzg] {timed['lanes']}-lane device program traced: {t['device_kernel_launches']} "
-            f"kernel launches, device busy {t['device_busy_s']:.4f} s = "
-            f"{t['device_busy_share_of_wall']:.1%} of the unprofiled device stage; Fq kernels "
-            f"{t['fq_kernel_device_s']}")
-        for k in t["top_kernels"][:6]:
-            log(f"[kzg]   {k['device_s'] * 1e3:9.3f} ms {k['count']:7d}x  {k['name']}")
-    return {"block": block, "wide": wide, "traced": traced,
-            "kzg6": block_counts, "kzg192": wide_counts}
+    return {"block": block, "wide": wide, "kzg6": block_counts, "kzg192": wide_counts}
 
 
 def phase_kzg_parity(lanes) -> None:
@@ -1599,15 +1623,18 @@ def reference_duties(state, spec, epoch: int) -> tuple:
     return cache, proposers
 
 
-def phase_epoch(card: str, device: str = "cuda", validators: int = EPOCH_VALIDATORS) -> dict:
+def phase_epoch(card: str, device: str = "cuda", validators: int = EPOCH_VALIDATORS,
+                leak_validators: int = EPOCH_LEAK_VALIDATORS) -> dict:
     """The epoch boundary at mainnet width: a Deneb mainnet-preset state
     one slot before a boundary crosses it through ``process_slots`` on the
-    card with the fused boundary, in both leak modes; each result equals a
-    numpy-backend run of the port on a copy of the state (balances,
-    inactivity, validator fields, proposers, committees, state root), with
-    no host fallback.  First the staged deltas program once against the
-    numpy pass; the kernels' launch counts are set to 0 just before the
-    first boundary on the card and read just after the last."""
+    card with the fused boundary, out of an inactivity leak at
+    ``validators`` and in one at ``leak_validators`` (a state of its own);
+    each result equals a numpy-backend run of the port on the state itself
+    (the card runs on a copy): balances, inactivity, validator fields,
+    proposers, committees, state root, with no host fallback.  First the
+    staged deltas program once against the numpy pass; the kernels' launch
+    counts are set to 0 just before the first boundary on the card and
+    read just after the last."""
     import numpy as np
 
     from lighthouse_tpu_torch import device_telemetry
@@ -1617,7 +1644,7 @@ def phase_epoch(card: str, device: str = "cuda", validators: int = EPOCH_VALIDAT
     from lighthouse_tpu_torch.ops import cuda_epoch
     from lighthouse_tpu_torch.ops import tree_hash as th
     from lighthouse_tpu_torch.types.spec import mainnet_spec
-    from lighthouse_tpu_torch.workload import boundary_state, clone_state, set_finality
+    from lighthouse_tpu_torch.workload import boundary_state, clone_state
 
     spec = mainnet_spec()
     t0 = time.perf_counter()
@@ -1629,8 +1656,13 @@ def phase_epoch(card: str, device: str = "cuda", validators: int = EPOCH_VALIDAT
         f"before epoch {next_epoch} built from a seed in {build_s:.2f} s")
     fields = ("effective_balance", "activation_eligibility_epoch", "activation_epoch",
               "exit_epoch", "withdrawable_epoch", "slashed")
-    before = {name: [getattr(v, name) for v in base.validators] for name in fields}
     staged_out = staged_deltas(base, spec, next_epoch, device)
+    t0 = time.perf_counter()
+    leak_base, _ = boundary_state(leak_validators, seed=0xE90C, leak=True)
+    log(f"[epoch] the leak boundary's state with {len(leak_base.validators)} validators built "
+        f"from the same seed in {time.perf_counter() - t0:.2f} s")
+    bases = {False: base, True: leak_base}
+    del base, leak_base
     plans = []
     real_run = pe._run_boundary
 
@@ -1645,12 +1677,11 @@ def phase_epoch(card: str, device: str = "cuda", validators: int = EPOCH_VALIDAT
     try:
         for leak in (False, True):
             label = "leak" if leak else "no leak"
+            # The numpy run takes the mode's state itself.
+            ref_state = bases.pop(leak)
+            before = {name: [getattr(v, name) for v in ref_state.validators] for name in fields}
             t = time.perf_counter()
-            card_state = clone_state(base)
-            set_finality(card_state, types, leak)
-            # The last mode's numpy run takes the base state itself.
-            ref_state = base if leak else clone_state(base)
-            set_finality(ref_state, types, leak)
+            card_state = clone_state(ref_state)
             copy_s = time.perf_counter() - t
 
             th.configure(enabled=True, device=device)
@@ -1709,13 +1740,14 @@ def phase_epoch(card: str, device: str = "cuda", validators: int = EPOCH_VALIDAT
                 raise AssertionError(f"[epoch] {label}: state root != numpy run")
             check_s = time.perf_counter() - t
             runs[label] = {
-                "card_s": card_s, "device_s": dev_s, "host_s": card_s - dev_s - hash_s,
+                "validators": len(before["slashed"]), "card_s": card_s, "device_s": dev_s, "host_s": card_s - dev_s - hash_s,
                 "hash_device_s": hash_s, "numpy_s": ref_s, "card_root_s": card_root_s,
                 "numpy_root_s": ref_root_s, "copy_s": copy_s, "check_s": check_s,
                 "stages_s": st, "changed": changed, "records": ops,
                 "primed_proposers": len(primed.get("proposers", {})),
             }
-            log(f"[epoch] {card}, {label}: process_slots across the boundary on the card "
+            log(f"[epoch] {card}, {label}, {len(before['slashed'])} validators: process_slots "
+                f"across the boundary on the card "
                 f"{card_s:.2f} s (boundary program {dev_s:.4f} s on the flight record: dispatch "
                 f"{st['dispatch']:.4f} s, wait {st['wait']:.4f} s; tree hashing "
                 f"{hash_s:.3f} s of device stages; host Python the rest), numpy-backend run "
@@ -1726,7 +1758,6 @@ def phase_epoch(card: str, device: str = "cuda", validators: int = EPOCH_VALIDAT
                 f"({runs[label]['primed_proposers']} primed from the card) and the state root "
                 f"equal the numpy run; flight records {ops}; no host fallback")
             del card_state, ref_state, card_out, ref_out
-        del base
     finally:
         pe._run_boundary = real_run
         th.configure(enabled=False)
@@ -1740,7 +1771,7 @@ def phase_epoch(card: str, device: str = "cuda", validators: int = EPOCH_VALIDAT
     log(f"[epoch] kernel launches over both boundaries {launches}, launch sizes {sizes}; "
         f"duty-cache priming {device_telemetry.boundary_prime_counts()}")
 
-    return {"validators": len(before["slashed"]), "build_s": build_s, "runs": runs,
+    return {"validators": runs["no leak"]["validators"], "build_s": build_s, "runs": runs,
             "launches": launches, "sizes": sizes, "plans": plans, **staged_out}
 
 
@@ -2276,8 +2307,12 @@ def phase_block_faults(device: str = "cuda") -> None:
 
 def chain_snapshot(chain) -> dict:
     """What a refused import must leave as it was: the head, the store's key
-    count and the chain's block caches."""
-    return {"head": chain.head_root, "keys": int(chain.store._lib.lockbox_count(chain.store._h)),
+    count (a lockbox file's or a MemoryStore's) and the chain's block
+    caches."""
+    store = chain.store
+    keys = (int(store._lib.lockbox_count(store._h)) if hasattr(store, "_lib")
+            else sum(len(col) for col in store._data.values()))
+    return {"head": chain.head_root, "keys": keys,
             "blocks": sorted(chain._blocks), "states": sorted(chain._states),
             "observed": sorted(chain.observed_block_roots),
             "early": chain.early_attester_cache._item["block_root"]
@@ -3487,17 +3522,18 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
         for field in ("previous_epoch_participation", "current_epoch_participation"):
             if list(getattr(post, field)) != list(getattr(ref, field)):
                 raise AssertionError(f"[chain] {field} != the host run's")
+        # The post-state's own SSZ bytes come from [http]'s checkpoint-sync
+        # download, compared there with these.
         t = time.perf_counter()
-        post_ssz = post.as_ssz_bytes()
-        if post_ssz != ref.as_ssz_bytes():
-            raise AssertionError("[chain] the post-state's SSZ bytes != the host run's")
-        ssz_check_s = time.perf_counter() - t
+        ref_ssz = ref.as_ssz_bytes()
+        ref_ssz_s = time.perf_counter() - t
         got = chain.get_blobs(root)
         if [sc.as_ssz_bytes() for sc in got] != [sc.as_ssz_bytes() for sc in sidecars]:
             raise AssertionError("[chain] get_blobs does not return the six sidecars")
         log(f"[chain] the head is the block; its post-state equals the host run's (root, "
-            f"balances, participation, SSZ bytes: {len(post_ssz)} bytes, compared in "
-            f"{ssz_check_s:.2f} s); get_blobs returns the {len(got)} sidecars")
+            f"balances, participation; its SSZ bytes in [http] against the host run's "
+            f"{len(ref_ssz)}, encoded in {ref_ssz_s:.2f} s); get_blobs returns the {len(got)} "
+            f"sidecars")
 
         # The sync batch: the committee signs the new head at the block's slot.
         t = time.perf_counter()
@@ -3563,38 +3599,23 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
             raise AssertionError(f"[chain] the refused DA batch's records {rec}")
         if chain_snapshot(chain) != before:
             raise AssertionError("[chain] the refused DA import changed the node")
-        message = copy.deepcopy(block)
-        atts = message.body.attestations
-        atts[0].signature, atts[1].signature = bytes(atts[1].signature), bytes(atts[0].signature)
-        other = case._replace(signed_block=resign(case, message))
-        mark = runtime_mark()
-        with Patched({}, [(state_cls, "copy", "copy")]) as swap_spans:
-            t = time.perf_counter()
-            try:
-                chain.process_block_with_blobs(other.signed_block,
-                                               blob_sidecars(other, blobs, proofs))
-            except BlockError as err:
-                if "bulk signature verification failed" not in str(err):
-                    raise
-            else:
-                raise AssertionError("[chain] a swapped attestation signature was accepted")
-            refusals["bulk_s"] = time.perf_counter() - t
-        rec = [r for r in assert_on_device("[chain] refused bulk", mark) if r["op"] == "bls_verify"]
-        if [r["verdict"] for r in rec] != [False]:
-            raise AssertionError(f"[chain] the refused block's verify records {rec}")
-        if chain_snapshot(chain) != before:
-            raise AssertionError("[chain] the refused block changed the node")
         log(f"[chain] refused on {card}, the head, the store's {before['keys']} keys and the "
             f"block caches unchanged: a copy of the block whose sidecar 3 carries sidecar 4's "
-            f"proof (BlockError, the kzg_batch False on the card) in {refusals['da_s']:.2f} s; "
-            f"the block with two attestation signatures swapped (BlockError, the bulk batch "
-            f"False on the card) in {refusals['bulk_s']:.2f} s, parent_state.copy() "
-            f"{swap_spans['copy']:.2f} s of it")
+            f"proof (BlockError, the kzg_batch False on the card) in {refusals['da_s']:.2f} s "
+            f"(the block with two attestation signatures swapped is refused in "
+            f"[chain-harness])")
 
         # [network]'s double vote, on the node after the import.
         with phase_wall("network-double-vote"):
             network_double_vote(card, case, chain, clock, net)
         net["cell"].shutdown()
+
+        # [http]: the Beacon API on the node; its checkpoint-sync download
+        # is the post-state's SSZ for the restart below.
+        with phase_wall("http"):
+            http_out = phase_http(card, case, chain, sidecars, ref_ssz, device=device)
+        post_ssz = http_out.pop("state_ssz")
+        del ref_ssz
 
         # The restart: a fresh HotColdDB on the same file.
         state_root = bytes(block.state_root)
@@ -3634,7 +3655,367 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
             "kzg_bucket": kzgs[0]["shape"], "verify_bucket": verifies[0]["shape"],
             "sets": verifies[0]["n_live"], "sync_s": sync_s, "sync_sign_s": sign_s,
             "sync_stages_s": sst, "sync_bucket": sync_rec[0]["shape"],
-            "sync_tampered_s": tampered_s, "refusals_s": refusals, "restart_s": restart_s}
+            "sync_tampered_s": tampered_s, "refusals_s": refusals, "restart_s": restart_s,
+            "http": http_out}
+
+
+def head_attestations(case, state, root: bytes, count: int) -> list:
+    """Unaggregated attestations of ``state``'s slot (the head's) for the
+    head ``root``: in turn from each committee of the slot, the next member
+    the case holds a key for (not slashed), one vote each, until ``count``
+    (at mainnet width ``count`` committees give one each).  The target is
+    the epoch's first block, the source the state's justified checkpoint.
+    Returns (validator, committee, attestation) triples."""
+    from lighthouse_tpu_torch.consensus import helpers as h
+    from lighthouse_tpu_torch.types.spec import DOMAIN_BEACON_ATTESTER
+    from lighthouse_tpu_torch.workload import _Signer
+
+    types, spec, sk = case.types, case.spec, case.keys.secret
+    slot = int(state.slot)
+    epoch = h.compute_epoch_at_slot(slot, spec)
+    target = types.Checkpoint(epoch=epoch, root=h.get_block_root(state, epoch, spec))
+    domain = h.get_domain(state, DOMAIN_BEACON_ATTESTER, epoch, spec)
+    keyed = []
+    for c in range(h.get_committee_count_per_slot(state, epoch, spec)):
+        committee = [int(v) for v in h.get_beacon_committee(state, slot, c, spec)]
+        members = [v for v in committee if v in sk and not state.validators[v].slashed]
+        if members:
+            keyed.append((c, committee, members))
+    signer, out = _Signer(), []
+    for turn in range(count):
+        for c, committee, members in keyed:
+            if len(out) == count or turn >= len(members):
+                continue
+            v = members[turn]
+            data = types.AttestationData(slot=slot, index=c, beacon_block_root=root,
+                                         source=state.current_justified_checkpoint.copy(),
+                                         target=target.copy())
+            bits = [False] * len(committee)
+            bits[committee.index(v)] = True
+            sig = signer.sign(h.compute_signing_root(data.hash_tree_root(), domain), sk[v])
+            out.append((v, c, types.Attestation(aggregation_bits=bits, data=data,
+                                                signature=sig)))
+    if len(out) != count:
+        raise AssertionError(f"[http] {len(out)} keyed members in slot {slot}'s committees")
+    return out
+
+
+def http_fetch(port: int, method: str, path: str, body=None, ssz: bool = False,
+               timeout: float = HTTP_TIMEOUT_S) -> tuple:
+    """One request over a fresh socket: (status, content type, body bytes)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    headers = {"Accept": "application/octet-stream" if ssz else "application/json"}
+    payload = None
+    if body is not None:
+        payload = json.dumps(body)
+        headers["Content-Type"] = "application/json"
+    try:
+        conn.request(method, path, body=payload, headers=headers)
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Content-Type", ""), resp.read()
+    finally:
+        conn.close()
+
+
+def phase_http(card: str, case, chain, sidecars, ref_ssz: bytes, device: str = "cuda") -> dict:
+    """The Beacon API on [chain]'s node (see the module docstring): reads
+    checked against the node's own objects, the response cache, nine
+    attestations POSTed to the pool and verified on the card while the
+    profiler runs, and the checkpoint-sync state download (its body,
+    equal to ``ref_ssz``, is returned for the restart's comparison).  With
+    ``device="cpu"`` (a rehearsal on the plain versions, which launch no
+    kernel) the profile's trace need not name ``fq_mul_kernel``."""
+    from lighthouse_tpu_torch import device_pipeline, metrics
+    from lighthouse_tpu_torch.chain.rewards import attestation_rewards
+    from lighthouse_tpu_torch.consensus import helpers as h
+    from lighthouse_tpu_torch.http_api import (
+        BeaconNodeHttpClient,
+        HttpApiServer,
+        container_from_json,
+        to_json,
+    )
+    from lighthouse_tpu_torch.http_api import server as server_mod
+    from lighthouse_tpu_torch.ops import cuda_fq
+    from lighthouse_tpu_torch.scheduler import BeaconProcessor
+
+    spec = case.spec
+    state, root = chain.head_state, chain.head_root
+    signed = chain.get_block(root)
+    slot = int(state.slot)
+    epoch = h.compute_epoch_at_slot(slot, spec)
+    start = h.compute_start_slot_at_epoch(epoch, spec)
+    count = h.get_committee_count_per_slot(state, epoch, spec)
+    n = len(state.validators)
+    rng = random.Random(HTTP_SEED)
+    t = time.perf_counter()
+    atts = head_attestations(case, state, root, HTTP_ATTESTERS)
+    sign_s = time.perf_counter() - t
+    bad = atts[-1][2].copy()
+    bad.signature = bytes(atts[-2][2].signature)
+    posted = [a for _, _, a in atts[:-1]] + [bad]
+
+    published = []
+    processor = BeaconProcessor(max_workers=2)
+    server = HttpApiServer(chain, processor=processor,
+                           publish_attestation_fn=published.append).start()
+    client = BeaconNodeHttpClient(server.url, timeout=HTTP_TIMEOUT_S)
+    cache = server.response_cache
+    seconds = []  # (label, client s, server s)
+    first_cached = []  # labels of the first asks of cached routes
+
+    def timed(label, method, path, fn):
+        """``fn()`` (one request), with its client seconds and the server's
+        ``http_api_request_seconds`` for its route template."""
+        _, handler, _, route = server_mod.match_route(method, path.split("?")[0])
+        if hasattr(handler, "_cache_topics") and not label.endswith("(again)"):
+            first_cached.append(label)
+        n0, s0 = metrics.HTTP_REQUEST_SECONDS.stats(method=method, route=route)
+        t = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t
+        deadline = time.time() + 5
+        while metrics.HTTP_REQUEST_SECONDS.stats(method=method, route=route)[0] == n0 \
+                and time.time() < deadline:
+            time.sleep(0.005)
+        n1, s1 = metrics.HTTP_REQUEST_SECONDS.stats(method=method, route=route)
+        if n1 != n0 + 1:
+            raise AssertionError(f"[http] {label}: http_api_request_seconds counted {n1 - n0}")
+        seconds.append((label, wall, s1 - s0))
+        return out
+
+    def get(label, path):
+        return timed(label, "GET", path, lambda: client.get(path))
+
+    def fetch(label, method, path, body=None, ssz=False):
+        out = timed(label, method, path,
+                    lambda: http_fetch(server.port, method, path, body, ssz))
+        if out[0] not in (200, 206):
+            raise AssertionError(f"[http] {label}: HTTP {out[0]} {out[2][:300]!r}")
+        return out
+
+    def cached_twice(label, method, path, body=None):
+        """Ask twice: the second answer a hit, byte for byte the first, no
+        handler run (the processor received nothing)."""
+        route = server_mod.match_route(method, path.split("?")[0])[3]
+        first = fetch(label, method, path, body)
+        hits0 = metrics.HTTP_CACHE_HITS.get(route=route)
+        misses0, received0 = cache.misses, sum(processor.metrics.received.values())
+        second = fetch(label + " (again)", method, path, body)
+        if second[2] != first[2] or metrics.HTTP_CACHE_HITS.get(route=route) != hits0 + 1 or \
+                cache.misses != misses0 or \
+                sum(processor.metrics.received.values()) != received0:
+            raise AssertionError(f"[http] {label}: the second answer was not a cache hit")
+        return json.loads(first[2])
+
+    grants0 = device_pipeline.ARBITER.snapshot()["grants"].get("http_api", 0)
+    try:
+        # Reads, each against the node's own objects.
+        if timed("node/version", "GET", "/eth/v1/node/version", client.node_version) != \
+                server_mod.VERSION_STRING:
+            raise AssertionError("[http] node/version")
+        syncing = get("node/syncing", "/eth/v1/node/syncing")["data"]
+        distance = chain.current_slot() - slot
+        if syncing["head_slot"] != str(slot) or syncing["sync_distance"] != str(distance):
+            raise AssertionError(f"[http] node/syncing {syncing}")
+        health = fetch("node/health", "GET", "/eth/v1/node/health")[0]
+        if health != (200 if distance <= 1 else 206):
+            raise AssertionError(f"[http] node/health {health} at distance {distance}")
+        genesis = get("beacon/genesis", "/eth/v1/beacon/genesis")["data"]
+        if genesis["genesis_time"] != str(int(state.genesis_time)) or \
+                genesis["genesis_validators_root"] != \
+                "0x" + bytes(state.genesis_validators_root).hex():
+            raise AssertionError(f"[http] beacon/genesis {genesis}")
+        got = cached_twice("states/head/root", "GET", "/eth/v1/beacon/states/head/root")
+        if got["data"]["root"] != "0x" + state.hash_tree_root().hex():
+            raise AssertionError(f"[http] states/head/root {got}")
+        fc = get("finality_checkpoints", "/eth/v1/beacon/states/head/finality_checkpoints")
+        want = {"previous_justified": to_json(state.previous_justified_checkpoint),
+                "current_justified": to_json(state.current_justified_checkpoint),
+                "finalized": to_json(state.finalized_checkpoint)}
+        if fc["data"] != want:
+            raise AssertionError(f"[http] finality_checkpoints {fc['data']} != {want}")
+        for i in (0, 1, n // 2, n - 1):
+            v = get(f"validators/{i}", f"/eth/v1/beacon/states/head/validators/{i}")["data"]
+            if (v["index"], v["balance"], v["validator"]) != \
+                    (str(i), str(int(state.balances[i])), to_json(state.validators[i])):
+                raise AssertionError(f"[http] validators/{i} {v}")
+        ids = rng.sample(range(n), HTTP_IDS)
+        bal = get("validator_balances", "/eth/v1/beacon/states/head/validator_balances?id="
+                  + ",".join(map(str, ids)))["data"]
+        if bal != [{"index": str(i), "balance": str(int(state.balances[i]))} for i in ids]:
+            raise AssertionError("[http] validator_balances != the state's")
+        committees = cached_twice("committees", "GET",
+                                  f"/eth/v1/beacon/states/head/committees?slot={slot}")["data"]
+        want = [{"index": str(c), "slot": str(slot),
+                 "validators": [str(int(v)) for v in h.get_beacon_committee(state, slot, c, spec)]}
+                for c in range(count)]
+        if committees != want or len(committees) != count:
+            raise AssertionError(f"[http] committees: {len(committees)} != the state's {count}")
+        duty_of = {}
+        while len(duty_of) < HTTP_IDS:
+            s_, c_ = start + rng.randrange(spec.slots_per_epoch), rng.randrange(count)
+            committee = h.get_beacon_committee(state, s_, c_, spec)
+            pos = rng.randrange(len(committee))
+            duty_of.setdefault(int(committee[pos]), (s_, c_, pos, len(committee)))
+        duties = cached_twice("duties/attester", "POST",
+                              f"/eth/v1/validator/duties/attester/{epoch}",
+                              [str(v) for v in duty_of])["data"]
+        got = {int(d["validator_index"]): (int(d["slot"]), int(d["committee_index"]),
+                                           int(d["validator_committee_index"]),
+                                           int(d["committee_length"])) for d in duties}
+        if len(duties) != HTTP_IDS or got != duty_of or \
+                any(d["committees_at_slot"] != str(count) for d in duties):
+            raise AssertionError("[http] attester duties != the committees")
+        reward_ids = rng.sample(range(n), HTTP_IDS)
+        rewards = timed("rewards/attestations", "POST",
+                        f"/eth/v1/beacon/rewards/attestations/{epoch - 1}",
+                        lambda: client.post(f"/eth/v1/beacon/rewards/attestations/{epoch - 1}",
+                                            [str(i) for i in reward_ids]))["data"]
+        t = time.perf_counter()
+        direct = json.loads(json.dumps(attestation_rewards(state, spec, reward_ids)))
+        direct_s = time.perf_counter() - t
+        if rewards != direct:
+            raise AssertionError("[http] rewards/attestations != rewards.attestation_rewards")
+        header = get("headers/head", "/eth/v1/beacon/headers/head")["data"]
+        msg = signed.message
+        if header["root"] != "0x" + root.hex() or header["header"]["message"] != {
+                "slot": str(int(msg.slot)), "proposer_index": str(int(msg.proposer_index)),
+                "parent_root": "0x" + bytes(msg.parent_root).hex(),
+                "state_root": "0x" + bytes(msg.state_root).hex(),
+                "body_root": "0x" + msg.body.hash_tree_root().hex()}:
+            raise AssertionError(f"[http] headers/head {header}")
+        raw_block, version = timed("blocks/head (SSZ)", "GET", "/eth/v2/beacon/blocks/head",
+                                   lambda: client.get_ssz("/eth/v2/beacon/blocks/head"))
+        if raw_block != signed.as_ssz_bytes() or version != type(msg).fork_name:
+            raise AssertionError("[http] blocks/head: the SSZ body != the imported block's")
+        blobs = get("blob_sidecars/head", "/eth/v1/beacon/blob_sidecars/head")["data"]
+        if blobs != [to_json(sc) for sc in sidecars]:
+            raise AssertionError("[http] blob_sidecars/head != the six sidecars")
+        # The checkpoint-sync download.
+        t = time.perf_counter()
+        state_ssz, version = timed("debug/beacon/states/head (SSZ)", "GET",
+                                   "/eth/v2/debug/beacon/states/head",
+                                   lambda: client.get_ssz("/eth/v2/debug/beacon/states/head"))
+        download_s = time.perf_counter() - t
+        if state_ssz != ref_ssz or version != type(state).fork_name:
+            raise AssertionError("[http] the SSZ state download != the host run's post-state")
+        misses = cache.misses
+        grants = device_pipeline.ARBITER.snapshot()["grants"].get("http_api", 0) - grants0
+        if grants != misses or misses != len(first_cached):
+            raise AssertionError(f"[http] arbiter grants {grants}, cache misses {misses}, "
+                                 f"first asks of cached routes {first_cached}")
+        log(f"[http] {card}: HttpApiServer on {server.url} (a BeaconProcessor of 2 workers, "
+            f"the response cache on) read by BeaconNodeHttpClient: version, syncing (head "
+            f"{slot}, distance {distance}), health {health}, genesis, the head state's root and "
+            f"finality checkpoints, validators {[0, 1, n // 2, n - 1]}, {HTTP_IDS} balances, the "
+            f"{count} committees of slot {slot}, {HTTP_IDS} attester duties of epoch {epoch}, "
+            f"{HTTP_IDS} attestation rewards of epoch {epoch - 1} (rewards.attestation_rewards "
+            f"called directly: {direct_s:.2f} s), the head's header, block (SSZ) and "
+            f"{len(blobs)} blob sidecars: each equal to the node's own")
+        log(f"[http] the response cache: states/head/root, the committees and the attester "
+            f"duties asked twice, each second answer a hit (byte for byte, "
+            f"http_response_cache_hits_total +1, no handler run); {misses} misses, each through "
+            f"api_arbiter_slot('http_api'): the arbiter's http_api grants +{grants}")
+        log(f"[http] the checkpoint-sync download GET /eth/v2/debug/beacon/states/head as SSZ: "
+            f"{len(state_ssz)} bytes in {download_s:.2f} s ({len(state_ssz) / 1e6 / download_s:.1f} "
+            f"MB/s), byte for byte the host run's post-state")
+
+        # Nine attestations to the pool, verified on the card, while the
+        # profiler runs over the API.
+        prof = {}
+
+        def profile():
+            prof["answer"] = http_fetch(
+                server.port, "POST", f"/lighthouse/device/profile?seconds={HTTP_PROFILE_S}")
+
+        mark = runtime_mark()
+        cuda_fq.reset_launch_counts()
+        profiler = threading.Thread(target=profile, name="http-profile")
+        profiler.start()
+        time.sleep(0.5)
+        status, _, body = timed(
+            "pool/attestations (POST)", "POST", "/eth/v1/beacon/pool/attestations",
+            lambda: http_fetch(server.port, "POST", "/eth/v1/beacon/pool/attestations",
+                               [to_json(a) for a in posted]))
+        post_s = seconds[-1][1]
+        launches = dict(cuda_fq.LAUNCHES)
+        profiler.join(timeout=120)
+        answer = json.loads(body)
+        if status != 400 or [f["index"] for f in answer.get("failures", [])] != \
+                [HTTP_ATTESTERS - 1]:
+            raise AssertionError(f"[http] the attestation POST: HTTP {status} {answer}")
+        records = [r for r in assert_on_device("[http] attestations", mark)
+                   if r["op"] == "bls_verify"]
+        if [(r["n_live"], r["verdict"]) for r in records] != \
+                [(1, True)] * (HTTP_ATTESTERS - 1) + [(1, False)]:
+            raise AssertionError(f"[http] the attestations' records "
+                                 f"{[(r['n_live'], r['verdict']) for r in records]}")
+        for name in KERNELS:
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"[http] {name} was not launched for the attestations")
+        good = [a.as_ssz_bytes() for _, _, a in atts[:-1]]
+        if [a.as_ssz_bytes() for a in published] != good:
+            raise AssertionError(f"[http] publish_attestation_fn received {len(published)}")
+        # The pool aggregates votes of one committee: each committee's entry
+        # is its good votes' (their bits' union; the vote itself where a
+        # committee gave one, as at mainnet width).
+        pool = get("pool/attestations", f"/eth/v1/beacon/pool/attestations?slot={slot}")["data"]
+        want = {}
+        for _, c, a in atts[:-1]:
+            want.setdefault(c, []).append(a)
+        got = {int(a["data"]["index"]): container_from_json(case.types.Attestation, a)
+               for a in pool}
+        for c, votes in want.items():
+            union = [any(bits) for bits in zip(*(list(v.aggregation_bits) for v in votes))]
+            entry = got.get(c)
+            if entry is None or entry.data != votes[0].data or \
+                    list(entry.aggregation_bits) != union or \
+                    (len(votes) == 1 and entry.as_ssz_bytes() != votes[0].as_ssz_bytes()):
+                raise AssertionError(f"[http] the pool's entry of committee {c}: {entry}")
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"[http] the pool at slot {slot} holds committees {sorted(got)}")
+        batches = get("device/batches",
+                      f"/lighthouse/device/batches?op=bls_verify&limit={HTTP_ATTESTERS}")["data"]
+        if [r["seq"] for r in batches] != [r["seq"] for r in reversed(records)]:
+            raise AssertionError(f"[http] /lighthouse/device/batches "
+                                 f"{[r['seq'] for r in batches]}")
+        if profiler.is_alive() or prof.get("answer", (0,))[0] != 200:
+            raise AssertionError(f"[http] the profile: {prof.get('answer')}")
+        trace_path = json.loads(prof["answer"][2])["data"]["path"]
+        with open(trace_path, "rb") as f:
+            trace = f.read()
+        fq_events = trace.count(b"fq_mul_kernel")
+        if not fq_events and device != "cpu":
+            raise AssertionError(f"[http] the profile's trace ({len(trace)} bytes) names no "
+                                 f"fq_mul kernel")
+        stages = {k: sum(r["stages_s"][k] for r in records)
+                  for k in ("setup", "dispatch", "wait", "verdict")}
+        health_data = get("lighthouse/health", "/lighthouse/health")["data"]
+        log(f"[http] {card}: POST /eth/v1/beacon/pool/attestations with {HTTP_ATTESTERS} "
+            f"attestations of slot {slot} for the head (validators "
+            f"{[v for v, _, _ in atts]}, committees {[c for _, c, _ in atts]}, signed on the host "
+            f"in {sign_s:.2f} s; the last under another member's signature): HTTP 400 naming "
+            f"index {HTTP_ATTESTERS - 1} only, in {post_s:.2f} s; {len(records)} single-set "
+            f"supervised bls_verify batches on the card, verdicts "
+            f"{[r['verdict'] for r in records]}, no host fallback, breakers closed; stages "
+            f"summed: setup {stages['setup']:.3f} s, device "
+            f"{stages['dispatch'] + stages['wait']:.3f} s, verdict {stages['verdict']:.3f} s; "
+            f"Fq launches {launches}; publish_attestation_fn got the {len(published)} good "
+            f"ones, the pool at slot {slot} holds them, /lighthouse/device/batches lists the "
+            f"{len(batches)} records")
+        log(f"[http] POST /lighthouse/device/profile?seconds={HTTP_PROFILE_S} beside the POST: "
+            f"200, {trace_path} ({len(trace)} bytes), {fq_events} events name fq_mul_kernel")
+        log(f"[http] /lighthouse/health on the card's machine: {json.dumps(health_data)}")
+        for label, wall, served in seconds:
+            log(f"[http]   {wall:9.4f} s client {served:9.4f} s server  {label}")
+    finally:
+        server.stop()
+        processor.shutdown()
+    return {"state_ssz": state_ssz, "download_s": download_s, "post_s": post_s,
+            "launches": launches, "stages_s": stages,
+            "seconds": {label: [wall, served] for label, wall, served in seconds}}
 
 
 def sign_blinded(hs, block):
@@ -3884,6 +4265,33 @@ def phase_chain_harness(card: str, device: str = "cuda") -> dict:
             raise AssertionError("[chain-harness] a block under another signature was accepted")
         refused = [r["verdict"] for r in assert_on_device("[chain-harness] block", mark)
                    if r["op"] == "bls_verify"]
+        # The block with two attestation signatures swapped, re-signed by
+        # its proposer: the bulk batch False on the card, the node as it was.
+        pre_state, _ = chain.state_at_slot(slot)
+        swapped = real.produce_signed_block(sync_participation=False).message
+        atts = swapped.body.attestations
+        if len(atts) < 2:
+            raise AssertionError(f"[chain-harness] the block carries {len(atts)} attestations")
+        atts[0].signature, atts[1].signature = bytes(atts[1].signature), bytes(atts[0].signature)
+        swapped = real.sign_block(swapped, pre_state)
+        before = chain_snapshot(chain)
+        mark = runtime_mark()
+        t = time.perf_counter()
+        try:
+            chain.process_block(swapped)
+        except BlockError as err:
+            if "bulk signature verification failed" not in str(err):
+                raise
+        else:
+            raise AssertionError("[chain-harness] a swapped attestation signature was accepted")
+        swapped_s = time.perf_counter() - t
+        swapped_rec = [r for r in assert_on_device("[chain-harness] swapped", mark)
+                       if r["op"] == "bls_verify"]
+        if [(r["n_live"] > 1, r["verdict"]) for r in swapped_rec] != [(True, False)]:
+            raise AssertionError(f"[chain-harness] the swapped block's verify records "
+                                 f"{[(r['n_live'], r['verdict']) for r in swapped_rec]}")
+        if chain_snapshot(chain) != before:
+            raise AssertionError("[chain-harness] the refused block changed the node")
         state, _ = chain.state_at_slot(slot)
         committee = h.get_beacon_committee(state, slot, 0, real.spec)
         data = chain.produce_attestation_data(slot, 0)
@@ -3911,7 +4319,10 @@ def phase_chain_harness(card: str, device: str = "cuda") -> dict:
             f"launches {bls_launches}; a fake-backend replay with the same keys built the same "
             f"block and state roots; a block under another signature (BlockError) and an "
             f"attestation signed by another validator (AttestationError) refused, both batches "
-            f"False on the card")
+            f"False on the card; the block with two of its {len(atts)} attestation signatures "
+            f"swapped (BlockError, its bulk batch of {swapped_rec[0]['n_live']} sets False on the "
+            f"card, the head, the store's {before['keys']} keys and the block caches unchanged) "
+            f"in {swapped_s:.2f} s")
 
         # 2. Five epochs to finality on the native store, then the CPU path.
         path = str(Path(tmp) / "chain.db")
@@ -4050,16 +4461,16 @@ def walk_sweep(seed_words, pivots, k: int, m: int, bound_ms: float) -> dict:
         for look in looks})
     default = cuda_epoch.walk_lookahead()
     log(f"[timing] proposer_walk at {s} x {k} lanes x {rounds} rounds by lookahead: "
-        + "; ".join(f"{look}: {mean(walk[look]):.4f} ms ({walk[look][0]:.4f}/{walk[look][1]:.4f}), "
-                    f"one lane {mean(floor[look]):.4f} ms ({-(-rounds // look)} steps, "
-                    f"{mean(floor[look]) / -(-rounds // look) * 1e3:.3f} us a step)"
+        + "; ".join(f"{look}: {walk[look]:.4f} ms, "
+                    f"one lane {floor[look]:.4f} ms ({-(-rounds // look)} steps, "
+                    f"{floor[look] / -(-rounds // look) * 1e3:.3f} us a step)"
                     for look in looks)
         + f"; the default {default}; bound {bound_ms:.4f} ms, the default "
-        f"{bound_ms / mean(walk[default]):.1%} of it; the earlier design "
+        f"{bound_ms / walk[default]:.1%} of it; the earlier design "
         f"{EARLIER_MS['proposer_walk']['ms']} ms (PERF.md, not measured here)")
     return {"lookahead": default,
-            "ms_by_lookahead": {str(look): list(v) for look, v in walk.items()},
-            "floor_ms_by_lookahead": {str(look): list(v) for look, v in floor.items()}}
+            "ms_by_lookahead": {str(look): v for look, v in walk.items()},
+            "floor_ms_by_lookahead": {str(look): v for look, v in floor.items()}}
 
 
 def phase_epoch_timing(epoch_out: dict, max_err: dict, clock_mhz: float,
@@ -4090,6 +4501,7 @@ def phase_epoch_timing(epoch_out: dict, max_err: dict, clock_mhz: float,
 
     ops_per_ms = INT_OPS_PER_CLK_PER_SM * SMS * clock_mhz * 1e3
     dev = torch.device(device)
+    t_start = time.perf_counter()
     plan, leak = epoch_out["plans"][0]
     args, nb = psd.boundary_inputs(plan, dev)
     m = plan.m
@@ -4147,6 +4559,7 @@ def phase_epoch_timing(epoch_out: dict, max_err: dict, clock_mhz: float,
            / len(epoch_out["plans"])}
     row.update(walk_sweep(seed_words, prop_pivots, k, m, b_ms))
     rows.append(row)
+    log(f"[timing] the epoch kernels' rows in {time.perf_counter() - t_start:.1f} s")
 
     # The PyTorch programs at 2^20.
     programs = {}
@@ -4227,10 +4640,13 @@ def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, block_out: dict, wire
     from lighthouse_tpu_torch.bench_kernels import OPS, graph_ms, operands, ops_per_ms, time_library
 
     lib, _ = cuda_fq.library(torch.device("cuda"))
-    timed = time_library(lib, verify_out["sizes"], clock_mhz)
-    per_kzg = {key: time_library(lib, kzg_out[key]["sizes"], clock_mhz) for key in ("kzg6", "kzg192")}
-    per_block = time_library(lib, block_out["fq_sizes"], clock_mhz)
-    per_drain = {key: time_library(lib, drain["sizes"], clock_mhz)
+    # Each launch size is timed once, whichever runs gave it.
+    memo = {}
+    timed = time_library(lib, verify_out["sizes"], clock_mhz, memo)
+    per_kzg = {key: time_library(lib, kzg_out[key]["sizes"], clock_mhz, memo)
+               for key in ("kzg6", "kzg192")}
+    per_block = time_library(lib, block_out["fq_sizes"], clock_mhz, memo)
+    per_drain = {key: time_library(lib, drain["sizes"], clock_mhz, memo)
                  for key, drain in (("wire", wire_out), ("network", net_out))}
     out = []
     for name, spec in KERNELS.items():
@@ -4296,21 +4712,13 @@ def phase_timing(cuda_fq, verify_out: dict, kzg_out: dict, block_out: dict, wire
 
 
 def in_turns(variants: dict, **kw) -> dict:
-    """Device ms of each ``variants[name]()`` (graph replay), timed twice in
-    turns, forward then backward, in one call on one card: {name: (first,
-    second)}."""
+    """Device ms of each ``variants[name]()`` (graph replay), one after the
+    other in one call on one card: {name: ms}.  (Timed twice, forward then
+    backward, the two agreed to three significant figures at every size;
+    PERF.md.)"""
     from lighthouse_tpu_torch.bench_kernels import graph_ms
 
-    names = list(variants)
-    out = {name: [] for name in names}
-    for order in (names, names[::-1]):
-        for name in order:
-            out[name].append(graph_ms(variants[name], **kw))
-    return {name: tuple(v) for name, v in out.items()}
-
-
-def mean(pair) -> float:
-    return sum(pair) / len(pair)
+    return {name: graph_ms(fn, **kw) for name, fn in variants.items()}
 
 
 def subtree_sweep(state_out: dict, bound) -> dict:
@@ -4333,22 +4741,22 @@ def subtree_sweep(state_out: dict, bound) -> dict:
         for t, pair in times.items():
             by_t[t][m] = pair
         chosen = cuda_sha.subtree_threads(m)
-        fastest = min(cuda_sha.SUBTREE_THREADS, key=lambda t: mean(times[t]))
+        fastest = min(cuda_sha.SUBTREE_THREADS, key=lambda t: times[t])
         earlier = EARLIER_MS["tree_hash_subtrees"]["by_size"].get(m)
         log(f"[timing] tree_hash_subtrees at m={m}: "
-            + ", ".join(f"T={t} {mean(p):.4f} ms ({p[0]:.4f}/{p[1]:.4f})"
+            + ", ".join(f"T={t} {p:.4f} ms"
                         for t, p in times.items())
             + f"; the table's T={chosen}, the fastest T={fastest}; bound {bound(m)[0]:.4f} ms, "
-            f"the table's {bound(m)[0] / mean(times['table']):.1%} of it; the earlier design "
+            f"the table's {bound(m)[0] / times['table']:.1%} of it; the earlier design "
             + (f"{earlier} ms (PERF.md, not measured here)" if earlier is not None
                else "not recorded"))
-    state_sums = {str(t): sum(mean(by_t[t][m]) * c for m, c in sizes.items()) for t in by_t}
+    state_sums = {str(t): sum(by_t[t][m] * c for m, c in sizes.items()) for t in by_t}
     log(f"[timing] tree_hash_subtrees over the [state] run's "
         f"{sum(sizes.values())} launches: "
         + ", ".join(f"T={t} {v:.4f} ms" for t, v in state_sums.items())
         + f"; the earlier design {EARLIER_MS['tree_hash_subtrees']['state']} ms (PERF.md, "
         "not measured here)")
-    return {"ms_by_threads": {str(t): {str(m): list(p) for m, p in v.items()}
+    return {"ms_by_threads": {str(t): {str(m): p for m, p in v.items()}
                               for t, v in by_t.items()},
             "state_ms_by_threads": state_sums}
 
@@ -4398,7 +4806,7 @@ def phase_hash_timing(state_out: dict, block_out: dict, max_err: dict, clock_mhz
         n = top[name]
         x = inputs[name](n)
         ms = graph_ms(lambda: wrapper(x))
-        plain_ms = graph_ms(lambda: plain(x), reps=3, rounds=2)
+        plain_ms = graph_ms(lambda: plain(x), reps=1, rounds=2)
         bound_ms, bound_by = bound(name, n)
         sizes = state_out["sizes"][name]
         by_size, plain_by_size = {}, {}
@@ -4410,7 +4818,7 @@ def phase_hash_timing(state_out: dict, block_out: dict, max_err: dict, clock_mhz
                     want if isinstance(want, tuple) else (want,))):
                 raise AssertionError(f"{name} at the [state] size {m}: kernel != plain")
             by_size[m] = graph_ms(lambda: wrapper(y))
-            plain_by_size[m] = graph_ms(lambda: plain(y), reps=3, rounds=2)
+            plain_by_size[m] = graph_ms(lambda: plain(y), reps=1, rounds=2)
         block_sizes = block_out["sha_sizes"][name]
         block_by_size = {m: by_size[m] for m in block_sizes if m in by_size}
         for m in sorted(set(block_sizes) - set(block_by_size)):
@@ -4526,14 +4934,21 @@ def main() -> int:
     with phase_wall("faults"):
         phase_faults(cuda_fq, *kzg_in)
     with phase_wall("timing"):
+        parts = [time.perf_counter()]
         kernels = phase_timing(cuda_fq, verify_out, kzg_out, block_out, chain_out["wire"],
                                chain_out["network"], max_err, clock_mhz)
         for row in kernels:
             row["runtime_launches"] = runtime_out["launches"][row["name"]]
+        parts.append(time.perf_counter())
         kernels += phase_hash_timing(state_out, block_out, max_err, clock_mhz)
+        parts.append(time.perf_counter())
         epoch_rows, programs = phase_epoch_timing(epoch_out, max_err, clock_mhz)
         kernels += epoch_rows
+        parts.append(time.perf_counter())
         log(f"[timing] epoch programs {json.dumps(programs)}")
+        log(f"[timing] the Fq kernels {parts[1] - parts[0]:.1f} s, the SHA-256 kernels "
+            f"{parts[2] - parts[1]:.1f} s, the epoch kernels and programs "
+            f"{parts[3] - parts[2]:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,7 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -162,10 +163,19 @@ def launcher(lib, name: str, n: int):
     return launch, a, b, out
 
 
-def time_library(lib, hist: dict, clock_mhz: float) -> dict:
+def time_library(lib, hist: dict, clock_mhz: float, memo: Optional[dict] = None) -> dict:
     """Each kernel of ``lib`` at every size of ``hist`` and at the mean
-    launch, after a check against the plain version at the largest size."""
+    launch, after a check against the plain version at the largest size.
+    ``memo`` (``{(name, n): ms}``, shared by calls on one library) times
+    each size once across several histograms."""
     from .ops import cuda_fq
+
+    memo = {} if memo is None else memo
+
+    def ms_at(name: str, n: int) -> float:
+        if (name, n) not in memo:
+            memo[(name, n)] = graph_ms(launcher(lib, name, n)[0])
+        return memo[(name, n)]
 
     out = {}
     for name, sizes in hist.items():
@@ -178,7 +188,7 @@ def time_library(lib, hist: dict, clock_mhz: float) -> dict:
         rows = sum(n * c for n, c in sizes.items())
         mean = rows / launches
         mean_n = max(1, round(mean))
-        per_size = {n: graph_ms(launcher(lib, name, n)[0]) for n in sorted(set(sizes) | {mean_n})}
+        per_size = {n: ms_at(name, n) for n in sorted(set(sizes) | {mean_n})}
         out[name] = {
             "verify_ms": sum(per_size[n] * c for n, c in sizes.items()),
             "verify_bound_ms": rows * OPS[name] / ops_per_ms(clock_mhz),

@@ -13,12 +13,14 @@ freezes the journal with what it cross-references.
   the active ``trace_id`` (auto-resolved from ``tracing``'s contextvar),
   and — for device batches — the flight-recorder ``flight_seq``, so
   journal, trace trees and flight records cross-reference three ways.
-- :func:`capture` — on trigger (breaker OPEN, ``DispatchTimeout``, or a
-  caller's own reason) the current journal window is frozen to disk
-  together with the flight ring, the implicated trace trees, the
-  breaker, pipeline and device-telemetry snapshots, a metrics dump, the
-  active fault plans and the log tail.  Bundles live under newest-K
-  retention.
+- :func:`capture` — on trigger (breaker OPEN, ``DispatchTimeout``, a
+  manual ``POST /lighthouse/postmortem``, or a caller's own reason) the
+  current journal window is frozen to disk together with the flight ring,
+  the implicated trace trees, the breaker, pipeline and device-telemetry
+  snapshots, the registered snapshot providers (the HTTP server's
+  admission controller), the fleet timeline, a metrics dump, the active
+  fault plans and the log tail.  Bundles live under newest-K retention
+  and are served by ``GET /lighthouse/postmortems``.
 
 Import discipline: this module is host-side plumbing only (no torch).
 Bundles are written under ``$TMPDIR`` (``LIGHTHOUSE_TPU_BLACKBOX_DIR``
@@ -36,7 +38,7 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional
 
-from . import metrics
+from . import metrics, telemetry_scope
 from .logs import get_logger
 
 log = get_logger("blackbox")
@@ -130,7 +132,7 @@ JOURNAL = Journal()
 
 
 def emit(source: str, event: str, *, trace_id: Optional[str] = None,
-         flight_seq: Optional[int] = None, **fields) -> dict:
+         flight_seq=None, link=None, **fields) -> dict:
     """Append one record to the incident journal (the seam entry point).
 
     ``trace_id`` is auto-resolved from the active span when not given;
@@ -138,9 +140,14 @@ def emit(source: str, event: str, *, trace_id: Optional[str] = None,
     production, the virtual clock under the scenario runner).  Returns
     the record with its assigned ``seq``.
 
-    The JAX package's per-node mirroring (telemetry scopes, Lamport ticks,
-    cross-node links) comes with a multi-node simulator, which the port
-    does not have yet.
+    When a :mod:`telemetry_scope` is active the record is ALSO mirrored
+    into that node's scoped journal, stamped with ``node`` and a Lamport
+    ``lamport`` tick — ``merge_journals`` orders the fleet timeline on
+    those.  ``link=(origin_node, origin_lamport)`` declares a cross-node
+    causal edge (a gossip import linking back to the proposal): the local
+    clock ticks past the origin's, so the linked record merges strictly
+    after its cause.  ``flight_seq`` accepts the plain int or the fleet
+    ``(node_id, seq)`` pair.
     """
     if trace_id is None:
         from . import tracing
@@ -160,13 +167,106 @@ def emit(source: str, event: str, *, trace_id: Optional[str] = None,
     if trace_id is not None:
         record["trace_id"] = trace_id
     if flight_seq is not None:
-        record["flight_seq"] = int(flight_seq)
+        if isinstance(flight_seq, (tuple, list)):
+            record["flight_seq"] = [str(flight_seq[0]), int(flight_seq[1])]
+        else:
+            record["flight_seq"] = int(flight_seq)
     for k, v in fields.items():
         if v is not None:
             record[k] = v
+    scope = telemetry_scope.current()
+    if scope is not None:
+        record["node"] = scope.node_id
+        if link is not None:
+            record["link"] = [str(link[0]), int(link[1])]
+            record["lamport"] = scope.tick(at_least=int(link[1]))
+            telemetry_scope.FLEET_TRACE_LINKS.inc(kind="journal-link")
+        else:
+            record["lamport"] = scope.tick()
+        telemetry_scope.FLEET_JOURNAL_EVENTS.inc(node=scope.node_id)
+        scope.tally.inc("fleet_journal_events_total", source=source)
     JOURNAL.append(record)
+    if scope is not None:
+        # per-node mirror: the copy gets the SCOPED journal's own seq
+        scope.journal.append(dict(record))
     BLACKBOX_EVENTS.inc(source=source)
     return record
+
+
+# ----------------------------------------------------- fleet timeline merge
+
+#: Fields dropped from merged fleet-timeline entries: wall-clock stamps and
+#: trace ids contain run-local entropy (``os.urandom`` suffixes, real time)
+#: — the merged timeline must be byte-identical across two runs at one
+#: seed, so only seed-deterministic fields survive the fold.  Canonical
+#: fleet time is the virtual ``slot`` (the fault-injection slot provider),
+#: not ``t_ms``.
+VOLATILE_FIELDS = frozenset({"t_ms", "trace_id", "remote_trace_id",
+                             "flight_seq"})
+
+
+def merge_key(record: dict):
+    """(virtual slot, Lamport clock, node id, per-node seq) — slot-major,
+    so cross-slot causality holds by construction and same-slot cross-node
+    edges hold via the Lamport tick (see :func:`emit`'s ``link``)."""
+    slot = record.get("slot")
+    return (
+        -1 if slot is None else int(slot),
+        int(record.get("lamport", 0)),
+        str(record.get("node", "")),
+        int(record.get("seq", 0)),
+    )
+
+
+def merge_journals(journals: Dict[str, List[dict]]) -> List[dict]:
+    """Fold N per-node journal windows (``node_id -> records``) into ONE
+    causally ordered fleet timeline, keyed by :func:`merge_key` with
+    :data:`VOLATILE_FIELDS` dropped.  Tolerates empty/partial journals,
+    clock skew (per-node Lamport rates differ freely), and a node restart
+    resetting its Lamport state (restarted records re-order only within
+    their own slot, never across slots)."""
+    merged: List[dict] = []
+    for node_id, records in journals.items():
+        for r in records or ():
+            entry = {k: v for k, v in r.items() if k not in VOLATILE_FIELDS}
+            entry.setdefault("node", str(node_id))
+            merged.append(entry)
+    merged.sort(key=merge_key)
+    return merged
+
+
+def fleet_summary(limit: Optional[int] = None) -> dict:
+    """The ``GET /lighthouse/fleet`` payload, also frozen into every
+    postmortem bundle and SOAK artifact: per-node scope snapshots plus the
+    merged fleet timeline over all registered scopes."""
+    scopes = telemetry_scope.all_scopes()
+    timeline = merge_journals(
+        {s.node_id: s.journal.window() for s in scopes})
+    if limit is not None:
+        timeline = timeline[-max(1, int(limit)):]
+    return {
+        "nodes": [s.snapshot() for s in scopes],
+        "timeline": timeline,
+    }
+
+
+# ------------------------------------------------------- snapshot registry
+
+#: Extra snapshot providers frozen into each bundle (name -> thunk).  The
+#: HTTP server registers its admission controller here; anything process-
+#: local that a 3am triage would want can join.
+_SNAPSHOTTERS: Dict[str, Callable[[], Any]] = {}
+_SNAPSHOTTERS_LOCK = threading.Lock()
+
+
+def register_snapshot(name: str, fn: Callable[[], Any]) -> None:
+    with _SNAPSHOTTERS_LOCK:
+        _SNAPSHOTTERS[name] = fn
+
+
+def unregister_snapshot(name: str) -> None:
+    with _SNAPSHOTTERS_LOCK:
+        _SNAPSHOTTERS.pop(name, None)
 
 
 def _safe(fn: Callable[[], Any]) -> Any:
@@ -246,6 +346,7 @@ def _gather_snapshots() -> Dict[str, Any]:
         return {
             "programs": device_telemetry.COMPILE_CACHE.inventory(),
             "host_fallbacks": device_telemetry.host_fallback_counts(),
+            "boundary_primes": device_telemetry.boundary_prime_counts(),
             "flight_recorder": {
                 "capacity": device_telemetry.FLIGHT_RECORDER.capacity,
                 "stored": len(device_telemetry.FLIGHT_RECORDER),
@@ -257,6 +358,10 @@ def _gather_snapshots() -> Dict[str, Any]:
     sections["supervisor"] = _safe(_supervisor)
     sections["pipeline"] = _safe(_pipeline)
     sections["telemetry"] = _safe(_telemetry)
+    with _SNAPSHOTTERS_LOCK:
+        extra = dict(_SNAPSHOTTERS)
+    for name, fn in extra.items():
+        sections[name] = _safe(fn)
     return sections
 
 
@@ -323,6 +428,7 @@ def capture(reason: str, extra: Optional[dict] = None) -> dict:
             "faults": _safe(_faults),
             "logs_tail": _safe(_logs),
             "metrics": _safe(metrics.render_prometheus),
+            "fleet": _safe(fleet_summary),
         }
         if extra is not None:
             bundle["extra"] = extra
@@ -384,8 +490,20 @@ def bundle_files() -> List[dict]:
     return out
 
 
+def load_bundle(name: str) -> Optional[dict]:
+    """One bundle by file name (no path components accepted)."""
+    if os.path.basename(name) != name or not name.startswith(BUNDLE_PREFIX):
+        return None
+    path = os.path.join(bundle_dir(), name)
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
 def summary() -> dict:
-    """The black box's state: journal, captures and bundles on disk."""
+    """The ``GET /lighthouse/postmortems`` payload."""
     return {
         "dir": bundle_dir(),
         "retain": retain(),
@@ -408,3 +526,4 @@ def reset_for_tests() -> None:
         _INDEX.clear()
     _DIR_OVERRIDE = None
     _RETAIN_OVERRIDE = None
+    telemetry_scope.reset_for_tests()

@@ -56,8 +56,9 @@ card the port hands the error to every group's future instead (with
 ``device="cpu"`` the host still re-hashes).  :class:`JobPipeline` runs
 batch-global jobs (the epoch programs: registry-wide sums, nothing to
 coalesce) FIFO under the same arbiter; the supervised call inside the job
-keeps the direct path's failure rules.  The JAX package's API-side
-arbiter turnstile comes with the HTTP API.
+keeps the direct path's failure rules.  The HTTP API's cache-miss
+handlers take :func:`api_arbiter_slot`: a bounded acquire of the same
+slot, a turnstile while the pipelines route.
 
 **Adaptive linger**: unless pinned (env
 ``LIGHTHOUSE_TPU_PIPELINE_LINGER_S`` or an explicit ``linger_s``), the
@@ -67,7 +68,7 @@ duration (``device_telemetry.recent_inflight_seconds``).
 Observability: ``device_pipeline_{pending_sets,depth,batch_fill_ratio,
 linger_seconds,wait_seconds,batches_total,groups_total}`` metrics (by op;
 the hash pipeline counts blocks where the bls one counts sets),
-``device_arbiter_{wait_seconds,grants_total}``, a ``pipeline_batch`` trace
+``device_arbiter_{wait_seconds,grants_total,api_timeouts_total}``, a ``pipeline_batch`` trace
 root per coalesced dispatch, flight-recorder records carrying
 ``n_groups``/``work_mix``, and :func:`summary`.
 """
@@ -200,6 +201,48 @@ class DeviceArbiter:
             finally:
                 with self._stats:
                     self._holder = None
+
+    @contextmanager
+    def api_slot(self, op: str, timeout: float = 2.0, hold: bool = True):
+        """Arbiter contention for a non-pipelined caller: the HTTP API's
+        cache-miss state queries.  Differs from :meth:`slot` in two
+        deliberate ways:
+
+        - ``timeout``-bounded acquire: an API thread that cannot get the
+          slot proceeds UNGATED (counted on
+          ``device_arbiter_api_timeouts_total``) instead of deadlocking —
+          a read query is never worth wedging the serving thread pool.
+        - ``hold=False`` runs the body AFTER releasing the slot (a
+          turnstile): the caller waits its turn behind in-flight device
+          dispatch, but does not exclude the pipelines while its own body
+          runs.  Required whenever the body may submit pipeline jobs
+          (``run_job`` legs acquire the slot from the pipeline worker —
+          holding here while waiting on their futures is a deadlock)."""
+        t0 = time.perf_counter()
+        acquired = self._lock.acquire(timeout=timeout)
+        wait = time.perf_counter() - t0
+        if not acquired:
+            metrics.DEVICE_ARBITER_API_TIMEOUTS.inc(op=op)
+            yield
+            return
+        with self._stats:
+            self._grants[op] = self._grants.get(op, 0) + 1
+            self._wait_s[op] = self._wait_s.get(op, 0.0) + wait
+            self._holder = op
+        metrics.DEVICE_ARBITER_WAIT_SECONDS.observe(wait, op=op)
+        metrics.DEVICE_ARBITER_GRANTS.inc(op=op)
+        if not hold:
+            with self._stats:
+                self._holder = None
+            self._lock.release()
+            yield
+            return
+        try:
+            yield
+        finally:
+            with self._stats:
+                self._holder = None
+            self._lock.release()
 
     def snapshot(self) -> dict:
         with self._stats:
@@ -1338,6 +1381,20 @@ def run_job(op: str, fn, work: Optional[str] = None, device=None):
             hist=metrics.DEVICE_PIPELINE_WAIT_SECONDS,
             hist_labels={"op": op}, work=fut.work,
         )
+
+
+@contextmanager
+def api_arbiter_slot(op: str = "http_state_query"):
+    """Arbiter contention for an API-side device-bearing computation (the
+    HTTP layer's cache-miss state/duties/rewards work).  When the pipelines
+    are routing, this is a turnstile — the caller queues for the slot like
+    any pipelined work, then releases before running so its own nested
+    ``run_job`` legs (epoch deltas, hash batches) can re-contend from the
+    pipeline workers without deadlocking.  When the pipelines are off, the
+    slot is held across the body: the API thread's direct device dispatches
+    are then serialized against any other direct callers."""
+    with ARBITER.api_slot(op, hold=not _ENABLED):
+        yield
 
 
 def summary() -> Optional[dict]:

@@ -195,8 +195,10 @@ class FlightRecorder:
         return entry
 
     def recent(self, limit: int = 64, op: Optional[str] = None,
-               trace_id: Optional[str] = None) -> List[dict]:
-        """Newest-first records, optionally filtered by op / trace id."""
+               trace_id: Optional[str] = None,
+               node: Optional[str] = None) -> List[dict]:
+        """Newest-first records, optionally filtered by op / trace id /
+        originating node (fleet runs stamp ``node`` via telemetry_scope)."""
         with self._lock:
             records = list(self._ring)
         records.reverse()
@@ -204,6 +206,8 @@ class FlightRecorder:
             records = [r for r in records if r.get("op") == op]
         if trace_id is not None:
             records = [r for r in records if r.get("trace_id") == trace_id]
+        if node is not None:
+            records = [r for r in records if r.get("node") == node]
         return [dict(r) for r in records[:max(1, limit)]]
 
     @property
@@ -296,12 +300,26 @@ def record_batch(
         reason = fallback_reason or "unknown"
         with _FALLBACKS_LOCK:
             _FALLBACKS[reason] = _FALLBACKS.get(reason, 0) + 1
+    # Node attribution (fleet runs): a batch dispatched under an active
+    # telemetry scope is stamped with its node, mirrored into the scope's
+    # flight tail, and cross-referenced as a (node, seq) flight_seq pair —
+    # a plain int seq is ambiguous once N nodes share the process ring.
+    from . import telemetry_scope
+
+    scope = telemetry_scope.current()
+    if scope is not None:
+        entry["node"] = scope.node_id
     entry = FLIGHT_RECORDER.record(entry)
+    if scope is not None:
+        scope.note_flight(entry)
+        fseq = (scope.node_id, entry["seq"])
+    else:
+        fseq = entry["seq"]
     # Every dispatched batch joins the incident journal with its
     # flight_seq, so a postmortem bundle's journal window cross-references
     # the ring (and, via trace_id, the span tree) record-for-record.
     blackbox.emit("device_batch", "dispatch", trace_id=entry["trace_id"],
-                  flight_seq=entry["seq"], op=op, shape=entry["shape"],
+                  flight_seq=fseq, op=op, shape=entry["shape"],
                   n_live=int(n_live), verdict=verdict,
                   host_fallback=bool(host_fallback) or None,
                   fallback_reason=fallback_reason,

@@ -1,14 +1,18 @@
-"""Beacon-node HTTP API (reference ``beacon_node/http_api``).
+"""Beacon-node HTTP API: server (reference ``beacon_node/http_api``), typed
+client (``common/eth2``), and the beacon-API JSON serde layer.
 
-Only the beacon-API JSON serde layer (``serde.py``, a copy of the JAX
-package's) is here so far: the builder client needs ``to_json`` and
-``container_from_json``.  The server and the typed client come with the
-rest of the HTTP API.
+A copy of the JAX package's ``lighthouse_tpu/http_api``.
 """
 
+from .client import ApiClientError, BeaconNodeHttpClient
 from .serde import container_from_json, to_json
+from .server import ApiError, HttpApiServer
 
 __all__ = [
+    "ApiClientError",
+    "ApiError",
+    "BeaconNodeHttpClient",
+    "HttpApiServer",
     "container_from_json",
     "to_json",
 ]

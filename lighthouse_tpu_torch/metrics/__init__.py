@@ -5,9 +5,9 @@ thin helpers over a global prometheus registry) plus the hot-path stage
 timers of batch verification and block import
 (``beacon_node/beacon_chain/src/metrics.rs:40-271``).  The port keeps the
 JAX package's registry and, of its metrics, those the device runtime, the
-BLS API, the KZG path, the chain and the scheduler touch, with their names,
-labels and buckets; the HTTP API's and the mesh's metrics come with those
-modules.  The network's and the slasher's counters sit at the end.
+BLS API, the KZG path, the chain, the scheduler and the HTTP API touch,
+with their names, labels and buckets; the mesh's metrics come with that
+module.  The network's and the slasher's counters sit at the end.
 
 Design: a plain-Python registry with lock-free-enough updates (single
 attribute stores under the GIL), rendered on demand in the Prometheus text
@@ -29,8 +29,8 @@ _REGISTRY: "Dict[str, _Metric]" = {}
 # inspection — the registry itself stays first-wins.
 DUPLICATE_REGISTRATIONS: List[Tuple[str, str, str]] = []
 
-# Callbacks run before each render (sampled-on-scrape values register here;
-# see device_telemetry.py).
+# Callbacks run before each render (process metrics and other sampled-on-
+# scrape values register here; see system_health.py, device_telemetry.py).
 _COLLECTORS: List[Callable[[], None]] = []
 
 
@@ -268,6 +268,10 @@ def histogram(name: str, help_text: str = "", buckets: Tuple[float, ...] = DEFAU
 
 def render_prometheus() -> str:
     """The full registry in Prometheus text exposition format."""
+    # Ensure the standard process-metric collector is registered (lazy: a
+    # top-level import would be circular — system_health imports metrics).
+    from .. import system_health  # noqa: F401
+
     with _REGISTRY_LOCK:
         collectors = list(_COLLECTORS)
         metrics = list(_REGISTRY.values())
@@ -442,6 +446,12 @@ DEVICE_ARBITER_GRANTS = counter(
     "device-dispatch slots granted by the shared pipeline arbiter, by op",
 )
 
+DEVICE_ARBITER_API_TIMEOUTS = counter(
+    "device_arbiter_api_timeouts_total",
+    "API-side arbiter acquisitions that timed out and proceeded ungated, "
+    "by op",
+)
+
 # ------------------------------------------------------------------- chain
 # Chain stage timers (reference beacon_chain/src/metrics.rs:40-271), the
 # block import's stages as ``chain/beacon_chain.py`` spans them.
@@ -501,8 +511,44 @@ QUEUE_WAIT_SECONDS = histogram(
     "enqueue-to-drain wait in the priority queues, by work class",
 )
 
-# The chain's event bus (chain/events.py): a slow subscriber loses events
-# (bounded queue, non-blocking publish) and the loss is counted here.
+# The Beacon API (http_api/server.py): requests by method and route
+# template (never the raw path: ids stay out of the label space).
+HTTP_REQUESTS = counter(
+    "http_api_requests_total",
+    "Beacon API requests, by method and route template",
+)
+HTTP_REQUEST_SECONDS = histogram(
+    "http_api_request_seconds",
+    "Beacon API request time, by method and route template",
+)
+
+# Checkpoint-keyed HTTP response cache (http_api/response_cache.py): per
+# route-template hit/miss (hit rate per route in one PromQL expression),
+# invalidations by the chain event that fired them, and occupancy.
+HTTP_CACHE_HITS = counter(
+    "http_response_cache_hits_total",
+    "Beacon API responses served from the checkpoint-keyed cache, by route",
+)
+HTTP_CACHE_MISSES = counter(
+    "http_response_cache_misses_total",
+    "cacheable Beacon API requests that missed the cache, by route",
+)
+HTTP_CACHE_INVALIDATIONS = counter(
+    "http_response_cache_invalidations_total",
+    "cache entries invalidated by a chain event, by topic",
+)
+HTTP_CACHE_ENTRIES = gauge(
+    "http_response_cache_entries",
+    "live entries in the checkpoint-keyed response cache",
+)
+
+# The chain's event bus (chain/events.py) and its SSE stream: per-topic
+# delivery vs slow-consumer drops.  A slow subscriber loses events (bounded
+# queue, non-blocking publish) and the loss is counted here.
+SSE_EVENTS_SENT = counter(
+    "http_sse_events_sent_total",
+    "server-sent events written to a subscriber stream, by topic",
+)
 SSE_EVENTS_DROPPED = counter(
     "http_sse_events_dropped_total",
     "server-sent events dropped on a full subscriber queue, by topic",

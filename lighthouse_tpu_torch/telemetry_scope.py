@@ -45,9 +45,10 @@ Import discipline: host-side plumbing only, like ``blackbox.py``.
 
 A copy of the JAX package's ``lighthouse_tpu/telemetry_scope.py``, on plain
 ``threading.Lock`` locks (what the JAX package's ``locksmith.lock`` returns
-while its lock sanitizer is off).  The port's ``blackbox`` does not mirror
-its records into a scope yet; the network stamps envelopes with a scope's
-trace context and defers fleet events into it, as in the JAX package.
+while its lock sanitizer is off).  As in the JAX package, ``blackbox``
+mirrors its records into the active scope, ``device_telemetry`` stamps its
+flight records with the scope's node, and the network stamps envelopes
+with a scope's trace context and defers fleet events into it.
 """
 
 from __future__ import annotations

@@ -31,9 +31,10 @@ tree is serialized at read time — it just renders past its parent's end.
 
 Cross-node hops (a gossip block published by another node) resume the
 envelope's trace context as a fresh local root (:func:`resume_remote`).
-The JAX package's HTTP trace surface (trace summaries, Chrome trace-event
-export) comes with the HTTP API; the port reads :data:`TRACES` and
-:func:`trace_to_dict` directly.
+
+HTTP surface (``http_api/server.py``): ``/lighthouse/traces`` lists recent
+trace summaries; ``/lighthouse/traces/{trace_id}`` returns the full tree,
+``?format=chrome`` as Chrome trace-event JSON loadable in Perfetto.
 """
 
 from __future__ import annotations
@@ -186,7 +187,7 @@ def annotate(**fields) -> None:
 def annotate_trace(**fields) -> None:
     """Merge fields into the active TRACE's root span — how an inner stage
     keys the whole trace (a block import stamps its slot on the enclosing
-    root so ``TRACES.recent(slot=...)`` finds it)."""
+    work/http root so ``TRACES.recent(slot=...)`` finds it)."""
     sp = _current.get()
     if sp is not None:
         sp.trace.root.fields.update(fields)
@@ -293,3 +294,42 @@ def trace_to_dict(trace: Trace) -> dict:
         "dropped_spans": trace.dropped,
         "root": span_to_dict(root, root.start_pc),
     }
+
+
+def trace_summary(trace: Trace) -> dict:
+    root = trace.root
+    out = {
+        "trace_id": trace.trace_id,
+        "root": root.name,
+        "started_at_ms": int(root.start_wall * 1000),
+        "duration_s": round(root.duration, 6),
+        "n_spans": trace.n_spans,
+    }
+    if "slot" in root.fields:
+        out["slot"] = root.fields["slot"]
+    return out
+
+
+def trace_to_chrome(trace: Trace) -> dict:
+    """Chrome trace-event JSON (``ph: "X"`` complete events, microsecond
+    timestamps relative to the trace root) — loadable in Perfetto /
+    chrome://tracing."""
+    root = trace.root
+    events: List[dict] = []
+
+    def walk(sp: Span) -> None:
+        events.append({
+            "name": sp.name,
+            "cat": "lighthouse_tpu",
+            "ph": "X",
+            "ts": round((sp.start_pc - root.start_pc) * 1e6, 1),
+            "dur": round(sp.duration * 1e6, 1),
+            "pid": os.getpid(),
+            "tid": sp.tid,
+            "args": {k: str(v) for k, v in sp.fields.items()},
+        })
+        for c in sp.children:
+            walk(c)
+
+    walk(root)
+    return {"displayTimeUnit": "ms", "traceEvents": events}

@@ -542,6 +542,12 @@ class TestYamux:
         try:
             sa.open_stream().send(b"ping")
             reply = sa.accept_stream(timeout=10.0)
+            # The reply's frame can arrive before the callback's append
+            # returns: wait for the append, as the frame already proves the
+            # re-entry did not deadlock.
+            deadline = time.time() + 10.0
+            while not opened and time.time() < deadline:
+                time.sleep(0.005)
             assert reply.stream_id % 2 == 0 and opened
         finally:
             sa.close(); sb.close()
