@@ -70,9 +70,12 @@ Phases, each of which raises on a failed check:
 10. state  — BeaconState tree hashing at mainnet width on the default
              device: a Deneb mainnet-preset state of 2^20 validators from a
              seed; its root with ``tree_hash.configure(enabled=True)`` and
-             ``install_device_hash()``, then after one slot's changes in two
-             steps (1 % of balances and 64 effective balances; then 16
-             appended validators); each root equal to the root the host
+             ``install_device_hash()``, then after one slot's changes (1 % of
+             balances and 64 effective balances); then a state of 2^16
+             validators from the same seed, its full root and its root
+             after 16 appended validators (appending resets the registry
+             cache, so at 2^20 it would repeat the full root); each root
+             equal to the root the host
              engines compute on the native kernel, both kernels launched
              (counts set to 0 just before the first root, read after the
              last), no host fallback, breakers closed; blocks and seconds
@@ -154,7 +157,7 @@ Phases, each of which raises on a failed check:
              verifies, on the card); refused, the head, the store's key
              count and the block caches unchanged: a copy of the block
              whose sidecar 3 carries sidecar 4's proof (the kzg_batch
-             False on the card); then [http] on this node; a
+             False on the card); then [http] and [vc] on this node; a
              fresh ``HotColdDB`` on the same file reads back the block
              byte for byte, the post-state's stored SSZ bytes (those of
              [http]'s download) and its summary;
@@ -193,12 +196,12 @@ Phases, each of which raises on a failed check:
              discv5 lookup, each step of the handshake ladder on both
              ends, the native cipher's seal and open calls, yamux's and
              meshsub's framing;
-    network — then the same over a seeded in-process ``Hub``, cut to 512
-             attestations (8 members of each committee after [wire]'s 64)
-             and 64 aggregates over them (each committee's second
-             aggregator in key order: a node observes one aggregate an
-             aggregator and epoch), with the same gates (512 sets; 192
-             sets, bucket 256 x 8); then 8 more,
+    network — then the same over a seeded in-process ``Hub``, cut to 64
+             attestations (the next member of each committee after
+             [wire]'s 64) and 64 aggregates over them (each committee's
+             second aggregator in key order: a node observes one aggregate
+             an aggregator and epoch), with the same gates (64 sets; 192
+             sets); then 8 more,
              one under another member's signature: one batch False on the
              card, 8 single verifies, exactly one ``bad_signature``
              rejection of pub; after the import (with the sync batch and
@@ -223,24 +226,65 @@ Phases, each of which raises on a failed check:
              run's post-state; the root, the committees and the duties
              asked twice, each second answer a cache hit (byte for byte,
              no handler run), the arbiter's ``http_api`` grants equal to
-             the misses; then nine attestations of the head's slot, one
-             from each of nine committees, the last under another
+             the misses; then three attestations of the head's slot, one
+             from each of three committees, the last under another
              member's signature, POSTed to the pool: HTTP 400 naming index
-             8 only, nine single-set supervised bls_verify batches on the
-             card (eight True, then False), both Fq kernels launched, the
-             eight good ones published and pooled, and
-             ``/lighthouse/device/batches`` listing the nine records; beside
-             the POST, ``POST /lighthouse/device/profile?seconds=3``: 200,
-             its trace naming ``fq_mul_kernel``; each request's seconds on
-             the client and in ``http_api_request_seconds``;
+             2 only, three single-set supervised bls_verify batches on the
+             card (two True, then False), both Fq kernels launched, the
+             two good ones published and pooled, and
+             ``/lighthouse/device/batches`` listing the three records;
+             beside the POST, ``POST /lighthouse/device/profile?seconds=3``:
+             200, its trace naming ``fq_mul_kernel``; each request's seconds
+             on the client and in ``http_api_request_seconds``; the server's
+             task spawner waits HTTP_TIMEOUT_S for a handler (its default
+             30 s cannot cover a duty poll at 2^20);
+    vc     — then, on the same server and the same node, a validator
+             client: the first 8 keyed, unslashed members of the
+             committees of slot S+2 (the head is S+1) not yet seen
+             attesting in the epoch (the double vote's validator is one
+             of S+2's), written as EIP-2335
+             keystores (``crypto.keystore.encrypt`` at its defaults,
+             scrypt n = 2^18) and imported over HTTP through
+             ``KeymanagerServer`` into the client's empty
+             ``ValidatorStore``, ``GET /eth/v1/keystores`` listing the 8;
+             the two official EIP-2335 vectors decrypt to their secrets;
+             the node's clock to S+2, then ``ValidatorClient.run_slot(S+2)``
+             with one ``BeaconNodeHttpClient`` (timeout HTTP_TIMEOUT_S) and
+             an EIP-3076 database on a lockbox file: its attester duties of
+             epochs E and E+1, proposer duties of E and sync duties equal
+             the head state's committees, proposers and sync committee;
+             its summary proposes nothing, attests 8 times and sends one
+             sync message per sync duty; the pool at S+2 holds the 8 votes
+             byte for byte as the client signed them; on the card 8
+             single-set bls_verify batches, one sync batch, one three-set
+             batch for each aggregate and one for the contributions the
+             client was elected to publish, every verdict True, no host
+             fallback, both Fq kernels launched (counts set to 0 just
+             before ``run_slot``, read just after); a second vote at S+2
+             for another head refused by the client's database
+             (``SlashingProtectionError``, nothing POSTed), the database's
+             interchange export listing the 8 votes; printed: each call's
+             seconds on the client (split into ``state.copy`` and
+             ``process_slots``) and each route's in
+             ``http_api_request_seconds``, the host's signing seconds, the
+             KDF seconds, the verifies' stages and
+             ``http_requests_shed_total``;
 14. chain-harness — the SURVEY §7 harness (minimal preset, 64 interop
-             validators): two slots of real crypto on the default device
-             (each block's bulk batch and 16 single attestation verifies on
-             the card, no host fallback), the same chain as a replay on
-             the fake backend, a block under another signature, an
-             attestation by another validator and the block with two
-             attestation signatures swapped (the chain unchanged) refused
-             by verdicts on the card; then 40 fake-crypto slots on a HotColdDB over a lockbox
+             validators), real crypto on the default device: a
+             ``ValidatorClient`` with the 64 interop keys, over HTTP to an
+             ``HttpApiServer`` on the chain, runs its first slot: it
+             proposes (its block the head, imported with one bulk batch on
+             the card), attests, sends sync messages, aggregates (every
+             duty at this committee size) and publishes contributions,
+             each count equal to the slot's duties and every batch True
+             on the card, no host fallback; the same slot on the fake
+             backend against a replay harness gives the same block and
+             state roots; a second block at the slot is refused by the
+             client's slashing protection; at the next slot a block under
+             another signature, an attestation by another validator and
+             the block with two of the client's attestations under each
+             other's signatures (the chain unchanged) refused by verdicts
+             on the card; then 40 fake-crypto slots on a HotColdDB over a lockbox
              file: justified epoch >= 4, finalized >= 3, the hot->cold
              migration (a cold state equal to the chain's), each boundary's
              fused program on the card and both epoch kernels launched,
@@ -312,8 +356,8 @@ through the device supervisor (``device_supervisor.py``); the script fails
 if any of them took the host route or left a breaker open.  Per-batch stages come from
 the flight recorder (``device_telemetry``).
 
-Each phase (and [wire], [network], the double vote and [http] inside
-[chain])
+Each phase (and [wire], [network], the double vote, [http] and [vc]
+inside [chain])
 prints ``[phase] <name> <seconds> s``, its wall time.  The line before the
 last is one JSON object naming every kernel with its numbers; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA,
@@ -396,11 +440,14 @@ EARLIER_MS = {
 #: [state]: validators in the registry (the order of mainnet's, the top of
 #: the JAX package's epoch buckets); the slot's changes (the JAX package's
 #: bench STATE_DIRTY_FRACTION of the balances, effective balances,
-#: deposits).
+#: deposits); the registry of the deposit step's own state (appending resets
+#: the registry cache, as in the JAX package, so at 2^20 the step repeats
+#: the full root).
 STATE_VALIDATORS = 1 << 20
 STATE_DIRTY_FRACTION = 0.01
 STATE_EFFECTIVE = 64
 STATE_APPENDED = 16
+STATE_DEPOSIT_VALIDATORS = 1 << 16
 #: [hash-runtime]: threads updating their own tree, leaves a tree, dirty
 #: share of an update.
 HASH_THREADS = 8
@@ -457,27 +504,38 @@ EL_JWT_SECRET = random.Random(0xE1).randbytes(32)
 #: 4,096: its arrays take 48 bytes a validator and epoch), the hub's seed
 #: and the seconds the node may take to drain.
 WIRE_ATTESTERS = 64  # [wire]: 4,096 attestations of a 64-committee slot
-NET_ATTESTERS = 8  # [network]: 512, from the members after [wire]'s
+NET_ATTESTERS = 1  # [network]: 64, one a committee after [wire]'s members
 NET_TAMPERED = 8
 SLASHER_HISTORY = 64
 NET_SEED = 0x6055
 NET_IDLE_S = 900.0
 #: [http]: the Beacon API on [chain]'s node: the indices of the balance,
 #: duty and reward reads (seeded), the attestations POSTed to the pool (one
-#: a committee; the last under another member's signature), the
-#: profiler's window and the client's timeout.
+#: a committee: two good ones, then one under another member's signature;
+#: [vc]'s POST of VC_KEYS carries the many-attestation case), the
+#: profiler's window and the timeout of the client and of the server's
+#: task spawner (a duty poll at 2^20 copies the state).
 HTTP_IDS = 64
-HTTP_ATTESTERS = 9
+HTTP_ATTESTERS = 3
 HTTP_PROFILE_S = 3
 HTTP_SEED = 0x4777
 HTTP_TIMEOUT_S = 600.0
+#: [vc]: the validator client's keys (keyed, unslashed members of the
+#: committees of the slot after the head's that have not attested in the
+#: epoch, imported as EIP-2335
+#: keystores at the default work factor) and their password.
+VC_KEYS = 8
+VC_PASSWORD = "chip_smoke validator client"
 HARNESS_VALIDATORS = 64
-HARNESS_REAL_SLOTS = 2
 HARNESS_SLOTS = 40
 #: [chain-harness]'s eth1 path: the interop index of the new depositor;
 #: the graffiti of its builder and eth1 blocks.
 ETH1_NEW_VALIDATOR = 100
 HARNESS_GRAFFITI = b"chip_smoke builder/eth1".ljust(32, b"\x00")
+#: [timing]: the plain versions of the SHA-256 and epoch rows, timed on one
+#: replay of one call after the untimed warm replay (their figures held to
+#: three significant figures over PRs 7-13 at two replays).
+PLAIN_ONCE = {"reps": 1, "rounds": 1}
 #: The supervisor's counters whose deltas each fault case asserts.
 SUPERVISOR_COUNTERS = {
     "host_fallbacks": "DEVICE_HOST_FALLBACK",
@@ -1149,6 +1207,18 @@ def phase_state(card: str, device: str = "cuda") -> dict:
     balances = device_root(f"incremental ({counts})", mark)
     if balances["root"] != golden_bal:
         raise AssertionError("[state] root after the balance changes != host golden")
+    # The deposits on a state of their own: appending resets the registry
+    # cache (as in the JAX package), so at 2^20 the step repeats the full
+    # root.
+    t0 = time.perf_counter()
+    state, types = random_state(STATE_DEPOSIT_VALIDATORS, seed=0x57A7E)
+    host_cache = dev_cache = None
+    deposit_build_s = time.perf_counter() - t0
+    golden_base, _ = golden(f"deposit state ({STATE_DEPOSIT_VALIDATORS} validators, built in "
+                            f"{deposit_build_s:.2f} s) full")
+    base = device_root(f"deposit state ({STATE_DEPOSIT_VALIDATORS} validators) full", mark)
+    if base["root"] != golden_base:
+        raise AssertionError("[state] the deposit state's full root on the card != host golden")
     counts = append_validators(state, types, seed=0xDE90, count=STATE_APPENDED)
     golden_dep, golden_dep_s = golden("after the deposits")
     deposits = device_root(f"incremental ({counts})", mark)
@@ -1162,13 +1232,15 @@ def phase_state(card: str, device: str = "cuda") -> dict:
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"{name} was not launched on the [state] path")
-    log(f"[state] {card}: full, balance-step and deposit-step roots equal the host golden; "
+    log(f"[state] {card}: full and balance-step roots at {STATE_VALIDATORS} validators, full "
+        f"and deposit-step roots at {STATE_DEPOSIT_VALIDATORS}, each equal to the host golden; "
         f"kernel launches {launches}, launch sizes {sizes}; no host fallback, breakers closed")
     return {"launches": launches, "sizes": sizes, "build_s": build_s,
-            "roots": {"full": full, "balances": balances, "deposits": deposits},
+            "roots": {"full": full, "balances": balances, "deposit_base": base,
+                      "deposits": deposits},
             "golden_s": {"full": golden_full_s, "balances": golden_bal_s,
                          "deposits": golden_dep_s},
-            "validators": len(state.validators)}
+            "validators": STATE_VALIDATORS}
 
 
 def phase_hash_runtime(card: str, device: str = "cuda") -> dict:
@@ -2053,9 +2125,10 @@ def phase_block(card: str, device: str = "cuda", validators: int = BLOCK_VALIDAT
                 case=None, build_s: float = 0.0) -> dict:
     """Block import at mainnet width on the default device (see the module
     docstring), on ``case`` (:func:`block_case`, built here when None).
-    The import applies the block to ``case.pre_state`` in place.  The
-    kernels' launch counts are set to 0 just before the import and read
-    just after it."""
+    The import applies the block to ``case.pre_state`` in place; the
+    returned ``"anchor"`` is a copy taken before, after the warm root, so
+    it carries the tree-hash cache ([chain]'s anchor).  The kernels' launch
+    counts are set to 0 just before the import and read just after it."""
     import copy
     import sys
 
@@ -2112,11 +2185,15 @@ def phase_block(card: str, device: str = "cuda", validators: int = BLOCK_VALIDAT
         spare = clone_state(pre)
         copy_s = time.perf_counter() - t
         t = time.perf_counter()
+        anchor = clone_state(pre)
+        anchor_copy_s = time.perf_counter() - t
+        t = time.perf_counter()
         fc = ForkChoice(spec=spec, genesis_block_root=parent_root, genesis_state=pre)
         anchor_s = time.perf_counter() - t
         log(f"[block] the state's tree-hash cache warmed by one full root on {card} in "
             f"{warm_root_s:.2f} s (untimed beside the import); a copy for the refusals "
-            f"{copy_s:.2f} s; fork choice anchored at the state in {anchor_s:.2f} s")
+            f"{copy_s:.2f} s, one for [chain]'s anchor {anchor_copy_s:.2f} s; fork choice "
+            f"anchored at the state in {anchor_s:.2f} s")
 
         # The import, its host stages timed by wrapping the callees.
         verifier = per_block.BlockSignatureVerifier
@@ -2252,7 +2329,7 @@ def phase_block(card: str, device: str = "cuda", validators: int = BLOCK_VALIDAT
             "stages_s": st, "bucket": batch["shape"], "sets": batch["n_live"],
             "launches": launches, "fq_sizes": fq_sizes, "sha_sizes": sha_sizes,
             "fork_choice_s": fc_s, "anchor_s": anchor_s, "tampered_s": tampered_s,
-            "wrong_root_s": wrong_root_s}
+            "wrong_root_s": wrong_root_s, "anchor": anchor}
 
 
 def phase_block_faults(device: str = "cuda") -> None:
@@ -3312,8 +3389,9 @@ def metrics_total(counter) -> float:
 def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
     """A checkpoint-synced node at mainnet width on the default device (see
     the module docstring).  ``anchor`` is a copy of the case's pre-state
-    taken before [block] applied the block to it; the kernels' launch
-    counts are set to 0 just before the import and read just after it."""
+    taken before [block] applied the block to it, with [block]'s warm
+    tree-hash cache; the kernels' launch counts are set to 0 just before
+    the import and read just after it."""
     import copy
     import shutil
     import sys
@@ -3363,7 +3441,7 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
     server.handle = handle
     server.start()
     try:
-        # The anchor: its hash cache warmed by one full root, then the node.
+        # The anchor: its root from the cache it carries, then the node.
         t = time.perf_counter()
         anchor.hash_tree_root()
         warm_root_s = time.perf_counter() - t
@@ -3383,8 +3461,9 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
         if chain.genesis_block_root != bytes(block.parent_root):
             raise AssertionError("[chain] the anchor's block root is not the block's parent")
         log(f"[chain] {card}: the anchor (the case's pre-state, {len(anchor.validators)} "
-            f"validators at slot {int(anchor.slot)}): its hash cache warmed by one full root "
-            f"in {warm_root_s:.2f} s, then BeaconChain(db=HotColdDB(hot=LockboxStore)) in "
+            f"validators at slot {int(anchor.slot)}): its root from the tree-hash cache its "
+            f"copy carries from [block] in {warm_root_s:.2f} s, then "
+            f"BeaconChain(db=HotColdDB(hot=LockboxStore)) in "
             f"{anchor_s['wall']:.2f} s: its root {anchor_s['root']:.3f} s, its store write "
             f"{anchor_s['ssz'] + anchor_s['lockbox_put']:.2f} s (SSZ bytes "
             f"{anchor_s['ssz']:.2f} s, "
@@ -3611,11 +3690,20 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
         net["cell"].shutdown()
 
         # [http]: the Beacon API on the node; its checkpoint-sync download
-        # is the post-state's SSZ for the restart below.
-        with phase_wall("http"):
-            http_out = phase_http(card, case, chain, sidecars, ref_ssz, device=device)
-        post_ssz = http_out.pop("state_ssz")
-        del ref_ssz
+        # is the post-state's SSZ for the restart below.  Then [vc]: a
+        # validator client with keystore-imported keys on the same server.
+        served = api_server(chain)
+        try:
+            with phase_wall("http"):
+                http_out = phase_http(card, case, chain, sidecars, ref_ssz, device=device,
+                                      served=served)
+            post_ssz = http_out.pop("state_ssz")
+            del ref_ssz
+            with phase_wall("vc"):
+                vc_out = phase_vc(card, case, chain, clock, served, tmp)
+        finally:
+            served[0].stop()
+            served[1].shutdown()
 
         # The restart: a fresh HotColdDB on the same file.
         state_root = bytes(block.state_root)
@@ -3656,7 +3744,7 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
             "sets": verifies[0]["n_live"], "sync_s": sync_s, "sync_sign_s": sign_s,
             "sync_stages_s": sst, "sync_bucket": sync_rec[0]["shape"],
             "sync_tampered_s": tampered_s, "refusals_s": refusals, "restart_s": restart_s,
-            "http": http_out}
+            "http": http_out, "vc": vc_out}
 
 
 def head_attestations(case, state, root: bytes, count: int) -> list:
@@ -3719,26 +3807,38 @@ def http_fetch(port: int, method: str, path: str, body=None, ssz: bool = False,
         conn.close()
 
 
-def phase_http(card: str, case, chain, sidecars, ref_ssz: bytes, device: str = "cuda") -> dict:
+def api_server(chain) -> tuple:
+    """[http]'s and [vc]'s server on ``chain``: an ``HttpApiServer`` over a
+    ``BeaconProcessor`` of two workers, the response cache on, its task
+    spawner waiting HTTP_TIMEOUT_S for a handler; with the list its
+    ``publish_attestation_fn`` appends to.  Returns (server, processor,
+    published), the server started."""
+    from lighthouse_tpu_torch.http_api import HttpApiServer
+    from lighthouse_tpu_torch.scheduler import BeaconProcessor
+
+    published = []
+    processor = BeaconProcessor(max_workers=2)
+    server = HttpApiServer(chain, processor=processor, publish_attestation_fn=published.append)
+    server.spawner.timeout = HTTP_TIMEOUT_S
+    return server.start(), processor, published
+
+
+def phase_http(card: str, case, chain, sidecars, ref_ssz: bytes, served,
+               device: str = "cuda") -> dict:
     """The Beacon API on [chain]'s node (see the module docstring): reads
-    checked against the node's own objects, the response cache, nine
+    checked against the node's own objects, the response cache, three
     attestations POSTed to the pool and verified on the card while the
     profiler runs, and the checkpoint-sync state download (its body,
     equal to ``ref_ssz``, is returned for the restart's comparison).  With
     ``device="cpu"`` (a rehearsal on the plain versions, which launch no
-    kernel) the profile's trace need not name ``fq_mul_kernel``."""
+    kernel) the profile's trace need not name ``fq_mul_kernel``.
+    ``served`` is :func:`api_server`'s triple, which the caller stops."""
     from lighthouse_tpu_torch import device_pipeline, metrics
     from lighthouse_tpu_torch.chain.rewards import attestation_rewards
     from lighthouse_tpu_torch.consensus import helpers as h
-    from lighthouse_tpu_torch.http_api import (
-        BeaconNodeHttpClient,
-        HttpApiServer,
-        container_from_json,
-        to_json,
-    )
+    from lighthouse_tpu_torch.http_api import BeaconNodeHttpClient, container_from_json, to_json
     from lighthouse_tpu_torch.http_api import server as server_mod
     from lighthouse_tpu_torch.ops import cuda_fq
-    from lighthouse_tpu_torch.scheduler import BeaconProcessor
 
     spec = case.spec
     state, root = chain.head_state, chain.head_root
@@ -3756,10 +3856,7 @@ def phase_http(card: str, case, chain, sidecars, ref_ssz: bytes, device: str = "
     bad.signature = bytes(atts[-2][2].signature)
     posted = [a for _, _, a in atts[:-1]] + [bad]
 
-    published = []
-    processor = BeaconProcessor(max_workers=2)
-    server = HttpApiServer(chain, processor=processor,
-                           publish_attestation_fn=published.append).start()
+    server, processor, published = served
     client = BeaconNodeHttpClient(server.url, timeout=HTTP_TIMEOUT_S)
     cache = server.response_cache
     seconds = []  # (label, client s, server s)
@@ -3810,212 +3907,629 @@ def phase_http(card: str, case, chain, sidecars, ref_ssz: bytes, device: str = "
         return json.loads(first[2])
 
     grants0 = device_pipeline.ARBITER.snapshot()["grants"].get("http_api", 0)
-    try:
-        # Reads, each against the node's own objects.
-        if timed("node/version", "GET", "/eth/v1/node/version", client.node_version) != \
-                server_mod.VERSION_STRING:
-            raise AssertionError("[http] node/version")
-        syncing = get("node/syncing", "/eth/v1/node/syncing")["data"]
-        distance = chain.current_slot() - slot
-        if syncing["head_slot"] != str(slot) or syncing["sync_distance"] != str(distance):
-            raise AssertionError(f"[http] node/syncing {syncing}")
-        health = fetch("node/health", "GET", "/eth/v1/node/health")[0]
-        if health != (200 if distance <= 1 else 206):
-            raise AssertionError(f"[http] node/health {health} at distance {distance}")
-        genesis = get("beacon/genesis", "/eth/v1/beacon/genesis")["data"]
-        if genesis["genesis_time"] != str(int(state.genesis_time)) or \
-                genesis["genesis_validators_root"] != \
-                "0x" + bytes(state.genesis_validators_root).hex():
-            raise AssertionError(f"[http] beacon/genesis {genesis}")
-        got = cached_twice("states/head/root", "GET", "/eth/v1/beacon/states/head/root")
-        if got["data"]["root"] != "0x" + state.hash_tree_root().hex():
-            raise AssertionError(f"[http] states/head/root {got}")
-        fc = get("finality_checkpoints", "/eth/v1/beacon/states/head/finality_checkpoints")
-        want = {"previous_justified": to_json(state.previous_justified_checkpoint),
-                "current_justified": to_json(state.current_justified_checkpoint),
-                "finalized": to_json(state.finalized_checkpoint)}
-        if fc["data"] != want:
-            raise AssertionError(f"[http] finality_checkpoints {fc['data']} != {want}")
-        for i in (0, 1, n // 2, n - 1):
-            v = get(f"validators/{i}", f"/eth/v1/beacon/states/head/validators/{i}")["data"]
-            if (v["index"], v["balance"], v["validator"]) != \
-                    (str(i), str(int(state.balances[i])), to_json(state.validators[i])):
-                raise AssertionError(f"[http] validators/{i} {v}")
-        ids = rng.sample(range(n), HTTP_IDS)
-        bal = get("validator_balances", "/eth/v1/beacon/states/head/validator_balances?id="
-                  + ",".join(map(str, ids)))["data"]
-        if bal != [{"index": str(i), "balance": str(int(state.balances[i]))} for i in ids]:
-            raise AssertionError("[http] validator_balances != the state's")
-        committees = cached_twice("committees", "GET",
-                                  f"/eth/v1/beacon/states/head/committees?slot={slot}")["data"]
-        want = [{"index": str(c), "slot": str(slot),
-                 "validators": [str(int(v)) for v in h.get_beacon_committee(state, slot, c, spec)]}
-                for c in range(count)]
-        if committees != want or len(committees) != count:
-            raise AssertionError(f"[http] committees: {len(committees)} != the state's {count}")
-        duty_of = {}
-        while len(duty_of) < HTTP_IDS:
-            s_, c_ = start + rng.randrange(spec.slots_per_epoch), rng.randrange(count)
-            committee = h.get_beacon_committee(state, s_, c_, spec)
-            pos = rng.randrange(len(committee))
-            duty_of.setdefault(int(committee[pos]), (s_, c_, pos, len(committee)))
-        duties = cached_twice("duties/attester", "POST",
-                              f"/eth/v1/validator/duties/attester/{epoch}",
-                              [str(v) for v in duty_of])["data"]
-        got = {int(d["validator_index"]): (int(d["slot"]), int(d["committee_index"]),
-                                           int(d["validator_committee_index"]),
-                                           int(d["committee_length"])) for d in duties}
-        if len(duties) != HTTP_IDS or got != duty_of or \
-                any(d["committees_at_slot"] != str(count) for d in duties):
-            raise AssertionError("[http] attester duties != the committees")
-        reward_ids = rng.sample(range(n), HTTP_IDS)
-        rewards = timed("rewards/attestations", "POST",
-                        f"/eth/v1/beacon/rewards/attestations/{epoch - 1}",
-                        lambda: client.post(f"/eth/v1/beacon/rewards/attestations/{epoch - 1}",
-                                            [str(i) for i in reward_ids]))["data"]
-        t = time.perf_counter()
-        direct = json.loads(json.dumps(attestation_rewards(state, spec, reward_ids)))
-        direct_s = time.perf_counter() - t
-        if rewards != direct:
-            raise AssertionError("[http] rewards/attestations != rewards.attestation_rewards")
-        header = get("headers/head", "/eth/v1/beacon/headers/head")["data"]
-        msg = signed.message
-        if header["root"] != "0x" + root.hex() or header["header"]["message"] != {
-                "slot": str(int(msg.slot)), "proposer_index": str(int(msg.proposer_index)),
-                "parent_root": "0x" + bytes(msg.parent_root).hex(),
-                "state_root": "0x" + bytes(msg.state_root).hex(),
-                "body_root": "0x" + msg.body.hash_tree_root().hex()}:
-            raise AssertionError(f"[http] headers/head {header}")
-        raw_block, version = timed("blocks/head (SSZ)", "GET", "/eth/v2/beacon/blocks/head",
-                                   lambda: client.get_ssz("/eth/v2/beacon/blocks/head"))
-        if raw_block != signed.as_ssz_bytes() or version != type(msg).fork_name:
-            raise AssertionError("[http] blocks/head: the SSZ body != the imported block's")
-        blobs = get("blob_sidecars/head", "/eth/v1/beacon/blob_sidecars/head")["data"]
-        if blobs != [to_json(sc) for sc in sidecars]:
-            raise AssertionError("[http] blob_sidecars/head != the six sidecars")
-        # The checkpoint-sync download.
-        t = time.perf_counter()
-        state_ssz, version = timed("debug/beacon/states/head (SSZ)", "GET",
-                                   "/eth/v2/debug/beacon/states/head",
-                                   lambda: client.get_ssz("/eth/v2/debug/beacon/states/head"))
-        download_s = time.perf_counter() - t
-        if state_ssz != ref_ssz or version != type(state).fork_name:
-            raise AssertionError("[http] the SSZ state download != the host run's post-state")
-        misses = cache.misses
-        grants = device_pipeline.ARBITER.snapshot()["grants"].get("http_api", 0) - grants0
-        if grants != misses or misses != len(first_cached):
-            raise AssertionError(f"[http] arbiter grants {grants}, cache misses {misses}, "
-                                 f"first asks of cached routes {first_cached}")
-        log(f"[http] {card}: HttpApiServer on {server.url} (a BeaconProcessor of 2 workers, "
-            f"the response cache on) read by BeaconNodeHttpClient: version, syncing (head "
-            f"{slot}, distance {distance}), health {health}, genesis, the head state's root and "
-            f"finality checkpoints, validators {[0, 1, n // 2, n - 1]}, {HTTP_IDS} balances, the "
-            f"{count} committees of slot {slot}, {HTTP_IDS} attester duties of epoch {epoch}, "
-            f"{HTTP_IDS} attestation rewards of epoch {epoch - 1} (rewards.attestation_rewards "
-            f"called directly: {direct_s:.2f} s), the head's header, block (SSZ) and "
-            f"{len(blobs)} blob sidecars: each equal to the node's own")
-        log(f"[http] the response cache: states/head/root, the committees and the attester "
-            f"duties asked twice, each second answer a hit (byte for byte, "
-            f"http_response_cache_hits_total +1, no handler run); {misses} misses, each through "
-            f"api_arbiter_slot('http_api'): the arbiter's http_api grants +{grants}")
-        log(f"[http] the checkpoint-sync download GET /eth/v2/debug/beacon/states/head as SSZ: "
-            f"{len(state_ssz)} bytes in {download_s:.2f} s ({len(state_ssz) / 1e6 / download_s:.1f} "
-            f"MB/s), byte for byte the host run's post-state")
+    # Reads, each against the node's own objects.
+    if timed("node/version", "GET", "/eth/v1/node/version", client.node_version) != \
+            server_mod.VERSION_STRING:
+        raise AssertionError("[http] node/version")
+    syncing = get("node/syncing", "/eth/v1/node/syncing")["data"]
+    distance = chain.current_slot() - slot
+    if syncing["head_slot"] != str(slot) or syncing["sync_distance"] != str(distance):
+        raise AssertionError(f"[http] node/syncing {syncing}")
+    health = fetch("node/health", "GET", "/eth/v1/node/health")[0]
+    if health != (200 if distance <= 1 else 206):
+        raise AssertionError(f"[http] node/health {health} at distance {distance}")
+    genesis = get("beacon/genesis", "/eth/v1/beacon/genesis")["data"]
+    if genesis["genesis_time"] != str(int(state.genesis_time)) or \
+            genesis["genesis_validators_root"] != \
+            "0x" + bytes(state.genesis_validators_root).hex():
+        raise AssertionError(f"[http] beacon/genesis {genesis}")
+    got = cached_twice("states/head/root", "GET", "/eth/v1/beacon/states/head/root")
+    if got["data"]["root"] != "0x" + state.hash_tree_root().hex():
+        raise AssertionError(f"[http] states/head/root {got}")
+    fc = get("finality_checkpoints", "/eth/v1/beacon/states/head/finality_checkpoints")
+    want = {"previous_justified": to_json(state.previous_justified_checkpoint),
+            "current_justified": to_json(state.current_justified_checkpoint),
+            "finalized": to_json(state.finalized_checkpoint)}
+    if fc["data"] != want:
+        raise AssertionError(f"[http] finality_checkpoints {fc['data']} != {want}")
+    for i in (0, 1, n // 2, n - 1):
+        v = get(f"validators/{i}", f"/eth/v1/beacon/states/head/validators/{i}")["data"]
+        if (v["index"], v["balance"], v["validator"]) != \
+                (str(i), str(int(state.balances[i])), to_json(state.validators[i])):
+            raise AssertionError(f"[http] validators/{i} {v}")
+    ids = rng.sample(range(n), HTTP_IDS)
+    bal = get("validator_balances", "/eth/v1/beacon/states/head/validator_balances?id="
+              + ",".join(map(str, ids)))["data"]
+    if bal != [{"index": str(i), "balance": str(int(state.balances[i]))} for i in ids]:
+        raise AssertionError("[http] validator_balances != the state's")
+    committees = cached_twice("committees", "GET",
+                              f"/eth/v1/beacon/states/head/committees?slot={slot}")["data"]
+    want = [{"index": str(c), "slot": str(slot),
+             "validators": [str(int(v)) for v in h.get_beacon_committee(state, slot, c, spec)]}
+            for c in range(count)]
+    if committees != want or len(committees) != count:
+        raise AssertionError(f"[http] committees: {len(committees)} != the state's {count}")
+    duty_of = {}
+    while len(duty_of) < HTTP_IDS:
+        s_, c_ = start + rng.randrange(spec.slots_per_epoch), rng.randrange(count)
+        committee = h.get_beacon_committee(state, s_, c_, spec)
+        pos = rng.randrange(len(committee))
+        duty_of.setdefault(int(committee[pos]), (s_, c_, pos, len(committee)))
+    duties = cached_twice("duties/attester", "POST",
+                          f"/eth/v1/validator/duties/attester/{epoch}",
+                          [str(v) for v in duty_of])["data"]
+    got = {int(d["validator_index"]): (int(d["slot"]), int(d["committee_index"]),
+                                       int(d["validator_committee_index"]),
+                                       int(d["committee_length"])) for d in duties}
+    if len(duties) != HTTP_IDS or got != duty_of or \
+            any(d["committees_at_slot"] != str(count) for d in duties):
+        raise AssertionError("[http] attester duties != the committees")
+    reward_ids = rng.sample(range(n), HTTP_IDS)
+    rewards = timed("rewards/attestations", "POST",
+                    f"/eth/v1/beacon/rewards/attestations/{epoch - 1}",
+                    lambda: client.post(f"/eth/v1/beacon/rewards/attestations/{epoch - 1}",
+                                        [str(i) for i in reward_ids]))["data"]
+    t = time.perf_counter()
+    direct = json.loads(json.dumps(attestation_rewards(state, spec, reward_ids)))
+    direct_s = time.perf_counter() - t
+    if rewards != direct:
+        raise AssertionError("[http] rewards/attestations != rewards.attestation_rewards")
+    header = get("headers/head", "/eth/v1/beacon/headers/head")["data"]
+    msg = signed.message
+    if header["root"] != "0x" + root.hex() or header["header"]["message"] != {
+            "slot": str(int(msg.slot)), "proposer_index": str(int(msg.proposer_index)),
+            "parent_root": "0x" + bytes(msg.parent_root).hex(),
+            "state_root": "0x" + bytes(msg.state_root).hex(),
+            "body_root": "0x" + msg.body.hash_tree_root().hex()}:
+        raise AssertionError(f"[http] headers/head {header}")
+    raw_block, version = timed("blocks/head (SSZ)", "GET", "/eth/v2/beacon/blocks/head",
+                               lambda: client.get_ssz("/eth/v2/beacon/blocks/head"))
+    if raw_block != signed.as_ssz_bytes() or version != type(msg).fork_name:
+        raise AssertionError("[http] blocks/head: the SSZ body != the imported block's")
+    blobs = get("blob_sidecars/head", "/eth/v1/beacon/blob_sidecars/head")["data"]
+    if blobs != [to_json(sc) for sc in sidecars]:
+        raise AssertionError("[http] blob_sidecars/head != the six sidecars")
+    # The checkpoint-sync download.
+    t = time.perf_counter()
+    state_ssz, version = timed("debug/beacon/states/head (SSZ)", "GET",
+                               "/eth/v2/debug/beacon/states/head",
+                               lambda: client.get_ssz("/eth/v2/debug/beacon/states/head"))
+    download_s = time.perf_counter() - t
+    if state_ssz != ref_ssz or version != type(state).fork_name:
+        raise AssertionError("[http] the SSZ state download != the host run's post-state")
+    misses = cache.misses
+    grants = device_pipeline.ARBITER.snapshot()["grants"].get("http_api", 0) - grants0
+    if grants != misses or misses != len(first_cached):
+        raise AssertionError(f"[http] arbiter grants {grants}, cache misses {misses}, "
+                             f"first asks of cached routes {first_cached}")
+    log(f"[http] {card}: HttpApiServer on {server.url} (a BeaconProcessor of 2 workers, "
+        f"the response cache on) read by BeaconNodeHttpClient: version, syncing (head "
+        f"{slot}, distance {distance}), health {health}, genesis, the head state's root and "
+        f"finality checkpoints, validators {[0, 1, n // 2, n - 1]}, {HTTP_IDS} balances, the "
+        f"{count} committees of slot {slot}, {HTTP_IDS} attester duties of epoch {epoch}, "
+        f"{HTTP_IDS} attestation rewards of epoch {epoch - 1} (rewards.attestation_rewards "
+        f"called directly: {direct_s:.2f} s), the head's header, block (SSZ) and "
+        f"{len(blobs)} blob sidecars: each equal to the node's own")
+    log(f"[http] the response cache: states/head/root, the committees and the attester "
+        f"duties asked twice, each second answer a hit (byte for byte, "
+        f"http_response_cache_hits_total +1, no handler run); {misses} misses, each through "
+        f"api_arbiter_slot('http_api'): the arbiter's http_api grants +{grants}")
+    log(f"[http] the checkpoint-sync download GET /eth/v2/debug/beacon/states/head as SSZ: "
+        f"{len(state_ssz)} bytes in {download_s:.2f} s ({len(state_ssz) / 1e6 / download_s:.1f} "
+        f"MB/s), byte for byte the host run's post-state")
 
-        # Nine attestations to the pool, verified on the card, while the
-        # profiler runs over the API.
-        prof = {}
+    # Three attestations to the pool, verified on the card, while the
+    # profiler runs over the API.  A short capture first: the profiler's
+    # first start in the process (CUPTI's) would eat into the window.
+    warm = http_fetch(server.port, "POST", "/lighthouse/device/profile?seconds=0.05")
+    if warm[0] != 200:
+        raise AssertionError(f"[http] the warm-up profile: HTTP {warm[0]}")
+    warm_s = json.loads(warm[2])["data"]["seconds"]
+    prof = {}
 
-        def profile():
-            prof["answer"] = http_fetch(
-                server.port, "POST", f"/lighthouse/device/profile?seconds={HTTP_PROFILE_S}")
+    def profile():
+        prof["answer"] = http_fetch(
+            server.port, "POST", f"/lighthouse/device/profile?seconds={HTTP_PROFILE_S}")
 
-        mark = runtime_mark()
-        cuda_fq.reset_launch_counts()
-        profiler = threading.Thread(target=profile, name="http-profile")
-        profiler.start()
-        time.sleep(0.5)
-        status, _, body = timed(
-            "pool/attestations (POST)", "POST", "/eth/v1/beacon/pool/attestations",
-            lambda: http_fetch(server.port, "POST", "/eth/v1/beacon/pool/attestations",
-                               [to_json(a) for a in posted]))
-        post_s = seconds[-1][1]
-        launches = dict(cuda_fq.LAUNCHES)
-        profiler.join(timeout=120)
-        answer = json.loads(body)
-        if status != 400 or [f["index"] for f in answer.get("failures", [])] != \
-                [HTTP_ATTESTERS - 1]:
-            raise AssertionError(f"[http] the attestation POST: HTTP {status} {answer}")
-        records = [r for r in assert_on_device("[http] attestations", mark)
-                   if r["op"] == "bls_verify"]
-        if [(r["n_live"], r["verdict"]) for r in records] != \
-                [(1, True)] * (HTTP_ATTESTERS - 1) + [(1, False)]:
-            raise AssertionError(f"[http] the attestations' records "
-                                 f"{[(r['n_live'], r['verdict']) for r in records]}")
-        for name in KERNELS:
-            if launches.get(name, 0) <= 0:
-                raise AssertionError(f"[http] {name} was not launched for the attestations")
-        good = [a.as_ssz_bytes() for _, _, a in atts[:-1]]
-        if [a.as_ssz_bytes() for a in published] != good:
-            raise AssertionError(f"[http] publish_attestation_fn received {len(published)}")
-        # The pool aggregates votes of one committee: each committee's entry
-        # is its good votes' (their bits' union; the vote itself where a
-        # committee gave one, as at mainnet width).
-        pool = get("pool/attestations", f"/eth/v1/beacon/pool/attestations?slot={slot}")["data"]
-        want = {}
-        for _, c, a in atts[:-1]:
-            want.setdefault(c, []).append(a)
-        got = {int(a["data"]["index"]): container_from_json(case.types.Attestation, a)
-               for a in pool}
-        for c, votes in want.items():
-            union = [any(bits) for bits in zip(*(list(v.aggregation_bits) for v in votes))]
-            entry = got.get(c)
-            if entry is None or entry.data != votes[0].data or \
-                    list(entry.aggregation_bits) != union or \
-                    (len(votes) == 1 and entry.as_ssz_bytes() != votes[0].as_ssz_bytes()):
-                raise AssertionError(f"[http] the pool's entry of committee {c}: {entry}")
-        if sorted(got) != sorted(want):
-            raise AssertionError(f"[http] the pool at slot {slot} holds committees {sorted(got)}")
-        batches = get("device/batches",
-                      f"/lighthouse/device/batches?op=bls_verify&limit={HTTP_ATTESTERS}")["data"]
-        if [r["seq"] for r in batches] != [r["seq"] for r in reversed(records)]:
-            raise AssertionError(f"[http] /lighthouse/device/batches "
-                                 f"{[r['seq'] for r in batches]}")
-        if profiler.is_alive() or prof.get("answer", (0,))[0] != 200:
-            raise AssertionError(f"[http] the profile: {prof.get('answer')}")
-        trace_path = json.loads(prof["answer"][2])["data"]["path"]
-        with open(trace_path, "rb") as f:
-            trace = f.read()
-        fq_events = trace.count(b"fq_mul_kernel")
-        if not fq_events and device != "cpu":
-            raise AssertionError(f"[http] the profile's trace ({len(trace)} bytes) names no "
-                                 f"fq_mul kernel")
-        stages = {k: sum(r["stages_s"][k] for r in records)
-                  for k in ("setup", "dispatch", "wait", "verdict")}
-        health_data = get("lighthouse/health", "/lighthouse/health")["data"]
-        log(f"[http] {card}: POST /eth/v1/beacon/pool/attestations with {HTTP_ATTESTERS} "
-            f"attestations of slot {slot} for the head (validators "
-            f"{[v for v, _, _ in atts]}, committees {[c for _, c, _ in atts]}, signed on the host "
-            f"in {sign_s:.2f} s; the last under another member's signature): HTTP 400 naming "
-            f"index {HTTP_ATTESTERS - 1} only, in {post_s:.2f} s; {len(records)} single-set "
-            f"supervised bls_verify batches on the card, verdicts "
-            f"{[r['verdict'] for r in records]}, no host fallback, breakers closed; stages "
-            f"summed: setup {stages['setup']:.3f} s, device "
-            f"{stages['dispatch'] + stages['wait']:.3f} s, verdict {stages['verdict']:.3f} s; "
-            f"Fq launches {launches}; publish_attestation_fn got the {len(published)} good "
-            f"ones, the pool at slot {slot} holds them, /lighthouse/device/batches lists the "
-            f"{len(batches)} records")
-        log(f"[http] POST /lighthouse/device/profile?seconds={HTTP_PROFILE_S} beside the POST: "
-            f"200, {trace_path} ({len(trace)} bytes), {fq_events} events name fq_mul_kernel")
-        log(f"[http] /lighthouse/health on the card's machine: {json.dumps(health_data)}")
-        for label, wall, served in seconds:
-            log(f"[http]   {wall:9.4f} s client {served:9.4f} s server  {label}")
-    finally:
-        server.stop()
-        processor.shutdown()
+    mark = runtime_mark()
+    cuda_fq.reset_launch_counts()
+    profiler = threading.Thread(target=profile, name="http-profile")
+    profiler.start()
+    time.sleep(0.5)
+    status, _, body = timed(
+        "pool/attestations (POST)", "POST", "/eth/v1/beacon/pool/attestations",
+        lambda: http_fetch(server.port, "POST", "/eth/v1/beacon/pool/attestations",
+                           [to_json(a) for a in posted]))
+    post_s = seconds[-1][1]
+    launches = dict(cuda_fq.LAUNCHES)
+    profiler.join(timeout=120)
+    answer = json.loads(body)
+    if status != 400 or [f["index"] for f in answer.get("failures", [])] != \
+            [HTTP_ATTESTERS - 1]:
+        raise AssertionError(f"[http] the attestation POST: HTTP {status} {answer}")
+    records = [r for r in assert_on_device("[http] attestations", mark)
+               if r["op"] == "bls_verify"]
+    if [(r["n_live"], r["verdict"]) for r in records] != \
+            [(1, True)] * (HTTP_ATTESTERS - 1) + [(1, False)]:
+        raise AssertionError(f"[http] the attestations' records "
+                             f"{[(r['n_live'], r['verdict']) for r in records]}")
+    for name in KERNELS:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"[http] {name} was not launched for the attestations")
+    good = [a.as_ssz_bytes() for _, _, a in atts[:-1]]
+    if [a.as_ssz_bytes() for a in published] != good:
+        raise AssertionError(f"[http] publish_attestation_fn received {len(published)}")
+    # The pool aggregates votes of one committee: each committee's entry
+    # is its good votes' (their bits' union; the vote itself where a
+    # committee gave one, as at mainnet width).
+    pool = get("pool/attestations", f"/eth/v1/beacon/pool/attestations?slot={slot}")["data"]
+    want = {}
+    for _, c, a in atts[:-1]:
+        want.setdefault(c, []).append(a)
+    got = {int(a["data"]["index"]): container_from_json(case.types.Attestation, a)
+           for a in pool}
+    for c, votes in want.items():
+        union = [any(bits) for bits in zip(*(list(v.aggregation_bits) for v in votes))]
+        entry = got.get(c)
+        if entry is None or entry.data != votes[0].data or \
+                list(entry.aggregation_bits) != union or \
+                (len(votes) == 1 and entry.as_ssz_bytes() != votes[0].as_ssz_bytes()):
+            raise AssertionError(f"[http] the pool's entry of committee {c}: {entry}")
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"[http] the pool at slot {slot} holds committees {sorted(got)}")
+    batches = get("device/batches",
+                  f"/lighthouse/device/batches?op=bls_verify&limit={HTTP_ATTESTERS}")["data"]
+    if [r["seq"] for r in batches] != [r["seq"] for r in reversed(records)]:
+        raise AssertionError(f"[http] /lighthouse/device/batches "
+                             f"{[r['seq'] for r in batches]}")
+    if profiler.is_alive() or prof.get("answer", (0,))[0] != 200:
+        raise AssertionError(f"[http] the profile: {prof.get('answer')}")
+    captured = json.loads(prof["answer"][2])["data"]
+    trace_path = captured["path"]
+    with open(trace_path, "rb") as f:
+        trace = f.read()
+    fq_events = trace.count(b"fq_mul_kernel")
+    if not fq_events and device != "cpu":
+        raise AssertionError(f"[http] the profile's trace ({len(trace)} bytes, captured in "
+                             f"{captured['seconds']} s; the warm-up {warm_s} s) names no "
+                             f"fq_mul kernel")
+    stages = {k: sum(r["stages_s"][k] for r in records)
+              for k in ("setup", "dispatch", "wait", "verdict")}
+    health_data = get("lighthouse/health", "/lighthouse/health")["data"]
+    log(f"[http] {card}: POST /eth/v1/beacon/pool/attestations with {HTTP_ATTESTERS} "
+        f"attestations of slot {slot} for the head (validators "
+        f"{[v for v, _, _ in atts]}, committees {[c for _, c, _ in atts]}, signed on the host "
+        f"in {sign_s:.2f} s; the last under another member's signature): HTTP 400 naming "
+        f"index {HTTP_ATTESTERS - 1} only, in {post_s:.2f} s; {len(records)} single-set "
+        f"supervised bls_verify batches on the card, verdicts "
+        f"{[r['verdict'] for r in records]}, no host fallback, breakers closed; stages "
+        f"summed: setup {stages['setup']:.3f} s, device "
+        f"{stages['dispatch'] + stages['wait']:.3f} s, verdict {stages['verdict']:.3f} s; "
+        f"Fq launches {launches}; publish_attestation_fn got the {len(published)} good "
+        f"ones, the pool at slot {slot} holds them, /lighthouse/device/batches lists the "
+        f"{len(batches)} records")
+    log(f"[http] POST /lighthouse/device/profile?seconds={HTTP_PROFILE_S} beside the POST "
+        f"(after a 0.05 s warm-up capture, {warm_s} s with the profiler's start): 200 in "
+        f"{captured['seconds']} s, {trace_path} ({len(trace)} bytes), {fq_events} events name "
+        f"fq_mul_kernel")
+    log(f"[http] /lighthouse/health on the card's machine: {json.dumps(health_data)}")
+    for label, wall, server_s in seconds:
+        log(f"[http]   {wall:9.4f} s client {server_s:9.4f} s server  {label}")
     return {"state_ssz": state_ssz, "download_s": download_s, "post_s": post_s,
             "launches": launches, "stages_s": stages,
             "seconds": {label: [wall, served] for label, wall, served in seconds}}
+
+
+#: The beacon-node client's calls a validator client makes, and of them the
+#: submissions, whose supervised batches :class:`VcCalls` collects.
+VC_CALLS = ("validators", "attester_duties", "proposer_duties", "sync_duties",
+            "prepare_beacon_proposer", "produce_block", "publish_block", "attestation_data",
+            "submit_attestations", "block_root", "submit_sync_committee_messages",
+            "aggregate_attestation", "publish_aggregate_and_proofs",
+            "sync_committee_contribution", "publish_contribution_and_proofs")
+VC_SUBMISSIONS = ("publish_block", "submit_attestations", "submit_sync_committee_messages",
+                  "publish_aggregate_and_proofs", "publish_contribution_and_proofs")
+
+
+class VcCalls:
+    """Record each call a validator client makes through ``client`` (a
+    ``BeaconNodeHttpClient``) for the length of a ``with`` block: its name,
+    arguments, answer and seconds, what each key of ``spans`` (filled by a
+    :class:`Patched` around it) grew by during it, and for a submission the
+    supervised ``bls_verify`` batches it caused, each checked on the card
+    (:func:`assert_on_device`; not where ``on_device`` is False)."""
+
+    def __init__(self, label: str, client, spans: dict, on_device: bool = True):
+        self.label, self.client, self.spans, self.calls = label, client, spans, []
+        self.on_device = on_device
+
+    def _wrap(self, name: str, fn):
+        def run(*args, **kw):
+            before, mark = dict(self.spans), runtime_mark()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            call = {"name": name, "args": args, "kw": kw, "out": out,
+                    "s": time.perf_counter() - t,
+                    "spans": {k: v - before.get(k, 0) for k, v in self.spans.items()
+                              if v != before.get(k, 0)}}
+            if name in VC_SUBMISSIONS and self.on_device:
+                call["records"] = [r for r in assert_on_device(f"{self.label} {name}", mark)
+                                   if r["op"] == "bls_verify"]
+            self.calls.append(call)
+            return out
+        return run
+
+    def __enter__(self):
+        for name in VC_CALLS:
+            setattr(self.client, name, self._wrap(name, getattr(self.client, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for name in VC_CALLS:
+            delattr(self.client, name)
+        return False
+
+    def named(self, name: str) -> list:
+        return [c for c in self.calls if c["name"] == name]
+
+    def verdicts(self, name: str) -> list:
+        """(sets, verdict) of each batch the calls ``name`` caused."""
+        return [(r["n_live"], r["verdict"]) for c in self.named(name) for r in c["records"]]
+
+    def batches(self) -> list:
+        """(call, its batches' (sets, verdict)) of each submission."""
+        return [(c["name"], [(r["n_live"], r["verdict"]) for r in c["records"]])
+                for c in self.calls if "records" in c]
+
+
+def request_seconds() -> dict:
+    """``http_api_request_seconds``' (count, seconds) for each (method,
+    route) it has seen."""
+    from lighthouse_tpu_torch import metrics
+
+    hist = metrics.HTTP_REQUEST_SECONDS
+    with hist._lock:
+        return {key: (s["n"], s["sum"]) for key, s in hist._series.items()}
+
+
+def served_since(before: dict, requests: int) -> dict:
+    """The server's (count, seconds) by route since ``before`` (waiting up
+    to 5 s for its count of ``requests``, observed after the reply)."""
+    deadline = time.time() + 5
+    while True:
+        now = request_seconds()
+        out = {dict(k)["method"] + " " + dict(k)["route"]: (n - before.get(k, (0, 0.0))[0],
+                                                            t - before.get(k, (0, 0.0))[1])
+               for k, (n, t) in now.items() if n != before.get(k, (0, 0.0))[0]}
+        if sum(n for n, _ in out.values()) >= requests or time.time() > deadline:
+            return out
+        time.sleep(0.005)
+
+
+def pool_at(port: int, types, slot: int) -> dict:
+    """``GET /eth/v1/beacon/pool/attestations?slot=`` as {committee:
+    attestation}."""
+    from lighthouse_tpu_torch.http_api import container_from_json
+
+    status, _, body = http_fetch(port, "GET", f"/eth/v1/beacon/pool/attestations?slot={slot}")
+    if status != 200:
+        raise AssertionError(f"[vc] the pool at slot {slot}: HTTP {status}")
+    return {int(a["data"]["index"]): container_from_json(types.Attestation, a)
+            for a in json.loads(body)["data"]}
+
+
+def vc_keys(case, chain, slot: int, count: int) -> list:
+    """The first ``count`` members, in validator order, of slot ``slot``'s
+    committees on ``chain``'s head state that the case holds a key for, that
+    are not slashed and that the node has not seen attest in the epoch
+    ([network]'s double vote is one of them)."""
+    from lighthouse_tpu_torch.consensus import helpers as h
+
+    spec, state = case.spec, chain.head_state
+    epoch = h.compute_epoch_at_slot(slot, spec)
+    members = {int(v) for c in range(h.get_committee_count_per_slot(state, epoch, spec))
+               for v in h.get_beacon_committee(state, slot, c, spec)}
+    keyed = sorted(v for v in members
+                   if v in case.keys.secret and not state.validators[v].slashed
+                   and not chain.observed.attesters.is_known(epoch, v))
+    if len(keyed) < count:
+        raise AssertionError(f"[vc] {len(keyed)} keyed members in slot {slot}'s committees")
+    return keyed[:count]
+
+
+def expected_duties(state, spec, ours: list, epoch: int) -> tuple:
+    """The node's own duties of ``ours`` from ``state`` (the head): the
+    attester duties of ``epoch`` and ``epoch + 1`` (fixed one epoch ahead)
+    as {epoch: sorted (validator, slot, committee, length, committees,
+    position)}, the proposers of ``epoch`` as [(slot, validator)], and the
+    sync-committee positions as {validator: [positions]}."""
+    from lighthouse_tpu_torch.consensus import helpers as h
+
+    wanted, per_slot = set(ours), spec.slots_per_epoch
+    attesters = {}
+    for e in (epoch, epoch + 1):
+        count = h.get_committee_count_per_slot(state, e, spec)
+        rows = []
+        for slot in range(e * per_slot, (e + 1) * per_slot):
+            for c in range(count):
+                committee = [int(v) for v in h.get_beacon_committee(state, slot, c, spec)]
+                rows += [(v, slot, c, len(committee), count, pos)
+                         for pos, v in enumerate(committee) if v in wanted]
+        attesters[e] = sorted(rows)
+    # get_beacon_proposer_index's computation, the active set found once
+    # (the helper scans the 2^20 validators again at each uncached slot).
+    active = h.get_active_validator_indices(state, epoch)
+    seed = h.get_seed(state, epoch, h.DOMAIN_BEACON_PROPOSER, spec)
+    proposers = [(slot, int(h.compute_proposer_index(
+        state, active, h.hash(seed + h.uint_to_bytes(slot)), spec)))
+        for slot in range(epoch * per_slot, (epoch + 1) * per_slot)]
+    index_of = {bytes(state.validators[v].pubkey): v for v in ours}
+    sync = {}
+    for pos, pk in enumerate(state.current_sync_committee.pubkeys):
+        if bytes(pk) in index_of:
+            sync.setdefault(index_of[bytes(pk)], []).append(pos)
+    return attesters, proposers, sync
+
+
+def phase_vc(card: str, case, chain, clock, served, tmp: str) -> dict:
+    """[vc] on [chain]'s node after [http], on [http]'s server (see the
+    module docstring): VC_KEYS keys imported as EIP-2335 keystores through
+    the keymanager API into an empty ``ValidatorStore``, then one slot of
+    duty of a ``ValidatorClient`` polling the node over HTTP, every
+    submission verified on the card; the duties, the summary, the pool and
+    the slashing protection (an EIP-3076 database on a lockbox file under
+    ``tmp``) checked.  The kernels' launch counts are set to 0 just before
+    ``run_slot`` and read just after."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lighthouse_tpu_torch.chain import beacon_chain as bc_mod
+    from lighthouse_tpu_torch.consensus import helpers as h
+    from lighthouse_tpu_torch.consensus import per_slot
+    from lighthouse_tpu_torch.crypto import keystore as ks
+    from lighthouse_tpu_torch.http_api import BeaconNodeHttpClient
+    from lighthouse_tpu_torch.ops import cuda_fq
+    from lighthouse_tpu_torch.scheduler import admission
+    from lighthouse_tpu_torch.store import LockboxStore
+    from lighthouse_tpu_torch.validator_client import (
+        SlashingProtectionDB,
+        SlashingProtectionError,
+        ValidatorClient,
+    )
+    from lighthouse_tpu_torch.validator_client.keymanager import (
+        KeymanagerClient,
+        KeymanagerServer,
+    )
+
+    server, processor, published = served
+    spec, types = case.spec, case.types
+    state = chain.head_state
+    slot = int(state.slot) + 1
+    epoch = h.compute_epoch_at_slot(slot, spec)
+    gvr = chain.genesis_validators_root
+    ours = vc_keys(case, chain, slot, VC_KEYS)
+    pubkeys = [bytes(state.validators[v].pubkey) for v in ours]
+
+    # The keys: EIP-2335 keystores at the default work factor, imported over
+    # the keymanager API into the client's empty store; one thread a key
+    # on each side (hashlib's scrypt releases the GIL).
+    workers = ThreadPoolExecutor(VC_KEYS)
+    db_store = LockboxStore(str(Path(tmp) / "slashing_protection.db"))
+    keymanager = None
+    try:
+        t = time.perf_counter()
+        keystores = list(workers.map(
+            lambda v_pk: ks.encrypt(case.keys.secret[v_pk[0]].to_bytes(32, "big"),
+                                    VC_PASSWORD, path=f"m/12381/3600/{v_pk[0]}/0/0",
+                                    pubkey=v_pk[1]),
+            zip(ours, pubkeys)))
+        encrypt_s = time.perf_counter() - t
+        kdf = keystores[0]["crypto"]["kdf"]
+        bn = BeaconNodeHttpClient(server.url, timeout=HTTP_TIMEOUT_S)
+        vc = ValidatorClient(keys=[], beacon_nodes=[bn], spec=spec, types=types,
+                             genesis_validators_root=gvr,
+                             slashing_db=SlashingProtectionDB(store=db_store))
+        keymanager = KeymanagerServer(store=vc.store, genesis_validators_root=gvr,
+                                      preparation=vc.preparation, blocks=vc.blocks).start()
+        km = KeymanagerClient(keymanager.url, keymanager.token, timeout=HTTP_TIMEOUT_S)
+        if km.list_keystores():
+            raise AssertionError("[vc] the client's store is not empty before the import")
+        t = time.perf_counter()
+        statuses = [st for answer in workers.map(
+            lambda keystore: km.import_keystores([keystore], [VC_PASSWORD]), keystores)
+            for st in answer]
+        import_s = time.perf_counter() - t
+        listed = [bytes.fromhex(k["validating_pubkey"][2:]) for k in km.list_keystores()]
+        if [st["status"] for st in statuses] != ["imported"] * VC_KEYS or \
+                sorted(listed) != sorted(pubkeys) or sorted(vc.store.pubkeys) != sorted(pubkeys):
+            raise AssertionError(f"[vc] the keystore import: {statuses}, listed {len(listed)}")
+        official = Path(__file__).resolve().parent / "tests" / "vectors" / "conformance" / \
+            "tests" / "general" / "phase0" / "keystore" / "eip2335" / "official"
+        vectors_s = {}
+        for name in ("scrypt", "pbkdf2"):
+            vector = json.loads((official / name / "keystore.json").read_text())
+            meta = json.loads((official / name / "meta.json").read_text())
+            t = time.perf_counter()
+            secret = ks.decrypt(vector, meta["password"])
+            vectors_s[name] = time.perf_counter() - t
+            if secret.hex() != meta["secret"]:
+                raise AssertionError(f"[vc] the official {name} keystore decrypts to "
+                                     f"{secret.hex()}")
+        log(f"[vc] {card}: validators {ours} (the first {VC_KEYS} keyed, unslashed members of "
+            f"slot {slot}'s committees the node has not seen attest) as EIP-2335 keystores "
+            f"({kdf['function']} n={kdf['params']['n']}, r={kdf['params']['r']}) encrypted in {encrypt_s:.2f} s "
+            f"({VC_KEYS} threads), imported through {VC_KEYS} concurrent POST /eth/v1/keystores "
+            f"into the client's empty store in {import_s:.2f} s (the server's decrypts), "
+            f"GET /eth/v1/keystores lists the "
+            f"{len(listed)}; the official EIP-2335 vectors decrypt to their secrets: scrypt "
+            f"{vectors_s['scrypt']:.2f} s, pbkdf2 {vectors_s['pbkdf2']:.2f} s (hashlib)")
+
+        # One slot of duty, the state copies and slot processing timed apart.
+        # (The pool at the slot already holds [network]'s double vote.)
+        clock.set_slot(slot)
+        pooled = pool_at(server.port, types, slot)
+        state_cls = type(state)
+        targets = [(state_cls, "copy", "copy"), (bc_mod, "process_slots", "process_slots"),
+                   (per_slot, "process_slots", "process_slots"),
+                   (vc.store, "_raw_sign", "sign")]
+        shed0 = metrics_total(admission.HTTP_REQUESTS_SHED)
+        seconds0 = request_seconds()
+        published0 = len(published)
+        mark = runtime_mark()
+        with Patched({}, targets) as spans, VcCalls("[vc]", bn, spans) as rec:
+            cuda_fq.reset_launch_counts()
+            t = time.perf_counter()
+            summary = vc.run_slot(slot)
+            slot_s = time.perf_counter() - t
+            launches = dict(cuda_fq.LAUNCHES)
+        served_s = served_since(seconds0, len(rec.calls))
+        records = [r for r in assert_on_device("[vc]", mark) if r["op"] == "bls_verify"]
+        shed = metrics_total(admission.HTTP_REQUESTS_SHED) - shed0
+
+        # The duties: the node's own objects for the client's validators.
+        t = time.perf_counter()
+        attesters, proposers, sync = expected_duties(state, spec, ours, epoch)
+        expected_s = time.perf_counter() - t
+        for e in (epoch, epoch + 1):
+            got = sorted((d.validator_index, d.slot, d.committee_index, d.committee_length,
+                          d.committees_at_slot, d.validator_committee_index)
+                         for duties in vc.duties._attesters.get(e, {}).values() for d in duties)
+            if got != attesters[e] or len(got) != VC_KEYS:
+                raise AssertionError(f"[vc] the attester duties of epoch {e}: {got} != "
+                                     f"{attesters[e]}")
+        answered = [(int(d["slot"]), int(d["validator_index"]))
+                    for d in rec.named("proposer_duties")[0]["out"]["data"]]
+        mine = {s: bytes(state.validators[v].pubkey) for s, v in proposers if v in ours}
+        if answered != proposers or vc.duties._proposers.get(epoch) != mine:
+            raise AssertionError(f"[vc] the proposer duties of epoch {epoch}: {answered}")
+        period = epoch // spec.preset.epochs_per_sync_committee_period
+        got_sync = {d.validator_index: d.positions
+                    for d in vc.sync_committee._sync_duties.get(period, [])}
+        if got_sync != sync:
+            raise AssertionError(f"[vc] the sync duties {got_sync} != {sync}")
+
+        # The summary, the submissions and their batches on the card.
+        n_agg, n_contrib = summary["aggregates"], summary["sync_contributions"]
+        want = {"slot": slot, "proposed": None, "attestations": VC_KEYS,
+                "aggregates": n_agg, "sync_messages": len(sync),
+                "sync_contributions": n_contrib}
+        if summary != want:
+            raise AssertionError(f"[vc] the summary {summary} != {want}")
+        submitted = [a for c in rec.named("submit_attestations") for a in c["args"][0]]
+        if rec.verdicts("submit_attestations") != [(1, True)] * VC_KEYS or \
+                rec.verdicts("submit_sync_committee_messages") != \
+                ([(len(sync), True)] if sync else []) or \
+                rec.verdicts("publish_aggregate_and_proofs") != [(3, True)] * n_agg or \
+                rec.verdicts("publish_contribution_and_proofs") != \
+                ([(3 * n_contrib, True)] if n_contrib else []) or \
+                len(records) != sum(len(c.get("records", ())) for c in rec.calls):
+            raise AssertionError(f"[vc] the batches {rec.batches()}, {len(records)} in the "
+                                 f"flight record")
+        for name in KERNELS:
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"[vc] {name} was not launched in the client's slot")
+        if [a.as_ssz_bytes() for a in published[published0:]] != \
+                [a.as_ssz_bytes() for a in submitted]:
+            raise AssertionError(f"[vc] publish_attestation_fn got "
+                                 f"{len(published) - published0}")
+        pool = pool_at(server.port, types, slot)
+        by_committee = {}
+        for a in submitted:
+            by_committee.setdefault(int(a.data.index), []).append(a)
+        for c, votes in by_committee.items():
+            earlier = [pooled[c]] if c in pooled else []
+            union = [any(bits) for bits in zip(*(list(v.aggregation_bits)
+                                                 for v in votes + earlier))]
+            entry = pool.get(c)
+            if entry is None or entry.data != votes[0].data or \
+                    list(entry.aggregation_bits) != union or \
+                    (len(votes) == 1 and not earlier and
+                     entry.as_ssz_bytes() != votes[0].as_ssz_bytes()):
+                raise AssertionError(f"[vc] the pool's entry of committee {c}: bits at "
+                                     f"{[i for i, b in enumerate(entry.aggregation_bits) if b]}"
+                                     if entry is not None else f"[vc] no pool entry for {c}")
+        if sorted(pool) != sorted(set(by_committee) | set(pooled)) or \
+                len(submitted) != VC_KEYS:
+            raise AssertionError(f"[vc] the pool at slot {slot} holds committees {sorted(pool)}")
+
+        # Slashing protection: a second vote at the slot for another head.
+        other = submitted[0].data.copy()
+        other.beacon_block_root = bytes(chain.block_root_at_slot(slot - 2) or
+                                        chain.genesis_block_root)
+        try:
+            vc.store.sign_attestation(bytes(state.validators[ours[0]].pubkey), other)
+        except SlashingProtectionError as err:
+            refusal = str(err)
+        else:
+            raise AssertionError("[vc] a second vote at the slot was signed")
+        bn.attestation_data = lambda *a, **kw: other
+        before = (runtime_mark()["seq"], len(published))
+        try:
+            with VcCalls("[vc] double", bn, {}) as again:
+                revoted = vc.attester.attest(slot)
+        finally:
+            vars(bn).pop("attestation_data", None)
+        if revoted or again.named("submit_attestations") or \
+                (runtime_mark()["seq"], len(published)) != before:
+            raise AssertionError(f"[vc] the double vote reached the node: {revoted}")
+        interchange = json.loads(vc.store.slashing_db.export_json(gvr))
+        votes = {bytes.fromhex(d["pubkey"][2:]): [(int(a["source_epoch"]), int(a["target_epoch"]))
+                                                  for a in d["signed_attestations"]]
+                 for d in interchange["data"]}
+        want_votes = {}
+        for a in submitted:
+            pos = list(a.aggregation_bits).index(True)
+            v = int(h.get_beacon_committee(state, slot, int(a.data.index), spec)[pos])
+            want_votes[bytes(state.validators[v].pubkey)] = [
+                (int(a.data.source.epoch), int(a.data.target.epoch))]
+        if votes != want_votes:
+            raise AssertionError(f"[vc] the EIP-3076 export {votes} != the votes {want_votes}")
+    finally:
+        workers.shutdown()
+        if keymanager is not None:
+            keymanager.stop()
+        db_store.close()
+
+    # Where the slot's time went.
+    elected = (rec.verdicts("publish_aggregate_and_proofs")
+               + rec.verdicts("publish_contribution_and_proofs"))
+    stages = {k: sum(r["stages_s"][k] for r in records)
+              for k in ("setup", "dispatch", "wait", "verdict")}
+    log(f"[vc] {card}: ValidatorClient.run_slot({slot}) (one BeaconNodeHttpClient to "
+        f"{server.url}, timeout {HTTP_TIMEOUT_S:.0f} s; the server's task spawner "
+        f"{server.spawner.timeout:.0f} s) in {slot_s:.2f} s: {summary}; the attester duties of "
+        f"epochs {epoch} and {epoch + 1}, the proposer duties of {epoch} ({len(mine)} of its "
+        f"{len(proposers)} slots ours) and the sync duties ({len(sync)} of the {VC_KEYS} in the "
+        f"sync committee, positions {sorted(sync.values())}) equal the head state's committees, "
+        f"proposers and sync committee (computed in {expected_s:.2f} s); {len(submitted)} attestations POSTed, {VC_KEYS} single-set "
+        f"supervised bls_verify batches on the card, "
+        f"{len(rec.verdicts('submit_sync_committee_messages'))} sync batch of {len(sync)}, "
+        f"{n_agg} aggregates and {n_contrib} contributions the client was elected to publish "
+        f"({elected}), "
+        f"every verdict True, no host fallback, breakers closed; stages summed: setup "
+        f"{stages['setup']:.3f} s, device {stages['dispatch'] + stages['wait']:.3f} s, verdict "
+        f"{stages['verdict']:.3f} s; Fq launches {launches}; publish_attestation_fn holds the "
+        f"client's votes byte for byte, the pool at slot {slot} too (where a committee's entry "
+        f"had no earlier vote; else their bits' union); signing on the host "
+        f"{spans.get('sign', 0.0):.2f} s over {spans.get('sign_calls', 0)} signatures; "
+        f"http_requests_shed_total +{shed:.0f}")
+    log(f"[vc] slashing protection: a second vote at slot {slot} for another head refused by "
+        f"the client's EIP-3076 database ({refusal}); through the attestation service nothing "
+        f"signed and nothing POSTed; the interchange export lists the {len(votes)} votes")
+    for c in rec.calls:
+        sp = c["spans"]
+        extra = "".join(f", {k} {sp[k]:.2f} s ({sp.get(k + '_calls', 0)} calls)"
+                        for k in ("copy", "process_slots", "sign") if k in sp)
+        batches = "".join(f", batch {r['n_live']} sets {r['verdict']} (setup "
+                          f"{r['stages_s']['setup']:.3f}, device "
+                          f"{r['stages_s']['dispatch'] + r['stages_s']['wait']:.3f} s)"
+                          for r in c.get("records", ()))
+        log(f"[vc]   {c['s']:9.4f} s client  {c['name']}{extra}{batches}")
+    for route, (n, sec) in sorted(served_s.items()):
+        log(f"[vc]   {sec:9.4f} s server  {route} ({n} requests)")
+    return {"slot_s": slot_s, "summary": summary, "launches": launches, "stages_s": stages,
+            "encrypt_s": encrypt_s, "import_s": import_s, "vectors_s": vectors_s,
+            "shed": shed, "sign_s": spans.get("sign", 0.0),
+            "server_s": {route: sec for route, (_, sec) in served_s.items()}}
 
 
 def sign_blinded(hs, block):
@@ -4201,6 +4715,111 @@ def finality_run(path, slots: int):
     return hs, hs.extend_chain(slots)
 
 
+def harness_client_slot(hs, slot: int, label: str, on_device: bool = True) -> tuple:
+    """A ``ValidatorClient`` with the harness's interop keys runs slot
+    ``slot`` against ``hs.chain`` served by an ``HttpApiServer``, the
+    client's calls recorded (:class:`VcCalls`).  Returns (client, recorder,
+    summary, seconds); the server is stopped."""
+    from lighthouse_tpu_torch.consensus.genesis import interop_secret_key
+    from lighthouse_tpu_torch.http_api import BeaconNodeHttpClient, HttpApiServer
+    from lighthouse_tpu_torch.validator_client import ValidatorClient
+
+    server = HttpApiServer(hs.chain).start()
+    try:
+        bn = BeaconNodeHttpClient(server.url, timeout=HTTP_TIMEOUT_S)
+        vc = ValidatorClient(keys=[interop_secret_key(i) for i in range(HARNESS_VALIDATORS)],
+                             beacon_nodes=[bn], spec=hs.spec, types=hs.types,
+                             genesis_validators_root=hs.chain.genesis_validators_root)
+        with VcCalls(label, bn, {}, on_device) as rec:
+            t = time.perf_counter()
+            summary = vc.run_slot(slot)
+            seconds = time.perf_counter() - t
+    finally:
+        server.stop()
+    return vc, rec, summary, seconds
+
+
+def harness_client(card: str, real, replay, slot: int) -> dict:
+    """[chain-harness]'s validator client (see the module docstring): its
+    slot on ``real`` (real crypto, every submission verified on the card),
+    gated against the slot's duties, then the same slot on ``replay`` (the
+    fake backend) for the same roots, then a second block at the slot
+    refused by its slashing protection."""
+    from lighthouse_tpu_torch.crypto.bls import set_backend
+    from lighthouse_tpu_torch.ops import cuda_fq
+    from lighthouse_tpu_torch.validator_client import SlashingProtectionError
+
+    chain, spec = real.chain, real.spec
+    mark = runtime_mark()
+    cuda_fq.reset_launch_counts()
+    vc, rec, summary, slot_s = harness_client_slot(real, slot, "[chain-harness] client")
+    launches = dict(cuda_fq.LAUNCHES)
+    records = [r for r in assert_on_device("[chain-harness] client", mark)
+               if r["op"] == "bls_verify"]
+    root = bytes.fromhex(summary["proposed"] or "")
+    duties = vc.duties.attester_duties_at_slot(slot, spec)
+    period = (slot // spec.slots_per_epoch) // spec.preset.epochs_per_sync_committee_period
+    sync = vc.sync_committee._sync_duties.get(period, [])
+    sub_size = spec.preset.sync_committee_size // spec.sync_committee_subnet_count
+    subcommittees = sum(len({p // sub_size for p in d.positions}) for d in sync)
+    want = {"slot": slot, "proposed": root.hex(), "attestations": len(duties),
+            "aggregates": len(duties), "sync_messages": len(sync),
+            "sync_contributions": subcommittees}
+    if not root or chain.head_root != root or summary != want or not duties or not sync:
+        raise AssertionError(f"[chain-harness] the client's slot: {summary} != {want}")
+    blocks = rec.verdicts("publish_block")
+    if len(blocks) != 1 or blocks[0][0] < 2 or blocks[0][1] is not True or \
+            rec.verdicts("submit_attestations") != [(1, True)] * len(duties) or \
+            rec.verdicts("submit_sync_committee_messages") != [(len(sync), True)] or \
+            rec.verdicts("publish_aggregate_and_proofs") != [(3, True)] * len(duties) or \
+            rec.verdicts("publish_contribution_and_proofs") != [(3 * subcommittees, True)] or \
+            len(records) != sum(len(c.get("records", ())) for c in rec.calls):
+        raise AssertionError(f"[chain-harness] the client's batches {rec.batches()}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"[chain-harness] the client's slot launched {launches}")
+    state_root = bytes(chain.get_block(root).message.state_root)
+
+    if replay.advance_slot() != slot:
+        raise AssertionError("[chain-harness] the replay's clock is not at the client's slot")
+    set_backend("fake")
+    try:
+        _, _, replayed, replay_s = harness_client_slot(replay, slot,
+                                                       "[chain-harness] client replay", False)
+    finally:
+        set_backend("torch")
+    if replayed != summary or replay.chain.head_root != root or \
+            bytes(replay.chain.get_block(root).message.state_root) != state_root:
+        raise AssertionError(f"[chain-harness] the fake-backend client's slot {replayed} != "
+                             f"{summary}")
+
+    # A second block at the slot, under the client's own slashing protection.
+    pubkey = vc.duties.proposer_at_slot(slot, spec)
+    parent = bytes(chain.get_block(root).message.parent_root)
+    state, _ = chain.state_at_slot(slot, parent)
+    other, _ = chain.produce_block(
+        slot, vc.store.randao_reveal(pubkey, slot // spec.slots_per_epoch),
+        graffiti=b"chip_smoke second block".ljust(32, b"\x00"), parent_root=parent,
+        pre_state=state.copy())
+    try:
+        vc.store.sign_block(pubkey, other)
+    except SlashingProtectionError as err:
+        refusal = str(err)
+    else:
+        raise AssertionError("[chain-harness] the client signed a second block at its slot")
+    log(f"[chain-harness] {card}: a ValidatorClient with the {HARNESS_VALIDATORS} interop keys "
+        f"over HTTP to the real-crypto chain ran slot {slot} in {slot_s:.2f} s: {summary}: its "
+        f"block the head (one bulk batch of {blocks[0][0]} sets on the card), "
+        f"{len(duties)} attestations and {len(duties)} aggregates (every duty aggregates at a "
+        f"committee of {duties[0].committee_length}), {len(sync)} sync messages in one batch, "
+        f"{subcommittees} contributions in one batch of {3 * subcommittees} sets; "
+        f"{len(records)} supervised bls_verify batches on the card, every verdict True, no host "
+        f"fallback; Fq launches {launches}; on the fake backend the same slot gave the same "
+        f"block and state roots in {replay_s:.2f} s; a second block at the slot refused by the "
+        f"client's slashing protection ({refusal})")
+    return {"slot_s": slot_s, "summary": summary, "launches": launches,
+            "batches": len(records), "replay_s": replay_s}
+
+
 def phase_chain_harness(card: str, device: str = "cuda") -> dict:
     """The in-process harness (SURVEY §7) on the default device (see the
     module docstring)."""
@@ -4212,7 +4831,7 @@ def phase_chain_harness(card: str, device: str = "cuda") -> dict:
     from lighthouse_tpu_torch.consensus import per_epoch as pe
     from lighthouse_tpu_torch.crypto.bls import set_backend
     from lighthouse_tpu_torch.crypto.bls.backends import torch_backend
-    from lighthouse_tpu_torch.ops import cuda_epoch, cuda_fq
+    from lighthouse_tpu_torch.ops import cuda_epoch
     from lighthouse_tpu_torch.ops import tree_hash as th
     from lighthouse_tpu_torch.store import HotColdDB, LockboxStore
 
@@ -4222,35 +4841,16 @@ def phase_chain_harness(card: str, device: str = "cuda") -> dict:
     th.configure(enabled=True, device=device)
     pe.configure(backend="device", device=device)
     try:
-        # 1. Real crypto for two slots: every verify on the card.
-        mark = runtime_mark()
-        cuda_fq.reset_launch_counts()
-        t = time.perf_counter()
-        real = BeaconChainHarness(validator_count=HARNESS_VALIDATORS)
-        roots = real.extend_chain(HARNESS_REAL_SLOTS, attest=True)
-        real_s = time.perf_counter() - t
-        bls_launches = dict(cuda_fq.LAUNCHES)
-        verifies = [r for r in assert_on_device("[chain-harness] real", mark)
-                    if r["op"] == "bls_verify"]
-        singles = [r for r in verifies if r["n_live"] == 1]
-        blocks = [r for r in verifies if r["n_live"] > 1]
-        if real.head_root != roots[-1]:
-            raise AssertionError("[chain-harness] the head is not the last block")
-        if min(bls_launches.values()) <= 0:
-            raise AssertionError(f"[chain-harness] BLS launches {bls_launches}")
-        if len(blocks) != HARNESS_REAL_SLOTS or not all(r["verdict"] is True for r in verifies):
-            raise AssertionError(f"[chain-harness] the verify records "
-                                 f"{[(r['shape'], r['n_live'], r['verdict']) for r in verifies]}")
+        # 1. Real crypto: a validator client's first slot, every verify on
+        #    the card, then the same slot on the fake backend.
         set_backend("fake")
         replay = BeaconChainHarness(validator_count=HARNESS_VALIDATORS)
-        replay_roots = replay.extend_chain(HARNESS_REAL_SLOTS, attest=True)
         set_backend("torch")
-        if replay_roots != roots or [bytes(replay.chain.get_block(r).message.state_root)
-                                     for r in roots] != [
-                bytes(real.chain.get_block(r).message.state_root) for r in roots]:
-            raise AssertionError("[chain-harness] the fake-backend replay built another chain")
+        real = BeaconChainHarness(validator_count=HARNESS_VALIDATORS)
+        client = harness_client(card, real, replay, real.advance_slot())
 
-        # Refusals, each from a verdict on the card.
+        # Refusals at the next slot, each from a verdict on the card; the
+        # produced blocks carry the client's votes.
         chain = real.chain
         slot = real.advance_slot()
         signed = real.produce_signed_block(sync_participation=False)
@@ -4267,8 +4867,9 @@ def phase_chain_harness(card: str, device: str = "cuda") -> dict:
                    if r["op"] == "bls_verify"]
         # The block with two attestation signatures swapped, re-signed by
         # its proposer: the bulk batch False on the card, the node as it was.
+        # (A copy: a produced block holds the op pool's own attestations.)
         pre_state, _ = chain.state_at_slot(slot)
-        swapped = real.produce_signed_block(sync_participation=False).message
+        swapped = real.produce_signed_block(sync_participation=False).message.copy()
         atts = swapped.body.attestations
         if len(atts) < 2:
             raise AssertionError(f"[chain-harness] the block carries {len(atts)} attestations")
@@ -4312,15 +4913,11 @@ def phase_chain_harness(card: str, device: str = "cuda") -> dict:
                     if r["op"] == "bls_verify"]
         if refused != [False, False]:
             raise AssertionError(f"[chain-harness] the refusals' verdicts {refused}")
-        log(f"[chain-harness] {card}: {HARNESS_VALIDATORS} interop validators (minimal preset), "
-            f"real crypto: {HARNESS_REAL_SLOTS} slots extended (produce, sign, import, attest) in "
-            f"{real_s:.2f} s: {len(blocks)} block batches ({[r['shape'] for r in blocks]}) and "
-            f"{len(singles)} single attestation verifies on the card, no host fallback, BLS "
-            f"launches {bls_launches}; a fake-backend replay with the same keys built the same "
-            f"block and state roots; a block under another signature (BlockError) and an "
-            f"attestation signed by another validator (AttestationError) refused, both batches "
-            f"False on the card; the block with two of its {len(atts)} attestation signatures "
-            f"swapped (BlockError, its bulk batch of {swapped_rec[0]['n_live']} sets False on the "
+        log(f"[chain-harness] {card}: real crypto at slot {slot}: a block under another "
+            f"signature (BlockError) and an attestation signed by another validator "
+            f"(AttestationError) refused, both batches False on the card; the block with two of "
+            f"its {len(atts)} attestations (the client's votes) under each other's signatures "
+            f"(BlockError, its bulk batch of {swapped_rec[0]['n_live']} sets False on the "
             f"card, the head, the store's {before['keys']} keys and the block caches unchanged) "
             f"in {swapped_s:.2f} s")
 
@@ -4439,7 +5036,7 @@ def phase_chain_harness(card: str, device: str = "cuda") -> dict:
         torch_backend.reset_for_tests()
         pe.reset_for_tests()
         th.configure(enabled=False)
-    return {"real_s": real_s, "single_verifies": len(singles), "bls_launches": bls_launches,
+    return {"client": client,
             "builder_s": builder_s, "eth1_s": eth1_s,
             "finality_s": card_s, "cpu_s": cpu_s, "justified": jus, "finalized": fin,
             "split": split, "boundaries": len(boundaries), "epoch_launches": epoch_launches}
@@ -4544,7 +5141,7 @@ def phase_epoch_timing(epoch_out: dict, max_err: dict, clock_mhz: float,
     s = seed_words.shape[0]
     ms = graph_ms(lambda: cuda_epoch.proposer_walk(seed_words, prop_pivots, k, m))
     plain_ms = graph_ms(lambda: cuda_epoch.proposer_walk_plain(seed_words, prop_pivots, k, m),
-                        reps=1, rounds=2)
+                        **PLAIN_ONCE)
     b_ms, b_by = bound(s * k * SHUFFLE_ROUNDS * WALK_OPS_PER_ROUND + s * WALK_OPS_PER_SLOT,
                        s * 32 + s * SHUFFLE_ROUNDS * 4 + s * k * 4)
     log(f"[timing] proposer_walk at {s} x {k} lanes x {SHUFFLE_ROUNDS} rounds: kernel "
@@ -4569,7 +5166,7 @@ def phase_epoch_timing(epoch_out: dict, max_err: dict, clock_mhz: float,
     cuda_epoch.proposer_walk = cuda_epoch.proposer_walk_plain
     try:
         boundary_plain_ms = graph_ms(lambda: psd._boundary_kernel(*args, in_leak=leak),
-                                     reps=1, rounds=2)
+                                     **PLAIN_ONCE)
     finally:
         cuda_epoch.shuffle_rounds, cuda_epoch.proposer_walk = real
     t = time.perf_counter()
@@ -4806,7 +5403,7 @@ def phase_hash_timing(state_out: dict, block_out: dict, max_err: dict, clock_mhz
         n = top[name]
         x = inputs[name](n)
         ms = graph_ms(lambda: wrapper(x))
-        plain_ms = graph_ms(lambda: plain(x), reps=1, rounds=2)
+        plain_ms = graph_ms(lambda: plain(x), **PLAIN_ONCE)
         bound_ms, bound_by = bound(name, n)
         sizes = state_out["sizes"][name]
         by_size, plain_by_size = {}, {}
@@ -4818,7 +5415,7 @@ def phase_hash_timing(state_out: dict, block_out: dict, max_err: dict, clock_mhz
                     want if isinstance(want, tuple) else (want,))):
                 raise AssertionError(f"{name} at the [state] size {m}: kernel != plain")
             by_size[m] = graph_ms(lambda: wrapper(y))
-            plain_by_size[m] = graph_ms(lambda: plain(y), reps=1, rounds=2)
+            plain_by_size[m] = graph_ms(lambda: plain(y), **PLAIN_ONCE)
         block_sizes = block_out["sha_sizes"][name]
         block_by_size = {m: by_size[m] for m in block_sizes if m in by_size}
         for m in sorted(set(block_sizes) - set(block_by_size)):
@@ -4880,7 +5477,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from lighthouse_tpu_torch.ops import cuda_fq
-    from lighthouse_tpu_torch.workload import clone_state
 
     t_start = time.perf_counter()
     card = nvidia_smi("name,power.limit")
@@ -4917,12 +5513,12 @@ def main() -> int:
         epoch_out = phase_epoch(card)
     # [block] and [chain] share one case whose block carries the six KZG
     # commitments; [block] applies the block to its pre-state in place, so
-    # [chain]'s anchor is a copy taken before, and [block]'s states go
-    # before [chain] builds its node.
+    # [chain]'s anchor is a copy taken before (after [block]'s warm root),
+    # and [block]'s states go before [chain] builds its node.
     with phase_wall("block"):
         case, build_s = block_case(commitments=kzg_in[2])
-        anchor = clone_state(case.pre_state)
         block_out = phase_block(card, case=case, build_s=build_s)
+        anchor = block_out.pop("anchor")
         case = case._replace(pre_state=None)
         gc.collect()
     with phase_wall("chain"):

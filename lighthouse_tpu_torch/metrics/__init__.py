@@ -511,6 +511,12 @@ QUEUE_WAIT_SECONDS = histogram(
     "enqueue-to-drain wait in the priority queues, by work class",
 )
 
+# Validator-client remote signing (validator_client/web3signer.py).
+WEB3SIGNER_RETRIES = counter(
+    "web3signer_retries_total",
+    "web3signer requests retried after a connection error, by request kind",
+)
+
 # The Beacon API (http_api/server.py): requests by method and route
 # template (never the raw path: ids stay out of the label space).
 HTTP_REQUESTS = counter(

@@ -5,9 +5,10 @@ response cache) vs the JAX package's.
   chain served over real TCP, driven end to end (produce, sign, publish)
   through the port's typed client;
 - the HTTP-route cases of the JAX package's ``test_builder.py`` (blinded
-  blocks through ``/eth/v3/validator/blocks``; the JAX package's
-  ``ValidatorClient`` drives the port's node, since the port has no
-  validator client yet) and ``test_light_client.py``;
+  blocks through ``/eth/v3/validator/blocks``, driven by the port's
+  ``ValidatorClient``) and ``test_light_client.py``; the JAX package's
+  ``ValidatorClient`` and the port's send the port's node the same
+  requests for the same slot;
 - the route table: the port's ``ROUTES`` is the JAX package's without
   ``GET /lighthouse/autotune`` (it comes with ``autotune.py``), and the
   cached routes declare the same topics;
@@ -601,10 +602,26 @@ def rig_fake():
     set_backend("host")
 
 
+def _validator_client(harness, server):
+    """The port's validator client, all 16 keys, on the port's typed
+    client."""
+    from lighthouse_tpu_torch.consensus.genesis import interop_secret_key
+    from lighthouse_tpu_torch.validator_client import ValidatorClient
+
+    return ValidatorClient(
+        keys=[interop_secret_key(i) for i in range(16)],
+        beacon_nodes=[BeaconNodeHttpClient(server.url)],
+        spec=harness.spec,
+        types=harness.types,
+        genesis_validators_root=harness.chain.genesis_validators_root,
+        fake_signatures=True,
+    )
+
+
 def _jax_validator_client(harness, server):
     """The JAX package's validator client on the JAX package's typed
-    client, pointed at the port's server (the port has no validator client
-    yet): its own types decode what the port serves."""
+    client, pointed at the port's server: its own types decode what the
+    port serves."""
     from lighthouse_tpu.consensus.genesis import interop_secret_key
     from lighthouse_tpu.types.containers import build_types
     from lighthouse_tpu.validator_client import ValidatorClient
@@ -620,6 +637,55 @@ def _jax_validator_client(harness, server):
     )
 
 
+def test_jax_and_port_clients_send_equal_requests(monkeypatch):
+    """Two equal fake-crypto chains, each with a bidding relay and served
+    by the port's server: the JAX package's client drives one slot of one,
+    the port's the same slot of the other, through the builder path.  Every
+    request (method, path, body) is the same, in order, and both heads are
+    the same block."""
+    recorded = {}
+    urlopen = urllib.request.urlopen
+
+    def recording(req, *a, **kw):
+        url = req.full_url if isinstance(req, urllib.request.Request) else req
+        port = int(url.split("/")[2].rsplit(":", 1)[1])
+        if port in recorded:
+            body = req.data if isinstance(req, urllib.request.Request) else None
+            method = req.get_method() if isinstance(req, urllib.request.Request) else "GET"
+            recorded[port].append((method, "/" + url.split("/", 3)[3],
+                                   json.loads(body) if body else None))
+        return urlopen(req, *a, **kw)
+
+    monkeypatch.setattr(urllib.request, "urlopen", recording)
+    heads, relays, servers = [], [], []
+    try:
+        for make in (_jax_validator_client, _validator_client):
+            set_backend("fake")
+            harness = BeaconChainHarness(validator_count=16, fake_crypto=True)
+            relay = MockRelay(harness.chain).start()
+            relays.append(relay)
+            harness.chain.builder = BuilderHttpClient(relay.url)
+            server = HttpApiServer(harness.chain).start()
+            servers.append(server)
+            recorded[server.port] = []
+            vc = make(harness, server)
+            vc.blocks.builder_proposals = True
+            jbackends.set_backend("fake")
+            summary = vc.run_slot(harness.advance_slot())
+            assert summary["proposed"] is not None
+            heads.append(harness.chain.head_root)
+        jax_requests, port_requests = (recorded[s.port] for s in servers)
+        assert port_requests == jax_requests
+        assert any("blinded_blocks" in path for _, path, _ in port_requests)
+        assert heads[0] == heads[1]
+    finally:
+        for server in servers:
+            server.stop()
+        for relay in relays:
+            relay.stop()
+        set_backend("host")
+
+
 def test_http_v3_prefers_builder_and_vc_round_trip(rig_fake):
     """End to end over HTTP: the v3 route serves a blinded block when a
     relay bids; the validator client signs and publishes it; the head
@@ -628,7 +694,7 @@ def test_http_v3_prefers_builder_and_vc_round_trip(rig_fake):
     chain = harness.chain
     server = HttpApiServer(chain).start()
     try:
-        vc = _jax_validator_client(harness, server)
+        vc = _validator_client(harness, server)
         vc.blocks.builder_proposals = True
         slot = harness.advance_slot()
         summary = vc.run_slot(slot)
@@ -646,7 +712,7 @@ def test_builder_failure_falls_back_to_local(rig_fake):
     relay.stop()  # relay is down: builder path must fail gracefully
     server = HttpApiServer(chain).start()
     try:
-        vc = _jax_validator_client(harness, server)
+        vc = _validator_client(harness, server)
         vc.blocks.builder_proposals = True
         slot = harness.advance_slot()
         summary = vc.run_slot(slot)
@@ -1102,6 +1168,7 @@ def test_chip_smoke_http_phase_on_cpu(monkeypatch):
         monkeypatch.setattr(cuda_fq, f"{name}_plain", counted)
     monkeypatch.setenv("LIGHTHOUSE_TPU_FORCE_PROFILER", "1")
     set_backend("torch")
+    served = None
     try:
         case = workload.block_import_case(4096, seed=0xB10C, blob_commitments=[])
         workload.warm_pubkey_cache(case.keys)
@@ -1111,9 +1178,13 @@ def test_chip_smoke_http_phase_on_cpu(monkeypatch):
         chain = BeaconChain(genesis_state=case.pre_state, types=case.types, spec=spec,
                             slot_clock=clock, execution_engine=MockExecutionEngine())
         chain.process_block(signed)
+        served = chip_smoke.api_server(chain)
         out = chip_smoke.phase_http("cpu", case, chain, [], case.host_state.as_ssz_bytes(),
-                                    device="cpu")
+                                    served, device="cpu")
     finally:
+        if served is not None:
+            served[0].stop()
+            served[1].shutdown()
         set_backend("host")
     assert out["state_ssz"] == case.host_state.as_ssz_bytes()
     assert min(out["launches"].values()) > 0
