@@ -157,7 +157,7 @@ Phases, each of which raises on a failed check:
              verifies, on the card); refused, the head, the store's key
              count and the block caches unchanged: a copy of the block
              whose sidecar 3 carries sidecar 4's proof (the kzg_batch
-             False on the card); then [http] and [vc] on this node; a
+             False on the card); then [http], [vc] and [client] on this node; a
              fresh ``HotColdDB`` on the same file reads back the block
              byte for byte, the post-state's stored SSZ bytes (those of
              [http]'s download) and its summary;
@@ -177,14 +177,15 @@ Phases, each of which raises on a failed check:
              the other's ENR key), yamux, ``/meshsub/1.1.0``; then each
              side's mesh holds the other on every topic.  pub publishes,
              as snappy SSZ on their topics, while the node's workers are
-             held: 4,096 unaggregated attestations of the anchor's slot (64
+             held: 2,048 unaggregated attestations of the anchor's slot (32
              members of each of its 64 committees, each signed with its
-             own key), then 64 aggregates (one a committee over its 64
-             attesters, its aggregator the first member in key order whose
-             selection proof passes ``is_aggregator``); each drains
-             through the router's batch handler as one batch and one
-             supervised bls_verify batch on the card (4,096 sets; 192
-             sets, bucket 256 x 64); the node's service received exactly
+             own key; cut from 4,096 for the time limit), then 64
+             aggregates (one a committee over its 32 attesters, its
+             aggregator the first member in key order whose selection
+             proof passes ``is_aggregator``); each drains through the
+             router's batch handler as one batch and one supervised
+             bls_verify batch on the card (2,048 sets; 192 sets); the
+             node's service received exactly
              the messages pub sent (in order, by topic and message id);
              every vote and aggregate applied, every aggregator observed,
              no host fallback, nothing dropped, nothing forwarded back to
@@ -198,7 +199,7 @@ Phases, each of which raises on a failed check:
              meshsub's framing;
     network — then the same over a seeded in-process ``Hub``, cut to 64
              attestations (the next member of each committee after
-             [wire]'s 64) and 64 aggregates over them (each committee's
+             [wire]'s 32) and 64 aggregates over them (each committee's
              second aggregator in key order: a node observes one aggregate
              an aggregator and epoch), with the same gates (64 sets; 192
              sets); then 8 more,
@@ -269,6 +270,37 @@ Phases, each of which raises on a failed check:
              ``http_api_request_seconds``, the host's signing seconds, the
              KDF seconds, the verifies' stages and
              ``http_requests_shed_total``;
+    client — beside [vc], in a second process, the node an operator
+             starts: [http]'s download of the post-state written beside a
+             devnet ``config.yaml`` (mainnet, every fork up to Deneb at
+             epoch 0), then ``python -m lighthouse_tpu_torch bn
+             --testnet-dir D --genesis-state D/state.ssz --datadir D/db
+             --http-port 0 --listen-port 0 --peers <host:port>`` on the
+             card (no ``--device``), its peer a ``LocalNode`` of [chain]'s
+             node on a ``TcpEndpoint`` (the builder's endpoint is
+             unsecured, as the JAX package's, so it cannot dial [wire]'s);
+             its gates run from a thread while [vc] runs: ``beacon node
+             up`` in its log, its pid in ``nvidia-smi
+             --query-compute-apps``; its head root, state root and
+             finality checkpoints [chain]'s and [http]'s, its sync
+             distance the wall clock's (its header route 404: the anchor
+             has no signed block, as in the JAX package); [network]'s
+             double-vote slashing POSTed with attestation_1 under
+             attestation_2's signature (HTTP 400, bad signature), then as
+             it is (200) and read back from its pool as sent, its flight
+             record two 2-set bls_verify batches [False, True] and the
+             boot root's tree_hash batches, no host fallback, breakers
+             closed; its kernel launches (its ``/metrics``, from 0 at its
+             start): the subtree kernel at boot, both Fq kernels for the
+             POSTs; one peer counted, [chain]'s node listing it; no
+             ``beacon_state_advance_seconds`` observation; its RSS; SIGTERM
+             gives exit code 0 within CLIENT_STOP_S (else its log's tail
+             is printed and it is killed); printed: the time to ``beacon
+             node up``, the boot split from its log (decode, the kernel
+             libraries, the anchor's root, the chain's store write and
+             fork-choice anchor), each request's seconds on the client
+             and in its ``http_api_request_seconds``, both verifies'
+             stages and the POSTs' rest (the head-state copy);
 14. chain-harness — the SURVEY §7 harness (minimal preset, 64 interop
              validators), real crypto on the default device: a
              ``ValidatorClient`` with the 64 interop keys, over HTTP to an
@@ -356,13 +388,14 @@ through the device supervisor (``device_supervisor.py``); the script fails
 if any of them took the host route or left a breaker open.  Per-batch stages come from
 the flight recorder (``device_telemetry``).
 
-Each phase (and [wire], [network], the double vote, [http] and [vc]
-inside [chain])
+Each phase (and [wire], [network], the double vote, [http], [vc] and
+[client] inside [chain])
 prints ``[phase] <name> <seconds> s``, its wall time.  The line before the
 last is one JSON object naming every kernel with its numbers; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA,
 or outside the repository, the script exits non-zero and prints no result.
-It needs no network and leaves no process running.
+It needs no network and leaves no process running ([client]'s node is
+stopped, or killed when a gate fails).
 """
 
 from __future__ import annotations
@@ -503,7 +536,7 @@ EL_JWT_SECRET = random.Random(0xE1).randbytes(32)
 #: tampered batch, the slasher's history in epochs (cut from Lighthouse's
 #: 4,096: its arrays take 48 bytes a validator and epoch), the hub's seed
 #: and the seconds the node may take to drain.
-WIRE_ATTESTERS = 64  # [wire]: 4,096 attestations of a 64-committee slot
+WIRE_ATTESTERS = 32  # [wire]: 2,048 attestations of a 64-committee slot
 NET_ATTESTERS = 1  # [network]: 64, one a committee after [wire]'s members
 NET_TAMPERED = 8
 SLASHER_HISTORY = 64
@@ -526,6 +559,13 @@ HTTP_TIMEOUT_S = 600.0
 #: keystores at the default work factor) and their password.
 VC_KEYS = 8
 VC_PASSWORD = "chip_smoke validator client"
+#: [client]: the seconds the node started through the CLI may take from
+#: its start to ``beacon node up`` (decode, root, store write, fork choice
+#: at 2^20), and from SIGTERM to its exit; the lines of its log printed
+#: when a gate fails.
+CLIENT_BOOT_S = 600.0
+CLIENT_STOP_S = 30.0
+CLIENT_LOG_TAIL = 60
 HARNESS_VALIDATORS = 64
 HARNESS_SLOTS = 40
 #: [chain-harness]'s eth1 path: the interop index of the new depositor;
@@ -3699,8 +3739,22 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
                                       served=served)
             post_ssz = http_out.pop("state_ssz")
             del ref_ssz
-            with phase_wall("vc"):
-                vc_out = phase_vc(card, case, chain, clock, served, tmp)
+            # [client]: the node an operator starts on the post-state, in a
+            # second process, its gates run beside [vc].
+            slashings = chain.op_pool.attester_slashings()
+            if len(slashings) != 1:
+                raise AssertionError(f"[client] [chain]'s pool holds {len(slashings)} "
+                                     f"attester slashings, not the double vote's one")
+            client = ClientCell(card, chain, served, post_ssz, slashings[0], case.spec,
+                                device=device)
+            try:
+                with phase_wall("vc"):
+                    vc_out = phase_vc(card, case, chain, clock, served, tmp)
+            except BaseException:
+                client.abort()
+                raise
+            client_out = client.finish()
+            log(f"[phase] client {client_out['wall_s']:.1f} s")
         finally:
             served[0].stop()
             served[1].shutdown()
@@ -3744,7 +3798,7 @@ def phase_chain(card: str, case, anchor, kzg_in, device: str = "cuda") -> dict:
             "sets": verifies[0]["n_live"], "sync_s": sync_s, "sync_sign_s": sign_s,
             "sync_stages_s": sst, "sync_bucket": sync_rec[0]["shape"],
             "sync_tampered_s": tampered_s, "refusals_s": refusals, "restart_s": restart_s,
-            "http": http_out, "vc": vc_out}
+            "http": http_out, "vc": vc_out, "client": client_out}
 
 
 def head_attestations(case, state, root: bytes, count: int) -> list:
@@ -4530,6 +4584,405 @@ def phase_vc(card: str, case, chain, clock, served, tmp: str) -> dict:
             "encrypt_s": encrypt_s, "import_s": import_s, "vectors_s": vectors_s,
             "shed": shed, "sign_s": spans.get("sign", 0.0),
             "server_s": {route: sec for route, (_, sec) in served_s.items()}}
+
+
+def devnet_config(spec) -> str:
+    """[client]'s ``config.yaml``: the case's (mainnet) spec with every fork
+    up to Deneb at epoch 0 and mainnet's fork versions, as a consensus-specs
+    config file.  ``--genesis-state`` decodes at the fork of epoch 0, so the
+    Deneb state loads; at the state's epoch the fork, its domains and the
+    gossip digests are mainnet's."""
+    import dataclasses
+
+    from lighthouse_tpu_torch.network_config import spec_to_yaml
+
+    devnet = dataclasses.replace(spec, config_name="chip-smoke-devnet", altair_fork_epoch=0,
+                                 bellatrix_fork_epoch=0, capella_fork_epoch=0,
+                                 deneb_fork_epoch=0)
+    return ("# chip_smoke [client]: mainnet, every fork up to Deneb at epoch 0\n"
+            + spec_to_yaml(devnet))
+
+
+def compute_apps() -> list:
+    """``nvidia-smi --query-compute-apps=pid,used_memory``'s lines."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+
+
+def prometheus_values(text: str, name: str) -> dict:
+    """Each sample of metric ``name`` in Prometheus text: {labels: value}."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(name) and line[len(name):len(name) + 1] in ("{", " "):
+            labels, _, value = line[len(name):].rpartition(" ")
+            out[labels] = float(value)
+    return out
+
+
+class ClientCell:
+    """[client]: the node the operator starts, ``python -m lighthouse_tpu_torch
+    bn``, on [chain]'s post-state, in a second process beside [vc] (see the
+    module docstring).  ``__init__`` writes the state ([http]'s download)
+    beside a devnet ``config.yaml``, starts a ``LocalNode`` of [chain]'s
+    node on a ``TcpEndpoint`` for the child to dial (the builder's endpoint
+    is unsecured, as the JAX package's, so it cannot dial [wire]'s secured
+    one), starts the child and runs its gates from a thread; :meth:`finish`
+    joins the thread, stops the child with SIGTERM and raises what failed.
+    Every result is printed after the join, so [vc]'s lines stay whole."""
+
+    def __init__(self, card: str, chain, served, post_ssz: bytes, slashing, spec,
+                 device: str = "cuda"):
+        import os
+        import tempfile
+
+        import torch
+
+        from lighthouse_tpu_torch.network import LocalNode
+        from lighthouse_tpu_torch.network.tcp_transport import TcpEndpoint
+
+        self.card, self.chain, self.device = card, chain, device
+        self.kind = torch.cuda.get_device_name(0) if device == "cuda" else None
+        self.slashing = slashing
+        self.lines, self.out, self.error = [], {}, None
+        self.t0 = time.perf_counter()
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_client_")
+        state_path = os.path.join(self.dir, "state.ssz")
+        with open(state_path, "wb") as f:
+            f.write(post_ssz)
+        with open(os.path.join(self.dir, "config.yaml"), "w") as f:
+            f.write(devnet_config(spec))
+        # [http]'s answers, read before [vc] starts.
+        status, _, body = http_fetch(served[0].port, "GET",
+                                     "/eth/v1/beacon/states/head/finality_checkpoints")
+        if status != 200:
+            raise AssertionError(f"[client] the node's finality checkpoints: HTTP {status}")
+        self.finality = json.loads(body)["data"]
+        self.node = LocalNode(peer_id="chain", chain=chain, endpoint=TcpEndpoint("chain"))
+        host, port = self.node.endpoint.listen_addr
+        self.argv = [sys.executable, "-m", "lighthouse_tpu_torch", "bn",
+                     "--testnet-dir", self.dir, "--genesis-state", state_path,
+                     "--datadir", os.path.join(self.dir, "db"), "--http-port", "0",
+                     "--listen-port", "0", "--peers", f"{host}:{port}"]
+        if device == "cpu":
+            self.argv += ["--device", "cpu"]
+        self.log_path = os.path.join(self.dir, "bn.log")
+        self.log_file = open(self.log_path, "wb")
+        # The node's API waits HTTP_TIMEOUT_S for a handler, as [http]'s and
+        # [vc]'s server does: its slashing POSTs copy the 2^20 state.
+        env = dict(os.environ, PYTHONUNBUFFERED="1",
+                   LIGHTHOUSE_TPU_API_TIMEOUT_S=str(HTTP_TIMEOUT_S))
+        self.apps = compute_apps() if device == "cuda" else []
+        self.child = subprocess.Popen(self.argv, stdout=self.log_file, stderr=subprocess.STDOUT,
+                                      cwd=str(Path(__file__).resolve().parent), env=env)
+        self.started = time.perf_counter()
+        self.thread = threading.Thread(target=self._run, name="client-gates", daemon=True)
+        self.thread.start()
+
+    def say(self, text: str) -> None:
+        self.lines.append(f"[client] {text}")
+
+    def get(self, path: str, expect: int = 200):
+        """A GET to the child: (seconds on the client, decoded JSON or text)."""
+        t = time.perf_counter()
+        status, ctype, body = http_fetch(self.port, "GET", path)
+        seconds = time.perf_counter() - t
+        if status != expect:
+            raise AssertionError(f"[client] GET {path}: HTTP {status} {body[:200]!r}")
+        return seconds, json.loads(body) if "json" in ctype else body.decode()
+
+    def _run(self) -> None:
+        try:
+            self._gates()
+        except BaseException as err:  # reported by finish()
+            self.error = err
+
+    def _up(self) -> float:
+        """Wait for ``beacon node up`` in the child's log; returns the
+        seconds since the child started and sets ``self.port``."""
+        import re
+
+        deadline = self.started + CLIENT_BOOT_S
+        while time.perf_counter() < deadline:
+            with open(self.log_path, "rb") as f:
+                text = f.read().decode(errors="replace")
+            m = re.search(r"beacon node up: http API on :(\d+)", text)
+            if m is not None:
+                self.port = int(m.group(1))
+                return time.perf_counter() - self.started
+            if self.child.poll() is not None:
+                raise AssertionError(f"[client] the node exited with {self.child.returncode} "
+                                     "before it was up")
+            time.sleep(0.1)
+        raise AssertionError(f"[client] the node was not up after {CLIENT_BOOT_S:.0f} s")
+
+    def launches(self) -> dict:
+        """The node's kernel launches so far (its ``/metrics``)."""
+        _, text = self.get("/metrics")
+        return {labels.split('"')[1]: int(n) for labels, n in
+                prometheus_values(text, "device_kernel_launches").items()}
+
+    def _gates(self) -> None:
+        import copy
+        import re
+
+        from lighthouse_tpu_torch.http_api.serde import to_json
+
+        chain, card = self.chain, self.card
+        out = self.out
+        out["up_s"] = self._up()
+        out["boot_launches"] = self.launches()
+        with open(self.log_path, "rb") as f:
+            boot_log = f.read().decode(errors="replace")
+        boot = {}
+        m = re.search(r"genesis state: (\d+) bytes decoded as (\w+) in ([\d.]+) s", boot_log)
+        if m:
+            boot["decode"] = float(m.group(3))
+        m = re.search(r"kernel libraries ready in ([\d.]+) s", boot_log)
+        if m:
+            boot["kernels"] = float(m.group(1))
+        m = re.search(r"its root in ([\d.]+) s, the chain \(store write, fork-choice anchor\) "
+                      r"in ([\d.]+) s", boot_log)
+        if m:
+            boot["root"], boot["chain"] = float(m.group(1)), float(m.group(2))
+        out["boot_s"] = boot
+        self.say(f"{card}: `{' '.join(self.argv[1:])}` printed `beacon node up` "
+                 f"{out['up_s']:.2f} s after it started (pid {self.child.pid}, HTTP port "
+                 f"{self.port}); its log: decode {boot.get('decode', 'n/a')} s, kernel "
+                 f"libraries {boot.get('kernels', 'n/a')} s, the anchor's root "
+                 f"{boot.get('root', 'n/a')} s, the chain (store write, fork-choice anchor) "
+                 f"{boot.get('chain', 'n/a')} s")
+        if self.device == "cuda":
+            # nvidia-smi names every process of this machine's PID namespace
+            # with pid 1, so the node is the one compute app more than before
+            # it started; its own API names the card its memory is on.
+            apps = compute_apps()
+            _, device = self.get("/lighthouse/device")
+            memory = device["data"]["memory"]
+            peak = memory[0].get("stats", {}).get("allocated_bytes.all.peak", 0) if memory \
+                else 0
+            if len(apps) != len(self.apps) + 1 or not peak or \
+                    memory[0]["kind"] != self.kind:
+                raise AssertionError(f"[client] nvidia-smi's compute apps {apps} (before the "
+                                     f"node {self.apps}); the node's device memory {memory}")
+            self.say(f"nvidia-smi --query-compute-apps: {apps}, one more than before the node "
+                     f"started ({self.apps}; pids read as 1 in this machine's PID namespace); "
+                     f"the node's /lighthouse/device: {memory[0]['kind']}, "
+                     f"{peak} bytes allocated at its peak")
+
+        # Same chain.
+        seconds = {}
+        # The node holds its anchor's state but no signed block (as [chain]'s
+        # own anchor), so, as in the JAX package, it serves no header of it.
+        seconds["headers/head"], header = self.get("/eth/v1/beacon/headers/head", expect=404)
+        if "genesis block body is not stored" not in header["message"]:
+            raise AssertionError(f"[client] /eth/v1/beacon/headers/head: {header}")
+        seconds["blocks/head/root"], head = self.get("/eth/v1/beacon/blocks/head/root")
+        if head["data"]["root"] != "0x" + chain.head_root.hex():
+            raise AssertionError(f"[client] the node's head {head['data']['root']}, [chain]'s "
+                                 f"{chain.head_root.hex()}")
+        seconds["states/head/root"], root = self.get("/eth/v1/beacon/states/head/root")
+        if root["data"]["root"] != "0x" + bytes(chain.head_state.hash_tree_root()).hex():
+            raise AssertionError(f"[client] the node's head state root {root['data']['root']}")
+        seconds["finality_checkpoints"], fin = self.get(
+            "/eth/v1/beacon/states/head/finality_checkpoints")
+        if fin["data"] != self.finality:
+            raise AssertionError(f"[client] finality {fin['data']} != [http]'s {self.finality}")
+        seconds["syncing"], syncing = self.get("/eth/v1/node/syncing")
+        distance = int(syncing["data"]["sync_distance"])
+        wall_slot = (int(time.time()) - int(chain.genesis_time)) // chain.spec.seconds_per_slot
+        if int(syncing["data"]["head_slot"]) != chain.head_slot() or \
+                abs(distance - (wall_slot - chain.head_slot())) > 1:
+            raise AssertionError(f"[client] /eth/v1/node/syncing {syncing['data']}")
+        self.say(f"the same chain: head {head['data']['root'][:18]} at slot "
+                 f"{syncing['data']['head_slot']} and "
+                 f"its state root {root['data']['root'][:18]} are [chain]'s; the finality "
+                 f"checkpoints are [http]'s; /eth/v1/node/syncing: head slot "
+                 f"{syncing['data']['head_slot']}, sync distance {distance} slots (the wall "
+                 f"clock's), is_syncing {syncing['data']['is_syncing']}; "
+                 f"/eth/v1/beacon/headers/head HTTP 404 ({header['message']}: the anchor "
+                 f"has no signed block)")
+
+        # Verified on the card: the double vote's slashing, tampered, then as it is.
+        _, before = self.get("/lighthouse/device/batches?op=bls_verify&limit=1024")
+        seq0 = max([r["seq"] for r in before["data"]], default=0)
+        tampered = copy.deepcopy(self.slashing)
+        tampered.attestation_1.signature = bytes(self.slashing.attestation_2.signature)
+        posts = {}
+        for label, body, expect in (("tampered", tampered, 400), ("real", self.slashing, 200)):
+            t = time.perf_counter()
+            status, _, reply = http_fetch(self.port, "POST", "/eth/v1/beacon/pool/attester_slashings",
+                                          body=to_json(body))
+            posts[label] = time.perf_counter() - t
+            if status != expect:
+                raise AssertionError(f"[client] the {label} slashing: HTTP {status} "
+                                     f"{reply[:300]!r}, expected {expect}")
+            if label == "tampered" and b"bad signature" not in reply:
+                raise AssertionError(f"[client] the tampered slashing's refusal {reply[:300]!r}")
+        seconds["pool"], pool = self.get("/eth/v1/beacon/pool/attester_slashings")
+        if pool["data"] != [to_json(self.slashing)]:
+            raise AssertionError(f"[client] the node's pool {pool['data']}")
+        launches = self.launches()
+        out["post_launches"] = {k: n - out["boot_launches"].get(k, 0)
+                                for k, n in launches.items()}
+        if self.device == "cuda" and (
+                out["boot_launches"].get("tree_hash_subtrees", 0) <= 0 or
+                min(out["post_launches"].get(k, 0) for k in KERNELS) <= 0):
+            raise AssertionError(f"[client] the node's kernel launches: at boot "
+                                 f"{out['boot_launches']}, for the POSTs "
+                                 f"{out['post_launches']}")
+        _, after = self.get("/lighthouse/device/batches?op=bls_verify&limit=1024")
+        records = sorted((r for r in after["data"] if r["seq"] > seq0), key=lambda r: r["seq"])
+        if [(r["n_live"], r.get("verdict"), r["host_fallback"]) for r in records] != \
+                [(2, False, False), (2, True, False)]:
+            raise AssertionError(f"[client] the node's bls_verify records {records}")
+        _, trees = self.get("/lighthouse/device/batches?op=tree_hash&limit=1024")
+        if not trees["data"] or any(r["host_fallback"] for r in trees["data"]):
+            raise AssertionError(f"[client] the node's tree_hash records {trees['data'][:4]}")
+        _, device = self.get("/lighthouse/device")
+        dev = device["data"]
+        breakers = {b["op"]: b["state"] for b in dev["supervisor"]["breakers"]}
+        if any(dev["host_fallbacks"].values()) or any(v != "closed" for v in breakers.values()):
+            raise AssertionError(f"[client] the node's host fallbacks {dev['host_fallbacks']}, "
+                                 f"breakers {breakers}")
+        _, everything = self.get("/lighthouse/device/batches?limit=1024")
+        ops = {}
+        for r in everything["data"]:
+            ops[r["op"]] = ops.get(r["op"], 0) + 1
+        out["ops"] = ops
+        out["records"] = records
+        out["posts_s"] = posts
+        stages = [r["stages_s"] for r in records]
+        self.say(f"{card}: POST /eth/v1/beacon/pool/attester_slashings: the double vote's "
+                 f"slashing with attestation_1 under attestation_2's signature HTTP 400 (bad "
+                 f"signature) in {posts['tampered']:.2f} s, then as it is HTTP 200 in "
+                 f"{posts['real']:.2f} s; GET of the pool returns it, its JSON as sent; the "
+                 f"node's flight record: two 2-set bls_verify batches, verdicts [False, True], "
+                 f"no host fallback, breakers closed ({sorted(breakers)}); "
+                 f"{len(trees['data'])} tree_hash batches of the boot's root on the card; "
+                 f"its whole flight record by op {ops} (its committees come from the host "
+                 f"shuffle: no boundary)")
+        self.say(f"the node's kernel launches (its /metrics): booting (the anchor's root) "
+                 f"{out['boot_launches']}; for the two POSTs {out['post_launches']}")
+        for label, st in zip(("the first (tampered)", "the second"), stages):
+            self.say(f"  {label} slashing's verify: setup {st['setup']:.4f} s, device "
+                     f"{st['dispatch'] + st['wait']:.4f} s (dispatch {st['dispatch']:.4f}, "
+                     f"wait {st['wait']:.4f}), verdict {st['verdict']:.4f} s")
+        out["first_dispatch_s"] = stages[0]["dispatch"] + stages[0]["wait"] - (
+            stages[1]["dispatch"] + stages[1]["wait"])
+
+        # Joined.
+        seconds["peer_count"], peers = self.get("/eth/v1/node/peer_count")
+        connected = int(peers["data"]["connected"])
+        mine = [p for p in self.node.endpoint.connected_peers() if p.startswith("bn-")]
+        if connected < 1 or len(mine) != 1:
+            raise AssertionError(f"[client] peer_count {peers['data']}, [chain]'s peers "
+                                 f"{self.node.endpoint.connected_peers()}")
+        _, identity = self.get("/eth/v1/node/identity")
+        if identity["data"]["peer_id"] != mine[0]:
+            raise AssertionError(f"[client] the node's identity {identity['data']['peer_id']}, "
+                                 f"[chain]'s node lists {mine}")
+        self.say(f"joined: the node counts {connected} connected peer(s); [chain]'s node lists "
+                 f"it as {mine[0]}")
+
+        # No runaway advance; the node's own request seconds and its RSS.
+        _, text = self.get("/metrics")
+        advances = prometheus_values(text, "beacon_state_advance_seconds_count")
+        if any(advances.values()):
+            raise AssertionError(f"[client] the node advanced its state: {advances}")
+        served = {labels: value for labels, value in
+                  prometheus_values(text, "http_api_request_seconds_sum").items()}
+        counts = prometheus_values(text, "http_api_request_seconds_count")
+        _, health = self.get("/lighthouse/health")
+        rss = int(health["data"]["pid_mem_resident_set_size"])
+        out["rss"] = rss
+        out["seconds"] = seconds
+        out["served"] = {k: (counts.get(k, 0), v) for k, v in served.items()}
+        mem = dev.get("memory") or {}
+        self.say(f"no state advance (beacon_state_advance_seconds: "
+                 f"{sum(advances.values()):.0f} observations); the node's RSS {rss} bytes "
+                 f"({rss / 2**30:.2f} GiB); its device memory {json.dumps(mem)[:300]}")
+        for key, sec in seconds.items():
+            self.say(f"  {sec:9.4f} s client  GET {key}")
+        for key, sec in posts.items():
+            self.say(f"  {sec:9.4f} s client  POST attester_slashings ({key})")
+        for labels, (n, sec) in sorted(out["served"].items()):
+            self.say(f"  {sec:9.4f} s node    {labels} ({n:.0f} requests)")
+        # Each POST's verify against the rest of its handler (the head-state
+        # copy, the JSON, the signature sets, the processing on the copy).
+        post_key = [k for k in out["served"] if "attester_slashings" in k and "POST" in k]
+        if post_key:
+            n, total = out["served"][post_key[0]]
+            verify = sum(st["setup"] + st["dispatch"] + st["wait"] + st["verdict"]
+                         for st in stages)
+            out["post_rest_s"] = total - verify
+            self.say(f"the two POSTs on the node: {total:.2f} s, the verifies "
+                     f"{verify:.3f} s, the rest (the head-state copy, the JSON, the signature "
+                     f"sets, the processing on the copy) {total - verify:.2f} s")
+
+    def tail(self) -> str:
+        with open(self.log_path, "rb") as f:
+            lines = f.read().decode(errors="replace").splitlines()
+        return "\n".join(lines[-CLIENT_LOG_TAIL:])
+
+    def kill(self) -> None:
+        if self.child.poll() is None:
+            self.child.kill()
+            self.child.wait(timeout=60)
+
+    def close(self) -> None:
+        """Kill the node if it still runs; stop [chain]'s peer node; remove
+        the files."""
+        import shutil
+
+        self.kill()
+        self.log_file.close()
+        self.node.shutdown()
+        self.node.endpoint.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+    def abort(self) -> None:
+        """Stop everything after a failure outside the gates ([vc]'s)."""
+        self.kill()
+        self.thread.join(timeout=60)
+        self.close()
+
+    def finish(self) -> dict:
+        """Join the gates, stop the node (SIGTERM: exit code 0 within
+        CLIENT_STOP_S), print every result; raises on a failed gate, after
+        printing the node's log tail and killing it."""
+        import signal
+
+        try:
+            self.thread.join(timeout=CLIENT_BOOT_S + 4 * HTTP_TIMEOUT_S)
+            if self.thread.is_alive():
+                raise AssertionError("[client] the gates did not finish")
+            if self.error is not None:
+                raise self.error
+            self.child.send_signal(signal.SIGTERM)
+            t = time.perf_counter()
+            try:
+                code = self.child.wait(timeout=CLIENT_STOP_S)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"[client] the node did not stop within "
+                                     f"{CLIENT_STOP_S:.0f} s of SIGTERM") from None
+            self.out["stop_s"] = time.perf_counter() - t
+            if code != 0:
+                raise AssertionError(f"[client] the node exited with {code} on SIGTERM")
+            self.say(f"SIGTERM: the node exited with 0 in {self.out['stop_s']:.2f} s")
+            self.out["wall_s"] = time.perf_counter() - self.t0
+            for line in self.lines:
+                log(line)
+            return self.out
+        except BaseException:
+            for line in self.lines:
+                log(line)
+            self.kill()
+            self.log_file.flush()
+            log(f"[client] the node's log, last {CLIENT_LOG_TAIL} lines:\n{self.tail()}")
+            raise
+        finally:
+            self.close()
 
 
 def sign_blinded(hs, block):

@@ -260,6 +260,11 @@ class AggregateCandidate:
         self.signature_sets = signature_sets
 
 
+#: The furthest the head may lag the clock for the state-advance timer to
+#: pre-advance it (the reference's ``state_advance_timer.rs``).
+MAX_ADVANCE_DISTANCE = 4
+
+
 class BeaconChain:
     def __init__(
         self,
@@ -1557,8 +1562,17 @@ class BeaconChain:
         job the reference's state_advance_timer runs): block production and
         attestation at the next slot then start from a cached state instead
         of paying the advance — the epoch-boundary case is the one that
-        matters (full epoch processing).  Returns True when work was done."""
-        next_slot = self.current_slot() + 1
+        matters (full epoch processing).  Returns True when work was done.
+
+        A head more than ``MAX_ADVANCE_DISTANCE`` slots behind the clock is
+        not advanced (the reference's ``state_advance_timer.rs``): a node
+        syncing, or booted from an old anchor, would otherwise process slot
+        after slot up to the clock.  The JAX package's copy has no such
+        guard."""
+        current_slot = self.current_slot()
+        if current_slot - self.head_slot() > MAX_ADVANCE_DISTANCE:
+            return False
+        next_slot = current_slot + 1
         head_root = self.head_root
         cached = self._advanced
         if cached is not None and cached[0] == head_root and cached[1] == next_slot:

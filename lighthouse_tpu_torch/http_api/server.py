@@ -312,17 +312,26 @@ def node_health(ctx):
     raise ApiError(200 if distance <= 1 else 206, "")
 
 
+# The two routes below read ``PeerManager.peers`` (a dict of ``PeerInfo``)
+# and each peer's ``state``; the JAX package's copies call ``peers()`` and
+# read ``info.connected``, neither of which exists, so a server given a
+# real peer manager answers 500 there.
+
+
 @route("GET", "/eth/v1/node/peers")
 def node_peers(ctx):
+    from ..network.peer_manager import ConnectionState
+
     peers = []
     pm = getattr(ctx.server, "peer_manager", None)
     if pm is not None:
-        for pid, info in pm.peers().items():
+        for pid, info in list(pm.peers.items()):
             peers.append({
                 "peer_id": str(pid),
                 "enr": "",
                 "last_seen_p2p_address": "",
-                "state": "connected" if info.connected else "disconnected",
+                "state": ("connected" if info.state == ConnectionState.CONNECTED
+                          else "disconnected"),
                 "direction": "outbound",
             })
     return {"data": peers, "meta": {"count": len(peers)}}
@@ -331,7 +340,7 @@ def node_peers(ctx):
 @route("GET", "/eth/v1/node/peer_count")
 def node_peer_count(ctx):
     pm = getattr(ctx.server, "peer_manager", None)
-    n = len([p for p in pm.peers().values() if p.connected]) if pm else 0
+    n = len(pm.connected_peers()) if pm else 0
     return {"data": {
         "connected": str(n), "connecting": "0", "disconnected": "0", "disconnecting": "0",
     }}

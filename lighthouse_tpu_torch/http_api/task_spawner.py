@@ -13,11 +13,17 @@ dequeue when it waited past its class deadline — an answer delivered after
 the client's own timeout is pure waste, and computing it anyway is how an
 overload becomes a collapse.
 
-A copy of the JAX package's ``lighthouse_tpu/http_api/task_spawner.py``.
+A copy of the JAX package's ``lighthouse_tpu/http_api/task_spawner.py``,
+but for the handler timeout's default: ``LIGHTHOUSE_TPU_API_TIMEOUT_S``
+(30 s when unset, the JAX package's fixed default) lets a node started
+from the command line serve the routes that copy a mainnet-width state
+(the op pools, the next epoch's duties: 20 s and more a copy at 2^20
+validators), which the CLI has no flag for.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Any, Callable, Optional
 
@@ -47,10 +53,12 @@ class TaskSpawner:
     def __init__(
         self,
         processor: Optional[BeaconProcessor],
-        timeout: float = 30.0,
+        timeout: Optional[float] = None,
         admission: Optional[AdmissionController] = None,
     ):
         self.processor = processor
+        if timeout is None:
+            timeout = float(os.environ.get("LIGHTHOUSE_TPU_API_TIMEOUT_S", "30"))
         self.timeout = timeout
         self.admission = admission if admission is not None else AdmissionController()
 

@@ -599,3 +599,22 @@ SLASHER_SLASHINGS = counter(
     "slasher_slashings_total",
     "slashings drained from the local slasher, by kind and outcome",
 )
+
+# The port's hand-written CUDA kernels (ops/cuda_fq.py, cuda_sha.py,
+# cuda_epoch.py): each wrapper's launch count in this process, sampled on
+# scrape, so a node started on its own shows what it ran on the card.
+KERNEL_LAUNCHES = gauge(
+    "device_kernel_launches",
+    "hand-written CUDA kernel launches in this process, by kernel",
+)
+
+
+def _sample_kernel_launches() -> None:
+    from ..ops import cuda_epoch, cuda_fq, cuda_sha
+
+    for module in (cuda_fq, cuda_sha, cuda_epoch):
+        for name, count in list(module.LAUNCHES.items()):
+            KERNEL_LAUNCHES.set(count, kernel=name)
+
+
+register_collector(_sample_kernel_launches)
