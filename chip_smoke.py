@@ -67,6 +67,38 @@ Phases, each of which raises on a failed check:
              pipeline; every root equals ``golden_root``, the verdict is
              True, at least one hash batch coalesced two or more groups,
              the shared arbiter granted both ops, no host fallback;
+   mesh   — the device mesh: ``device_mesh.configure("auto")`` over the
+             card list gives size 0 (one card: the single-device branch
+             production takes); then a mesh of two shards that both name
+             ``cuda:0`` (MESH_DEVICES): 127 x 32 and 63 x 1 sets (buckets
+             128 x 32 and 64 x 1, padded), each with one tampered set in
+             the second shard, through
+             ``ops.verify.verify_signature_sets_device`` on the shards
+             (False, each shard's fq_mul and fq2_mul launches counted
+             apart, the flight record ``128x32@dp2`` with its rows per
+             shard) and unsharded from the same host batch: ``fe`` the same
+             element of F_p^12;
+             the six [kzg] blobs through ``Kzg`` unsharded and on the two
+             shards (True, ``8@dp2``; two proofs swapped False); a
+             2^16-validator balance list's root and 66,536 pairs on the
+             shards, byte for byte the unsharded ones and hashlib's; a
+             15 x 1 batch with a dispatch fault charged to shard 1 (split
+             retry on the card: both halves True on the shards), then a
+             second that trips it: the mesh
+             re-shards to size 1 (off), the batch retries single-device,
+             True, ``device_mesh_reshards_total`` +1, no host fallback;
+             each sharded time beside the unsharded one (no scaling is
+             claimed: both shards share the card);
+   autotune — ``autotune.measure_walk_lookahead`` on the card: the
+             proposer walk (32 x 64 lanes x 90 rounds) at every lookahead,
+             each one's time, every output equal and equal to the plain
+             version's, the winner cached and ``walk_lookahead()`` now it;
+             then, in live mode, on the flight record the earlier phases
+             filled plus eight 300-block sha256_pairs batches (bucket
+             1,024), one evaluation starts the midpoint 640's warmup (a
+             neutral dispatch on the card), the next adopts it, a 500-block
+             layer dispatches at 640 with hashlib's digests; the decision
+             log printed; the mode and vocabularies restored after;
 10. state  — BeaconState tree hashing at mainnet width on the default
              device: a Deneb mainnet-preset state of 2^20 validators from a
              seed; its root with ``tree_hash.configure(enabled=True)`` and
@@ -177,14 +209,14 @@ Phases, each of which raises on a failed check:
              the other's ENR key), yamux, ``/meshsub/1.1.0``; then each
              side's mesh holds the other on every topic.  pub publishes,
              as snappy SSZ on their topics, while the node's workers are
-             held: 2,048 unaggregated attestations of the anchor's slot (32
+             held: 1,024 unaggregated attestations of the anchor's slot (16
              members of each of its 64 committees, each signed with its
-             own key; cut from 4,096 for the time limit), then 64
-             aggregates (one a committee over its 32 attesters, its
+             own key; cut from 4,096, then 2,048, for the time limit), then
+             64 aggregates (one a committee over its 16 attesters, its
              aggregator the first member in key order whose selection
              proof passes ``is_aggregator``); each drains through the
              router's batch handler as one batch and one supervised
-             bls_verify batch on the card (2,048 sets; 192 sets); the
+             bls_verify batch on the card (1,024 sets; 192 sets); the
              node's service received exactly
              the messages pub sent (in order, by topic and message id);
              every vote and aggregate applied, every aggregator observed,
@@ -199,7 +231,7 @@ Phases, each of which raises on a failed check:
              meshsub's framing;
     network — then the same over a seeded in-process ``Hub``, cut to 64
              attestations (the next member of each committee after
-             [wire]'s 32) and 64 aggregates over them (each committee's
+             [wire]'s 16) and 64 aggregates over them (each committee's
              second aggregator in key order: a node observes one aggregate
              an aggregator and epoch), with the same gates (64 sets; 192
              sets); then 8 more,
@@ -216,8 +248,11 @@ Phases, each of which raises on a failed check:
     http   — then the Beacon API on [chain]'s node: ``HttpApiServer``
              (a ``BeaconProcessor`` of two workers, the response cache on)
              on 127.0.0.1, read by ``BeaconNodeHttpClient`` over a socket:
-             the node's version, syncing and health, genesis, the head
-             state's root and finality checkpoints, 4 validators, 64
+             the node's version, syncing and health,
+             ``/lighthouse/autotune`` (200: the controller's snapshot with
+             [autotune]'s measured lookahead, the admission state),
+             genesis, the head state's root and finality checkpoints, 4
+             validators, 64
              balances, the 64 committees of the head's slot, 64 attester
              duties of its epoch and 64 attestation rewards of the epoch
              before (against ``rewards.attestation_rewards`` called on the
@@ -276,14 +311,18 @@ Phases, each of which raises on a failed check:
              epoch 0), then ``python -m lighthouse_tpu_torch bn
              --testnet-dir D --genesis-state D/state.ssz --datadir D/db
              --http-port 0 --listen-port 0 --peers <host:port>`` on the
-             card (no ``--device``), its peer a ``LocalNode`` of [chain]'s
+             card (no ``--device``; ``LIGHTHOUSE_TPU_MESH=auto``,
+             ``LIGHTHOUSE_TPU_AUTOTUNE=pinned``), its peer a ``LocalNode``
+             of [chain]'s
              node on a ``TcpEndpoint`` (the builder's endpoint is
              unsecured, as the JAX package's, so it cannot dial [wire]'s);
              its gates run from a thread while [vc] runs: ``beacon node
              up`` in its log, its pid in ``nvidia-smi
              --query-compute-apps``; its head root, state root and
              finality checkpoints [chain]'s and [http]'s, its sync
-             distance the wall clock's (its header route 404: the anchor
+             distance the wall clock's, its ``/lighthouse/device`` mesh
+             section size 0 (disabled, one card) and autotune mode pinned
+             (its header route 404: the anchor
              has no signed block, as in the JAX package); [network]'s
              double-vote slashing POSTed with attestation_1 under
              attestation_2's signature (HTTP 400, bad signature), then as
@@ -536,7 +575,7 @@ EL_JWT_SECRET = random.Random(0xE1).randbytes(32)
 #: tampered batch, the slasher's history in epochs (cut from Lighthouse's
 #: 4,096: its arrays take 48 bytes a validator and epoch), the hub's seed
 #: and the seconds the node may take to drain.
-WIRE_ATTESTERS = 32  # [wire]: 2,048 attestations of a 64-committee slot
+WIRE_ATTESTERS = 16  # [wire]: 1,024 attestations of a 64-committee slot
 NET_ATTESTERS = 1  # [network]: 64, one a committee after [wire]'s members
 NET_TAMPERED = 8
 SLASHER_HISTORY = 64
@@ -815,7 +854,8 @@ def phase_verify(cuda_fq) -> dict:
     gossip = timed_verify(f"{tag(GOSSIP)} gossip batch", gossip_sets, True)
     log(f"[verify] {tag(GOSSIP)} kernel launches {dict(cuda_fq.LAUNCHES)}")
     return {"launches": launches, "sizes": sizes,
-            "main": main, "again": again, "gossip": gossip}
+            "main": main, "again": again, "gossip": gossip,
+            "sets": {"main": main_sets, "gossip": gossip_sets}}
 
 
 def phase_parity() -> None:
@@ -1367,6 +1407,352 @@ def phase_hash_runtime(card: str, device: str = "cuda") -> dict:
         f"arbiter grants {grants}, waits {snap['arbiter']['wait_s']} s; host fallbacks "
         f"{device_telemetry.host_fallback_counts()}")
     return {"wall_s": wall, "hash": snap["hash"], "arbiter": snap["arbiter"]}
+
+
+# ------------------------------------------------------------ mesh, autotune
+
+
+#: [mesh]: the two members of the mesh on the one card, the live rows of
+#: its two verifies (buckets 128 x 32 and 64 x 1, padded), the tampered
+#: set's row (in the second shard), the reshard batch, the 2^16-validator
+#: balance list and the pair batch.
+MESH_DEVICES = ("cuda:0", "cuda:0")
+MESH_VERIFIES = ((MAIN[0] - 1, MAIN[1]), (GOSSIP[0] - 1, GOSSIP[1]))
+MESH_RESHARD_SETS = 15
+MESH_BALANCES = 1 << 16
+MESH_PAIRS = (1 << 16) + 1000
+
+
+class ShardLaunches:
+    """Kernel launches per mesh shard while in the block: each per-shard
+    program (``owner.name``) wrapped to read ``counters`` before and after
+    it, under ``device_mesh.current_shard()``."""
+
+    def __init__(self, counters: dict, targets):
+        self.counters, self.per_shard = counters, {}
+        self.patch = Patched({}, [(o, n, n) for o, n in targets], wrap=self._wrap)
+
+    def _wrap(self, spans, key, fn):
+        import functools
+
+        from lighthouse_tpu_torch import device_mesh
+
+        @functools.wraps(fn)  # the mesh reads the program's parameters
+        def run(*a, **kw):
+            before = dict(self.counters)
+            try:
+                return fn(*a, **kw)
+            finally:
+                got = self.per_shard.setdefault(device_mesh.current_shard(),
+                                                dict.fromkeys(self.counters, 0))
+                for k in got:
+                    got[k] += self.counters[k] - before[k]
+        return run
+
+    def __enter__(self):
+        self.patch.__enter__()
+        return self.per_shard
+
+    def __exit__(self, *exc):
+        return self.patch.__exit__(*exc)
+
+
+def _fe_value(fe):
+    from lighthouse_tpu_torch.ops import tower
+
+    return tower.fq12_from_limbs(fe.cpu())
+
+
+def mesh_verify(card: str, cuda_fq, sets: list, shape: tuple, device: str = "cuda") -> dict:
+    """One verify shape on the two-shard mesh, with one tampered set in the
+    second shard: through the supervised entry point on the shards
+    (verdict False, each shard's Fq launches counted apart, the flight
+    record's mesh fields, the combine's ``fe`` kept), and unsharded from
+    the same host batch (the entry point's weights come from its seed):
+    the two ``fe`` the same element of F_p^12."""
+    from lighthouse_tpu_torch import device_mesh
+    from lighthouse_tpu_torch.crypto.bls.backends.host import _rand_scalars
+    from lighthouse_tpu_torch.ops import pairing, verify
+    from lighthouse_tpu_torch.ops.devices import wait_for
+
+    label = f"{shape[0]} x {shape[1]}"
+    seed = b"chip-smoke-mesh"
+    nb = verify._bucket(shape[0], verify.N_BUCKETS)
+    victim = nb // 2 + (shape[0] - nb // 2) // 2  # a row of the second shard
+    tampered = forge(sets, victim, seed=0x3E5)
+    combined = []
+
+    def keep(spans, key, fn):
+        def run(*a, **kw):
+            combined.append(fn(*a, **kw))
+            return combined[-1]
+        return run
+
+    mark = runtime_mark()
+    cuda_fq.reset_launch_counts()
+    with Patched({}, [(verify, "_combine_shards", "combine")], wrap=keep), \
+            ShardLaunches(cuda_fq.LAUNCHES, [(verify, "_device_verify_shard")]) as per_shard:
+        t = time.perf_counter()
+        ok = verify.verify_signature_sets_device(tampered, seed=seed, device=device)
+        sharded_s = time.perf_counter() - t
+    total = dict(cuda_fq.LAUNCHES)
+    rec = assert_on_device(f"[mesh] {label}", mark)[-1]
+    if ok is not False or rec["shape"] != f"{nb}x{shape[1]}@dp2" or \
+            rec["shard_live"] != [nb // 2, shape[0] - nb // 2] or len(combined) != 1:
+        raise AssertionError(f"[mesh] {label} tampered: verdict {ok}, record {rec}")
+    if sorted(per_shard) != [0, 1] or any(n <= 0 for c in per_shard.values()
+                                          for n in c.values()):
+        raise AssertionError(f"[mesh] {label}: per-shard launches {per_shard}")
+    combine = {k: total[k] - per_shard[0][k] - per_shard[1][k] for k in total}
+    first = device_mesh.first_device()
+    host = verify.build_batch(tampered, _rand_scalars(len(tampered), seed))
+    t = time.perf_counter()
+    fe_u, _ = verify._device_verify(*verify.batch_from_numpy(host, first))
+    wait_for(first)
+    unsharded_s = time.perf_counter() - t
+    fe_s = combined[0][0]
+    if _fe_value(fe_s) != _fe_value(fe_u) or pairing.fe_is_one(fe_u):
+        raise AssertionError(f"[mesh] {label} tampered at row {victim}: sharded fe != "
+                             "unsharded fe, or the unsharded verdict True")
+    stages = rec["stages_s"]
+    device_s = stages["dispatch"] + stages["wait"]
+    log(f"[mesh] {card}: {label} (bucket {nb} x {shape[1]}) with one tampered set (row "
+        f"{victim}, shard 1) on 2 shards of {first}: verdict False in {sharded_s:.3f} s "
+        f"(device {device_s:.3f} s; record {rec['shape']}, rows per shard "
+        f"{rec['shard_live']}); unsharded from the same host batch: device {unsharded_s:.3f} s, "
+        f"fe the same element of F_p^12 (no scaling claimed: both shards share one card); "
+        f"Fq launches shard 0 {per_shard[0]}, shard 1 {per_shard[1]}, combine {combine}")
+    return {"sharded_s": sharded_s, "sharded_device_s": device_s,
+            "unsharded_device_s": unsharded_s, "per_shard": per_shard, "combine": combine}
+
+
+def phase_mesh(card: str, cuda_fq, verify_sets: dict, kzg, blobs, commitments,
+               proofs, device: str = "cuda") -> dict:
+    """[mesh]: the device mesh on the card (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from lighthouse_tpu_torch import device_mesh, device_supervisor, device_telemetry
+    from lighthouse_tpu_torch import fault_injection, metrics
+    from lighthouse_tpu_torch.ops import cuda_sha, kzg_device, sha256_device, tree_hash
+
+    out = {}
+    size = device_mesh.configure("auto")
+    if size != 0 or device_mesh.enabled():
+        raise AssertionError(f"[mesh] configure('auto') over {torch.cuda.device_count()} "
+                             f"card(s) gave size {size}")
+    log(f"[mesh] {card}: configure('auto') over the {torch.cuda.device_count()} visible "
+        f"card(s): size 0, the mesh disabled (single-device dispatch)")
+    hashing_on = tree_hash.enabled()
+    tree_hash.configure(enabled=True, device=device)
+    try:
+        if device_mesh.configure("auto", devices=MESH_DEVICES) != 2:
+            raise AssertionError(f"[mesh] a mesh over {MESH_DEVICES} is not of size 2")
+        main, gossip = verify_sets["main"], verify_sets["gossip"]
+        out["verify"] = [mesh_verify(card, cuda_fq, main[:MESH_VERIFIES[0][0]],
+                                     MESH_VERIFIES[0], device),
+                         mesh_verify(card, cuda_fq, gossip[:MESH_VERIFIES[1][0]],
+                                     MESH_VERIFIES[1], device)]
+
+        # KZG: the six blobs, unsharded, then on the two shards (valid, and
+        # two proofs swapped).
+        mark = runtime_mark()
+        device_mesh.configure("0")
+        t = time.perf_counter()
+        ok_u = kzg.verify_blob_kzg_proof_batch(blobs, commitments, proofs)
+        kzg_u = time.perf_counter() - t
+        device_mesh.configure("auto", devices=MESH_DEVICES)
+        cuda_fq.reset_launch_counts()
+        with ShardLaunches(cuda_fq.LAUNCHES, [(kzg_device, "_kzg_shard")]) as per_shard:
+            t = time.perf_counter()
+            ok_s = kzg.verify_blob_kzg_proof_batch(blobs, commitments, proofs)
+            kzg_s = time.perf_counter() - t
+        rec = device_telemetry.FLIGHT_RECORDER.recent(1, op="kzg_batch")[0]
+        swapped = [proofs[1], proofs[0], *proofs[2:]]
+        bad = kzg.verify_blob_kzg_proof_batch(blobs, commitments, swapped)
+        assert_on_device("[mesh] kzg", mark)
+        if (ok_u, ok_s, bad) != (True, True, False) or rec["shape"] != "8@dp2" or \
+                rec["shard_live"] != [4, 2] or sorted(per_shard) != [0, 1] or \
+                not all(per_shard[s]["fq_mul"] > 0 for s in (0, 1)):
+            raise AssertionError(f"[mesh] {KZG_BLOBS} blobs: verdicts {ok_u, ok_s, bad}, "
+                                 f"record {rec}, per-shard launches {per_shard}")
+        log(f"[mesh] {card}: {KZG_BLOBS} blobs: verdict True on 2 shards in {kzg_s:.3f} s, "
+            f"unsharded {kzg_u:.3f} s; two proofs swapped False on 2 shards; record "
+            f"{rec['shape']} rows per shard {rec['shard_live']}; Fq launches shard 0 "
+            f"{per_shard[0]}, shard 1 {per_shard[1]}")
+        out["kzg"] = {"sharded_s": kzg_s, "unsharded_s": kzg_u}
+
+        # Hashing: a 2^16-validator balance list's root, a pair batch.
+        rng = np.random.default_rng(0x3E5)
+        balances = rng.integers(16 * 10**9, 33 * 10**9, MESH_BALANCES, dtype=np.uint64)
+        leaves = np.frombuffer(balances.astype("<u8").tobytes(),
+                               dtype=np.uint8).reshape(-1, 32)
+        limit = (1 << 40) // 4
+        data = rng.integers(0, 256, MESH_PAIRS * 64, dtype=np.uint8).tobytes()
+        mark = runtime_mark()
+        cuda_sha.reset_launch_counts()
+        with ShardLaunches(cuda_sha.LAUNCHES, [(tree_hash, "_tree_hash_subtrees"),
+                                               (sha256_device, "_sha256_64byte_batch")]
+                           ) as per_shard:
+            t = time.perf_counter()
+            root_s = tree_hash.DeviceLeafTree(limit).update(leaves)
+            tree_s = time.perf_counter() - t
+            t = time.perf_counter()
+            pairs_s = sha256_device.hash_pairs_device(data, device=device)
+            pair_s = time.perf_counter() - t
+        tree_rec = device_telemetry.FLIGHT_RECORDER.recent(1, op="tree_hash")[0]
+        pair_rec = device_telemetry.FLIGHT_RECORDER.recent(1, op="sha256_pairs")[0]
+        device_mesh.configure("0")
+        t = time.perf_counter()
+        root_u = tree_hash.DeviceLeafTree(limit).update(leaves)
+        tree_u = time.perf_counter() - t
+        t = time.perf_counter()
+        pairs_u = sha256_device.hash_pairs_device(data, device=device)
+        pair_u = time.perf_counter() - t
+        device_mesh.configure("auto", devices=MESH_DEVICES)
+        assert_on_device("[mesh] hashing", mark)
+        if root_s != root_u or root_u != tree_hash.golden_root(leaves, limit):
+            raise AssertionError("[mesh] the balance list's root differs")
+        if pairs_s != pairs_u or pairs_u != tree_hash.golden_hash_pairs(data):
+            raise AssertionError("[mesh] the pair batch's digests differ")
+        pair_nb = sha256_device._bucket(MESH_PAIRS)
+        if not tree_rec["shape"].endswith("@dp2") or pair_rec["shape"] != f"{pair_nb}@dp2" or \
+                sorted(per_shard) != [0, 1]:
+            raise AssertionError(f"[mesh] hashing records {tree_rec['shape']}, "
+                                 f"{pair_rec['shape']}, per-shard launches {per_shard}")
+        log(f"[mesh] {card}: a {MESH_BALANCES}-validator balance list's root on 2 shards in "
+            f"{tree_s:.3f} s (unsharded {tree_u:.3f} s), {MESH_PAIRS} pairs in {pair_s:.3f} s "
+            f"(unsharded {pair_u:.3f} s): bytes equal to the unsharded ones and hashlib's; "
+            f"records {tree_rec['shape']}, {pair_rec['shape']}; SHA launches shard 0 "
+            f"{per_shard[0]}, shard 1 {per_shard[1]}")
+        out["hash"] = {"tree_s": tree_s, "tree_u": tree_u, "pair_s": pair_s, "pair_u": pair_u}
+
+        # The reshard: a fault charged to shard 1 (1 of its 2), split retry
+        # on the card; a second one trips it, the mesh re-shards to one
+        # member (off), and the batch retries single-device.
+        sets = verify_sets["gossip"][:MESH_RESHARD_SETS]
+        from lighthouse_tpu_torch.ops import verify
+
+        reshards = sum(metrics.DEVICE_MESH_RESHARDS.snapshot().values())
+        splits = metrics.DEVICE_SPLIT_RETRIES.get(op="bls_verify", outcome="success")
+        mark = runtime_mark()
+        fault_injection.install("device.dispatch", "error", op="bls_verify", first_n=1)
+        first = verify.verify_signature_sets_device(sets, seed=b"reshard", device=device)
+        after_one = device_mesh.summary()
+        # the split retry's halves (8 and 7 sets: bucket 8) ran on the shards
+        half = verify._bucket(MESH_RESHARD_SETS - MESH_RESHARD_SETS // 2, verify.N_BUCKETS)
+        halves_sharded = device_telemetry.COMPILE_CACHE.seen("bls_verify", (half, 1), mesh=2)
+        fault_injection.install("device.dispatch", "error", op="bls_verify", first_n=1)
+        t = time.perf_counter()
+        second = verify.verify_signature_sets_device(sets, seed=b"reshard", device=device)
+        retry_s = time.perf_counter() - t
+        fault_injection.clear()
+        rec = assert_on_device("[mesh] reshard", mark)[-1]
+        snap = device_mesh.summary()
+        moved = sum(metrics.DEVICE_MESH_RESHARDS.snapshot().values()) - reshards
+        if (first, second) != (True, True) or after_one["size"] != 2 or not halves_sharded or \
+                after_one["breakers"][1]["failures"] != 1 or \
+                metrics.DEVICE_SPLIT_RETRIES.get(op="bls_verify", outcome="success") != \
+                splits + 1 or (snap["size"], snap["enabled"], snap["reshards_total"]) != \
+                (1, False, 1) or snap["breakers"][1]["state"] != "open" or moved != 1 or \
+                rec["shape"] != f"{verify._bucket(MESH_RESHARD_SETS, verify.N_BUCKETS)}x1" or \
+                device_supervisor.breaker_state("bls_verify") != "closed":
+            raise AssertionError(f"[mesh] reshard: verdicts {first, second}, after one "
+                                 f"fault {after_one}, after two {snap}, "
+                                 f"device_mesh_reshards_total +{moved}, record {rec}")
+        log(f"[mesh] {card}: {MESH_RESHARD_SETS} x 1 with a dispatch fault charged to shard 1 "
+            f"(1 of {snap['device_failure_threshold']}): split retry on the card, its halves on "
+            f"the 2 shards ({half} x 1@dp2), verdict True; a second fault trips shard 1: re-sharded to size {snap['size']} (mesh off), "
+            f"the batch retried single-device in {retry_s:.3f} s, verdict True; "
+            f"device_mesh_reshards_total +{moved}, breakers {snap['breakers']}")
+    finally:
+        fault_injection.clear()
+        device_mesh.configure("0")
+        tree_hash.configure(enabled=hashing_on)
+    return out
+
+
+def phase_autotune(card: str, device: str = "cuda") -> dict:
+    """[autotune]: the measured walk lookahead and a live adoption on the
+    card (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from lighthouse_tpu_torch import autotune, device_telemetry
+    from lighthouse_tpu_torch.ops import cuda_epoch, sha256_device, tree_hash
+
+    dev = torch.device(device)
+    out = {}
+    # The measured choice: every lookahead on one small walk, supervised.
+    decision = autotune.measure_walk_lookahead(force=True, device=dev)
+    seed_words, pivots = autotune._probe_inputs(dev)
+    plain = cuda_epoch.proposer_walk_plain(seed_words, pivots, autotune.PROBE_CANDIDATES,
+                                           autotune.PROBE_ACTIVE)
+    _, kernel = autotune._probe_walk(dev, decision["lookahead"], 1)
+    if not torch.equal(kernel, plain.cpu()):
+        raise AssertionError("[autotune] the probe walk != its plain version")
+    if cuda_epoch.walk_lookahead(dev) != decision["lookahead"] or \
+            autotune.cached_walk_lookahead(dev)["lookahead"] != decision["lookahead"]:
+        raise AssertionError(f"[autotune] walk_lookahead() {cuda_epoch.walk_lookahead(dev)} "
+                             f"after measuring {decision}")
+    times = ", ".join(f"k={k} {float(s) * 1e3:.4f} ms"
+                      for k, s in decision["measurements_s"].items())
+    log(f"[autotune] {card}: proposer walk {decision['shape'][0]} x {decision['shape'][1]} x "
+        f"{decision['shape'][2]} rounds, best of {decision['reps']}: {times}; every lookahead's "
+        f"positions equal and equal the plain version's; k={decision['lookahead']} cached "
+        f"under {decision['key']!r} ({autotune.walk_cache_path()}), walk_lookahead() now "
+        f"{cuda_epoch.walk_lookahead(dev)}")
+    out["walk"] = decision
+
+    # Live adoption: sha256_pairs batches of 300 blocks (bucket 1024) on
+    # top of the flight record the earlier phases filled, then one
+    # evaluation starts the midpoint's warmup on the card, the next adopts.
+    rng = np.random.default_rng(0xA7)
+    before = autotune._bucket_live_stats(autotune._VOCABS["sha256_pairs"])
+    for _ in range(autotune.MIN_SAMPLES):
+        data = rng.integers(0, 256, 300 * 64, dtype=np.uint8).tobytes()
+        if sha256_device.hash_pairs_device(data, device=dev) != \
+                tree_hash.golden_hash_pairs(data):
+            raise AssertionError("[autotune] a 300-block batch's digests differ")
+    try:
+        autotune.set_mode("live")
+        started = autotune.CONTROLLER.evaluate()
+        first = [d for d in started if (d.get("vocab"), d.get("bucket")) == ("sha256_pairs", 640)]
+        deadline = time.time() + 120
+        while any(autotune.CONTROLLER.warmup_state(d["vocab"], d["bucket"]) == "pending"
+                  for d in started if d.get("outcome") == "warmup_started"):
+            if time.time() > deadline:
+                raise AssertionError("[autotune] the warmups did not finish in 120 s")
+            time.sleep(0.01)
+        warm = next(e for e in device_telemetry.COMPILE_CACHE.inventory()
+                    if e["op"] == "sha256_pairs" and e["shape"] == "640")
+        second = [d for d in autotune.CONTROLLER.evaluate()
+                  if (d.get("vocab"), d.get("bucket")) == ("sha256_pairs", 640)]
+        if [d["outcome"] for d in first] != ["warmup_started"] or \
+                [d["outcome"] for d in second] != ["adopted"] or \
+                warm.get("source") != "warmup" or \
+                autotune.overlay().get("sha256_pairs") != (640,):
+            raise AssertionError(f"[autotune] decisions {first} then {second}, mirror {warm}")
+        data = rng.integers(0, 256, 500 * 64, dtype=np.uint8).tobytes()
+        if sha256_device.hash_pairs_device(data, device=dev) != \
+                tree_hash.golden_hash_pairs(data):
+            raise AssertionError("[autotune] a 500-block batch at 640 differs")
+        rec = device_telemetry.FLIGHT_RECORDER.recent(1, op="sha256_pairs")[0]
+        if rec["shape"] != "640" or rec["host_fallback"]:
+            raise AssertionError(f"[autotune] the 500-block batch's record {rec}")
+        log(f"[autotune] {card}: sha256_pairs evidence before this phase "
+            f"{ {k: len(v) for k, v in sorted(before.items())} } batches a bucket, then "
+            f"{autotune.MIN_SAMPLES} of 300 blocks at 1024; evaluation 1 "
+            f"{first[0]['outcome']} (midpoint 640), the warmup's neutral dispatch on the card "
+            f"{warm['compile_seconds']:.4f} s, evaluation 2 {second[0]['outcome']}; a 500-block "
+            f"layer then dispatched at {rec['shape']}, digests equal to hashlib's")
+        for d in autotune.CONTROLLER.decision_log():
+            log(f"[autotune] decision {json.dumps(d, sort_keys=True)}")
+        out["decisions"] = autotune.CONTROLLER.decision_log()
+    finally:
+        # back to the environment's mode, the static vocabularies
+        autotune.reset_for_tests()
+    return out
 
 
 def counter_deltas(before: dict) -> dict:
@@ -3972,6 +4358,21 @@ def phase_http(card: str, case, chain, sidecars, ref_ssz: bytes, served,
     health = fetch("node/health", "GET", "/eth/v1/node/health")[0]
     if health != (200 if distance <= 1 else 206):
         raise AssertionError(f"[http] node/health {health} at distance {distance}")
+    # The self-tuning control plane's one read ([autotune] measured the
+    # walk's lookahead earlier in this process; the cache holds it).
+    from lighthouse_tpu_torch import autotune
+
+    status, _, body = http_fetch(server.port, "GET", "/lighthouse/autotune")
+    if status != 200:
+        raise AssertionError(f"[http] /lighthouse/autotune: HTTP {status}")
+    tune = json.loads(body)["data"]
+    want_keys = {"mode", "evaluations", "vocabularies", "warmups", "decisions", "pin",
+                 "fq_backend", "walk_lookahead", "admission"}
+    measured = autotune.cached_walk_lookahead() if device == "cuda" else None
+    if set(tune) != want_keys or tune["fq_backend"] is not None or \
+            tune["walk_lookahead"] != measured or "sha256_pairs" not in tune["vocabularies"]:
+        raise AssertionError(f"[http] /lighthouse/autotune {sorted(tune)}: walk "
+                             f"{tune.get('walk_lookahead')}, measured {measured}")
     genesis = get("beacon/genesis", "/eth/v1/beacon/genesis")["data"]
     if genesis["genesis_time"] != str(int(state.genesis_time)) or \
             genesis["genesis_validators_root"] != \
@@ -4669,9 +5070,13 @@ class ClientCell:
         self.log_path = os.path.join(self.dir, "bn.log")
         self.log_file = open(self.log_path, "wb")
         # The node's API waits HTTP_TIMEOUT_S for a handler, as [http]'s and
-        # [vc]'s server does: its slashing POSTs copy the 2^20 state.
+        # [vc]'s server does: its slashing POSTs copy the 2^20 state.  The
+        # operator asks for the mesh over every card and the default
+        # autotune mode: on one card the builder takes the mesh's
+        # single-device branch.
         env = dict(os.environ, PYTHONUNBUFFERED="1",
-                   LIGHTHOUSE_TPU_API_TIMEOUT_S=str(HTTP_TIMEOUT_S))
+                   LIGHTHOUSE_TPU_API_TIMEOUT_S=str(HTTP_TIMEOUT_S),
+                   LIGHTHOUSE_TPU_MESH="auto", LIGHTHOUSE_TPU_AUTOTUNE="pinned")
         self.apps = compute_apps() if device == "cuda" else []
         self.child = subprocess.Popen(self.argv, stdout=self.log_file, stderr=subprocess.STDOUT,
                                       cwd=str(Path(__file__).resolve().parent), env=env)
@@ -4769,6 +5174,19 @@ class ClientCell:
                      f"started ({self.apps}; pids read as 1 in this machine's PID namespace); "
                      f"the node's /lighthouse/device: {memory[0]['kind']}, "
                      f"{peak} bytes allocated at its peak")
+        # LIGHTHOUSE_TPU_MESH=auto on one card: the builder configured the
+        # mesh and took its single-device branch; the autotune mode pinned.
+        _, device = self.get("/lighthouse/device")
+        mesh, tune = device["data"]["mesh"], device["data"]["autotune"]
+        cards = len(device["data"]["memory"])
+        if (mesh["size"], mesh["enabled"], mesh["devices"]) != (0, False, []) or \
+                (self.device == "cuda" and cards != 1) or tune["mode"] != "pinned" \
+                or tune["overlay"] != {}:
+            raise AssertionError(f"[client] LIGHTHOUSE_TPU_MESH=auto, AUTOTUNE=pinned: the "
+                                 f"node's mesh {mesh}, autotune {tune}, {cards} device(s)")
+        self.say(f"LIGHTHOUSE_TPU_MESH=auto on {cards} device(s): the node's mesh size "
+                 f"{mesh['size']} (disabled, generation {mesh['generation']}); autotune "
+                 f"mode {tune['mode']}, overlay {tune['overlay']}")
 
         # Same chain.
         seconds = {}
@@ -5515,8 +5933,9 @@ def walk_sweep(seed_words, pivots, k: int, m: int, bound_ms: float) -> dict:
                     f"one lane {floor[look]:.4f} ms ({-(-rounds // look)} steps, "
                     f"{floor[look] / -(-rounds // look) * 1e3:.3f} us a step)"
                     for look in looks)
-        + f"; the default {default}; bound {bound_ms:.4f} ms, the default "
-        f"{bound_ms / walk[default]:.1%} of it; the earlier design "
+        + f"; the main path's {default} ([autotune]'s measured choice); bound "
+        f"{bound_ms:.4f} ms, the main path's {bound_ms / walk[default]:.1%} of it; the "
+        f"earlier design "
         f"{EARLIER_MS['proposer_walk']['ms']} ms (PERF.md, not measured here)")
     return {"lookahead": default,
             "ms_by_lookahead": {str(look): v for look, v in walk.items()},
@@ -5960,6 +6379,10 @@ def main() -> int:
         runtime_out = phase_runtime(cuda_fq, card, *kzg_in)
     with phase_wall("hash-runtime"):
         phase_hash_runtime(card)
+    with phase_wall("mesh"):
+        phase_mesh(card, cuda_fq, verify_out.pop("sets"), *kzg_in)
+    with phase_wall("autotune"):
+        phase_autotune(card)
     with phase_wall("state"):
         state_out = phase_state(card)
     with phase_wall("epoch"):

@@ -6,8 +6,9 @@ happened": every supervised seam appends to one journal, and a trigger
 freezes the journal with what it cross-references.
 
 - :func:`emit` — the seams (breaker transitions and watchdog timeouts in
-  ``device_supervisor``, batch lifecycle in ``device_telemetry`` and
-  ``device_pipeline``, fault-plan firings) append structured records into
+  ``device_supervisor``, mesh reshards in ``device_mesh``, batch lifecycle
+  in ``device_telemetry`` and ``device_pipeline``, autotune decisions,
+  fault-plan firings) append structured records into
   one bounded ring.  Each record carries a monotonic ``seq`` (the causal
   order), the logical ``slot`` from the ``fault_injection`` slot provider,
   the active ``trace_id`` (auto-resolved from ``tracing``'s contextvar),
@@ -16,8 +17,8 @@ freezes the journal with what it cross-references.
 - :func:`capture` — on trigger (breaker OPEN, ``DispatchTimeout``, a
   manual ``POST /lighthouse/postmortem``, or a caller's own reason) the
   current journal window is frozen to disk together with the flight ring,
-  the implicated trace trees, the breaker, pipeline and device-telemetry
-  snapshots, the registered snapshot providers (the HTTP server's
+  the implicated trace trees, the breaker, mesh, pipeline, autotune and
+  device-telemetry snapshots, the registered snapshot providers (the HTTP server's
   admission controller), the fleet timeline, a metrics dump, the active
   fault plans and the log tail.  Bundles live under newest-K retention
   and are served by ``GET /lighthouse/postmortems``.
@@ -335,10 +336,20 @@ def _gather_snapshots() -> Dict[str, Any]:
 
         return device_supervisor.summary()
 
+    def _mesh():
+        from . import device_mesh
+
+        return device_mesh.summary()
+
     def _pipeline():
         from . import device_pipeline
 
         return device_pipeline.summary()
+
+    def _autotune():
+        from . import autotune
+
+        return autotune.snapshot()
 
     def _telemetry():
         from . import device_telemetry
@@ -356,7 +367,9 @@ def _gather_snapshots() -> Dict[str, Any]:
         }
 
     sections["supervisor"] = _safe(_supervisor)
+    sections["mesh"] = _safe(_mesh)
     sections["pipeline"] = _safe(_pipeline)
+    sections["autotune"] = _safe(_autotune)
     sections["telemetry"] = _safe(_telemetry)
     with _SNAPSHOTTERS_LOCK:
         extra = dict(_SNAPSHOTTERS)

@@ -15,8 +15,12 @@ the device pipeline) runs there, and ``build()`` raises before anything is
 served where there is no card.  ``with_device("cpu")`` runs the CUDA
 kernels' plain PyTorch versions, as the tests do.  On the card ``build()``
 builds the kernel libraries (``ops.compile_cache.build_kernels``) where the
-JAX package configures its XLA compile cache.  The JAX package's mesh and
-autotune hooks have no counterpart in the port yet.
+JAX package configures its XLA compile cache.  Then, as in the JAX
+package, the device mesh (``device_mesh.configure()``,
+``LIGHTHOUSE_TPU_MESH``) and the autotune controller
+(``autotune.maybe_start_from_env``, ``LIGHTHOUSE_TPU_AUTOTUNE``); on the
+card a mesh or autotune setup that fails raises out of ``build()`` (the
+JAX package logs a warning), with ``with_device("cpu")`` it logs one.
 """
 
 from __future__ import annotations
@@ -152,14 +156,18 @@ class ClientBuilder:
             raise RuntimeError(
                 f"no CUDA card for the node ({e}); pass --device cpu to run the "
                 "kernels' plain versions on the CPU") from None
+        from ..ops import compile_cache
+
         torch_backend.configure(device=self._device)
         tree_hash.configure(enabled=True, device=self._device)
         per_epoch.configure(backend="device", device=self._device)
+        compile_cache.configure(device=self._device)  # autotune's warmups
 
     def _configure_device(self) -> None:
         """Route every device path to the builder's device; on the card,
-        build the kernel libraries first."""
-        from .. import device_pipeline
+        build the kernel libraries first; then the device mesh, the
+        pipeline and the autotune controller."""
+        from .. import autotune, device_mesh, device_pipeline
 
         self._route_device()
         if self._device == "cuda":
@@ -168,6 +176,11 @@ class ClientBuilder:
             t = time.perf_counter()
             compile_cache.build_kernels()
             log.info("kernel libraries ready in %.2f s", time.perf_counter() - t)
+        # Mesh sharding (device_mesh.py): LIGHTHOUSE_TPU_MESH=N|auto shards
+        # the bucketed device ops' batch axis over the visible cards,
+        # configured at assembly so the topology is logged and gauged before
+        # traffic arrives; fewer than 2 cards stays single-device.
+        self._runtime_setup("device mesh", device_mesh.configure)
         if self._bls_backend == "torch":
             # Async device pipeline (device_pipeline.py): production nodes
             # stream every signature-set group through the persistent device
@@ -175,6 +188,22 @@ class ClientBuilder:
             # into maximal device batches.  LIGHTHOUSE_TPU_DEVICE_PIPELINE=0
             # opts out (device_pipeline.enable honors it).
             device_pipeline.enable(device=self._device)
+        # Self-tuning control plane (autotune.py): under
+        # LIGHTHOUSE_TPU_AUTOTUNE=live this measures the proposer walk's
+        # lookahead on the card (cached per card, torch and CUDA) and starts
+        # the periodic controller; the default mode (pinned) starts nothing.
+        self._runtime_setup("autotune",
+                            lambda: autotune.maybe_start_from_env(device=self._device))
+
+    def _runtime_setup(self, what: str, fn) -> None:
+        """Run one optional runtime setup: on the card a failure raises out
+        of ``build()``, elsewhere it is logged and the node goes on."""
+        try:
+            fn()
+        except Exception:
+            if self._device == "cuda":
+                raise
+            log.warning("%s setup failed", what, exc_info=True)
 
     # ----------------------------------------------------------------- build
 

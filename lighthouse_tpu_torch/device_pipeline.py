@@ -509,9 +509,13 @@ class DevicePipeline:
         return effective_linger(self.op, self._linger_s, self._linger_pinned)
 
     def _effective_target(self) -> int:
-        """The coalescing target (the JAX package scales it to a degraded
-        device mesh; the port has no mesh yet)."""
-        return self.target_sets
+        """The coalescing target scaled to the CURRENT mesh: a mesh shrunk
+        by per-device breaker trips fills proportionally fewer lanes, so
+        waiting for the full-strength target would only add linger latency
+        (identity when the mesh is off or at full strength)."""
+        from . import device_mesh
+
+        return device_mesh.scale_target(self.target_sets)
 
     def _take_batch(self) -> Optional[List[_Group]]:
         """Block until a batch is worth dispatching (target fill reached, the
@@ -774,8 +778,8 @@ class DevicePipeline:
         return {
             "op": self.op,
             "target_sets": self.target_sets,
-            # identical to target_sets until the device mesh lands (it
-            # shrinks the fill target with a degraded mesh)
+            # identical to target_sets unless the device mesh is degraded
+            # (device_mesh.scale_target shrinks the fill target with it)
             "effective_target_sets": self._effective_target(),
             "linger_s": self._linger_s,
             # the linger actually applied to the next take: adaptive

@@ -49,9 +49,13 @@ algorithm, not a failure — so there is exactly ONE host-fallback
 mechanism and one counter: ``device_batch_host_fallback_total{reason=w_at_infinity|
 breaker_open|dispatch_timeout|device_error}``.
 
-The JAX package's mesh-aware dispatch (``_dispatch_meshed``) is not
-ported: each op runs :meth:`DeviceSupervisor._dispatch` until
-``device_mesh.py`` lands.
+**Mesh-aware dispatch** (:meth:`DeviceSupervisor._dispatch_meshed`):
+while the device mesh (``device_mesh.py``) is on, a device error or a
+watchdog timeout is charged to a mesh member; a charge that trips that
+member's breaker re-shards over the survivors and the batch retries on the
+new topology (``device_mesh_reshards_total`` / ``device_mesh_size``).  A
+failure that does not re-shard goes on into the split retry and the op
+breaker above, so on the card it still raises.
 """
 
 from __future__ import annotations
@@ -80,7 +84,6 @@ STATE_CODES = {STATE_CLOSED: 0, STATE_OPEN: 1, STATE_HALF_OPEN: 2}
 #: Per-op dispatch deadlines (seconds).  Generous: the first batch of a
 #: process pays the ``nvcc`` build of the kernels inside its dispatch, and
 #: the watchdog exists to catch a *hung* device, not a slow first batch.
-#: The JAX package's autotune probe gets its entry with autotune.
 DEFAULT_DEADLINES = {
     "bls_verify": 300.0,
     "sha256_pairs": 120.0,
@@ -94,6 +97,10 @@ DEFAULT_DEADLINES = {
     "shuffle": 300.0,
     "proposer_select": 300.0,
     "kzg_batch": 300.0,
+    # the autotune A/B probe (autotune.measure_walk_lookahead): a small
+    # walk, but the first run of a process pays the kernel build — the
+    # deadline guards node startup against a hung device, not a compiler
+    "autotune_probe": 120.0,
 }
 DEFAULT_DEADLINE_S = 300.0
 
@@ -417,6 +424,50 @@ class DeviceSupervisor:
             raise job.error
         return job.value
 
+    def _dispatch_meshed(self, op: str, fn: Callable[[], Any],
+                         deadline_s: float, info: dict) -> Any:
+        """The mesh-aware dispatch: while the device mesh is active, a
+        failure (device error OR watchdog timeout) is charged to a mesh
+        member (``device_mesh.note_failure`` — the one the error names,
+        else the deterministic suspect).  A charge that trips that
+        member's breaker re-shards the mesh over the survivors and the
+        batch RETRIES on the new topology (``fn`` re-places its arrays
+        against the new generation).  A failure that does not re-shard
+        (threshold not reached, or the mesh off or exhausted) propagates
+        into the split retry and the op breaker."""
+        from . import device_mesh
+
+        while True:
+            meshed = device_mesh.enabled()
+            try:
+                result = self._dispatch(op, fn, deadline_s)
+                if meshed:
+                    # keep the per-member thresholds CONSECUTIVE: a clean
+                    # dispatch clears every still-closed breaker's counter
+                    device_mesh.note_success()
+                return result
+            except HostFallback:
+                raise  # a disclaimer, not a device failure
+            except DispatchTimeout as err:
+                if meshed and device_mesh.note_failure(
+                        "dispatch_timeout", err=err):
+                    info["mesh_reshards"] = info.get("mesh_reshards", 0) + 1
+                    log.warning("mesh resharded after dispatch timeout; "
+                                "retrying batch", op=op,
+                                survivors=device_mesh.size())
+                    continue
+                raise
+            except Exception as err:  # noqa: BLE001 — charged + re-raised
+                if meshed and device_mesh.note_failure(
+                        "device_error", err=err):
+                    info["mesh_reshards"] = info.get("mesh_reshards", 0) + 1
+                    log.warning("mesh resharded after device error; "
+                                "retrying batch", op=op,
+                                error=f"{type(err).__name__}: {err}",
+                                survivors=device_mesh.size())
+                    continue
+                raise
+
     def _emit(self, op: str, transitions: List[Tuple[str, str, str]]) -> None:
         """Metrics + SSE + log for breaker transitions (no locks held)."""
         for old, new, reason in transitions:
@@ -512,7 +563,7 @@ class DeviceSupervisor:
         deadline = self.deadline_for(op) if deadline_s is None else deadline_s
 
         try:
-            result = self._dispatch(op, device_fn, deadline)
+            result = self._dispatch_meshed(op, device_fn, deadline, info)
         except HostFallback as hf:
             # The device executed and disclaimed — not a device failure.
             self._emit(op, br.record_success())

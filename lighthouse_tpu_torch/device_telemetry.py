@@ -63,8 +63,11 @@ FLIGHT_RECORDER_CAPACITY = int(
 MAX_PROFILE_SECONDS = 10.0
 
 
-def _shape_label(shape: Tuple[int, ...]) -> str:
-    return "x".join(str(int(s)) for s in shape)
+def _shape_label(shape: Tuple[int, ...], mesh: int = 0) -> str:
+    label = "x".join(str(int(s)) for s in shape)
+    # A sharded dispatch is a different program at the same bucket shape:
+    # the mesh size is part of the identity ("128x32@dp2").
+    return f"{label}@dp{int(mesh)}" if mesh else label
 
 
 def active_trace_id() -> Optional[str]:
@@ -83,51 +86,56 @@ class CompileCache:
     programs are eager, so "first seen here" marks the dispatch that paid
     the one-time costs of a shape (and of the process's first batch, the
     kernel build).  The bucketed entry points' dtypes are fixed, so
-    ``(op, shape)`` is the whole identity.
+    ``(op, shape, mesh)`` is the whole identity (``mesh`` > 0 for a
+    dispatch sharded over that many mesh members).
     """
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._programs: Dict[Tuple[str, Tuple[int, ...]], dict] = {}
 
-    def note_dispatch(self, op: str, shape: Tuple[int, ...], seconds: float) -> bool:
-        """Record one dispatch of ``op`` at ``shape``; True iff first seen."""
+    def note_dispatch(self, op: str, shape: Tuple[int, ...], seconds: float,
+                      mesh: int = 0) -> bool:
+        """Record one dispatch of ``op`` at ``shape`` (sharded over ``mesh``
+        members, 0 for one device); True iff first seen."""
         shape = tuple(int(s) for s in shape)
+        mesh = int(mesh)
         now = time.time()
         with self._lock:
-            entry = self._programs.get((op, shape))
+            entry = self._programs.get((op, shape, mesh))
             if entry is not None:
                 entry["invocations"] += 1
                 entry["last_used_ms"] = int(now * 1000)
                 return False
-            self._programs[(op, shape)] = {
+            self._programs[(op, shape, mesh)] = {
                 "op": op,
-                "shape": _shape_label(shape),
+                "shape": _shape_label(shape, mesh),
                 "compile_seconds": round(seconds, 4),
                 "invocations": 1,
                 "first_seen_ms": int(now * 1000),
                 "last_used_ms": int(now * 1000),
             }
-        metrics.DEVICE_PROGRAM_COMPILES.inc(op=op, shape=_shape_label(shape))
+        metrics.DEVICE_PROGRAM_COMPILES.inc(op=op, shape=_shape_label(shape, mesh))
         metrics.DEVICE_PROGRAM_COMPILE_SECONDS.observe(seconds, op=op)
         return True
 
     def note_warmup(self, op: str, shape: Tuple[int, ...], seconds: float,
                     hit: bool) -> None:
-        """Record a warmup of ``(op, shape)`` off the caller's path — in the
-        port, the kernel build (``ops/compile_cache.build_kernels``).
+        """Record a warmup of ``(op, shape)`` off the caller's path — the
+        kernel build (``ops/compile_cache.build_kernels``) or a bucket's
+        neutral-batch dispatch (``ops/compile_cache.aot_warmup_op``).
         Pre-seeds the mirror so the entry's first production use is not
         counted as its first; only a MISS (work the warmup really did)
         increments ``device_program_compiles_total``."""
         shape = tuple(int(s) for s in shape)
         now = time.time()
         with self._lock:
-            entry = self._programs.get((op, shape))
+            entry = self._programs.get((op, shape, 0))
             # A production dispatch can race the background warmup of the
             # same shape; if it won, note_dispatch already counted it.
             already_counted = entry is not None
             if entry is None:
-                entry = self._programs[(op, shape)] = {
+                entry = self._programs[(op, shape, 0)] = {
                     "op": op,
                     "shape": _shape_label(shape),
                     "compile_seconds": round(seconds, 4),
@@ -145,11 +153,22 @@ class CompileCache:
             metrics.DEVICE_PROGRAM_COMPILES.inc(op=op, shape=_shape_label(shape))
             metrics.DEVICE_PROGRAM_COMPILE_SECONDS.observe(seconds, op=op)
 
-    def seen(self, op: str, shape: Tuple[int, ...]) -> bool:
-        """True iff ``(op, shape)`` was dispatched or warmed already — lets
-        fault-injection sites target ``device.compile`` deterministically."""
+    def seen(self, op: str, shape: Tuple[int, ...], mesh: int = 0) -> bool:
+        """True iff ``(op, shape, mesh)`` was dispatched or warmed already —
+        lets fault-injection sites target ``device.compile``
+        deterministically."""
         with self._lock:
-            return (op, tuple(int(s) for s in shape)) in self._programs
+            return (op, tuple(int(s) for s in shape), int(mesh)) in self._programs
+
+    def invalidate_meshed(self) -> None:
+        """Drop every sharded program's mirror entry (a device_mesh
+        reshard: the old topology's placements are gone, and the
+        survivors' first dispatches must count as the first ones they
+        are)."""
+        with self._lock:
+            self._programs = {
+                k: v for k, v in self._programs.items() if k[2] == 0
+            }
 
     def inventory(self) -> List[dict]:
         with self._lock:
@@ -167,8 +186,9 @@ class CompileCache:
 COMPILE_CACHE = CompileCache()
 
 
-def note_dispatch(op: str, shape: Tuple[int, ...], seconds: float) -> bool:
-    return COMPILE_CACHE.note_dispatch(op, shape, seconds)
+def note_dispatch(op: str, shape: Tuple[int, ...], seconds: float,
+                  mesh: int = 0) -> bool:
+    return COMPILE_CACHE.note_dispatch(op, shape, seconds, mesh=mesh)
 
 
 def note_warmup(op: str, shape: Tuple[int, ...], seconds: float, hit: bool) -> None:
@@ -248,21 +268,27 @@ def record_batch(
     compiled: bool = False,
     breaker_state: Optional[str] = None,
     dispatched: bool = True,
+    mesh: int = 0,
+    shard_live: Optional[List[int]] = None,
 ) -> dict:
     """Account one dispatched device batch: occupancy histograms +
     wasted-lane counters + a flight-recorder entry.  Returns the entry
-    (with its ``seq``) so callers can stamp the linkage on their span."""
+    (with its ``seq``) so callers can stamp the linkage on their span.
+    ``mesh`` > 0 marks a sharded dispatch; ``shard_live`` is the per-shard
+    live-row split (bucket and mesh padding land on the last shards)."""
     shape = tuple(int(s) for s in shape)
     nb = shape[0]
     entry: Dict[str, Any] = {
         "t_ms": int(time.time() * 1000),
         "op": op,
-        "shape": _shape_label(shape),
+        "shape": _shape_label(shape, mesh),
         "n_live": int(n_live),
         "compiled": bool(compiled),
         "host_fallback": bool(host_fallback),
         "trace_id": trace_id,
     }
+    if mesh:
+        entry["mesh"] = int(mesh)
     if n_groups is not None:
         # Pipeline-coalesced batches: how many caller groups rode this one
         # dispatch, and which work kinds contributed how many sets.
@@ -296,6 +322,18 @@ def record_batch(
         metrics.DEVICE_BATCH_WASTED_LANES.inc(
             max(0, lanes - live_keys), op=op, axis="keys"
         )
+    if dispatched and mesh and shard_live and nb > 0 and len(shard_live) > 1:
+        # Per-shard view: each member's live/padded ratio on this dispatch
+        # (histogram axis "sets_per_shard" keeps the batch-level "sets"
+        # signal clean; the flight record carries the exact split).
+        rows = nb // len(shard_live)
+        ratios = [round(min(1.0, live / rows), 4) if rows else 0.0
+                  for live in shard_live]
+        entry["shard_live"] = [int(v) for v in shard_live]
+        entry["occupancy_per_shard"] = ratios
+        for r in ratios:
+            metrics.DEVICE_BATCH_OCCUPANCY_RATIO.observe(
+                r, op=op, axis="sets_per_shard")
     if host_fallback:
         reason = fallback_reason or "unknown"
         with _FALLBACKS_LOCK:
@@ -444,12 +482,9 @@ def summary() -> dict:
     """The device section of the node's status: first-dispatch and build
     inventory, occupancy percentiles over the flight-recorder window (per
     op: ``bls_verify``, ``kzg_batch``, ``sha256_pairs``, ``tree_hash``),
-    host-fallback tallies, device memory, pipelines (the bls and hash
-    pipelines and the shared arbiter's grants and waits) and supervisor.
-
-    The JAX package's summary also carries ``autotune`` and ``mesh``
-    sections; the port omits both until ``autotune.py`` and
-    ``device_mesh.py`` are ported."""
+    host-fallback tallies, the autotune mode and overlay, the device mesh,
+    device memory, pipelines (the bls and hash pipelines and the shared
+    arbiter's grants and waits) and supervisor."""
     records = FLIGHT_RECORDER.recent(limit=FLIGHT_RECORDER.capacity)
     # Percentiles are grouped per op, matching the labeled histograms.
     occ: Dict[str, dict] = {}
@@ -465,12 +500,21 @@ def summary() -> dict:
         op: {axis: _percentiles(vals) for axis, vals in axes.items() if vals}
         for op, axes in occ.items()
     }
-    from . import device_pipeline, device_supervisor
+    from . import autotune, device_mesh, device_pipeline, device_supervisor
 
     return {
         "programs": COMPILE_CACHE.inventory(),
         "occupancy": occ,
         "host_fallbacks": host_fallback_counts(),
+        # Self-tuning control plane (autotune.py): mode + live vocabulary
+        # overlay; GET /lighthouse/autotune is the full decision log.
+        "autotune": {
+            "mode": autotune.mode(),
+            "overlay": {k: list(v) for k, v in autotune.overlay().items()},
+        },
+        # Mesh-sharding subsystem (device_mesh.py): topology, per-member
+        # breakers, reshard count.
+        "mesh": device_mesh.summary(),
         # Fused epoch boundary: duty-cache priming outcomes.
         "boundary_primes": boundary_prime_counts(),
         # Async device pipelines (device_pipeline.py): pending depth, fill

@@ -11,10 +11,9 @@ Transport: stdlib ``ThreadingHTTPServer`` (one thread per connection — the
 Python analog of warp's task-per-request; real work still funnels through the
 ``BeaconProcessor`` so API load obeys the same drain order as gossip).
 
-A copy of the JAX package's ``lighthouse_tpu/http_api/server.py``.  Every
-route of the JAX package's table is here but ``GET /lighthouse/autotune``,
-which comes with ``autotune.py``; ``POST /lighthouse/device/profile``
-captures through ``torch.profiler``.
+A copy of the JAX package's ``lighthouse_tpu/http_api/server.py``, with
+every route of its table; ``POST /lighthouse/device/profile`` captures
+through ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -2332,6 +2331,20 @@ def lighthouse_events_subscribers(ctx):
     event counts (the per-topic aggregates live on /metrics as
     ``http_sse_events_{sent,dropped}_total``)."""
     return {"data": ctx.chain.events.summary()}
+
+
+@route("GET", "/lighthouse/autotune", P1)
+def lighthouse_autotune(ctx):
+    """The self-tuning control plane in one read (autotune.py): mode,
+    static vs live bucket vocabularies, the decision log (every adoption /
+    drop / refusal with its guardrail reason), warmup states, the measured
+    walk-lookahead selection, and the admission layer's effective (latency-
+    tracked) bounds next to its static configuration."""
+    from .. import autotune
+
+    data = autotune.snapshot()
+    data["admission"] = ctx.server.spawner.admission.snapshot()
+    return {"data": data}
 
 
 @route("GET", "/lighthouse/serving", P1)

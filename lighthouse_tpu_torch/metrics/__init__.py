@@ -6,8 +6,9 @@ timers of batch verification and block import
 (``beacon_node/beacon_chain/src/metrics.rs:40-271``).  The port keeps the
 JAX package's registry and, of its metrics, those the device runtime, the
 BLS API, the KZG path, the chain, the scheduler and the HTTP API touch,
-with their names, labels and buckets; the mesh's metrics come with that
-module.  The network's and the slasher's counters sit at the end.
+with their names, labels and buckets (the mesh's beside the pipeline's;
+``autotune.py`` registers its own three).  The network's and the slasher's
+counters sit at the end.
 
 Design: a plain-Python registry with lock-free-enough updates (single
 attribute stores under the GIL), rendered on demand in the Prometheus text
@@ -450,6 +451,28 @@ DEVICE_ARBITER_API_TIMEOUTS = counter(
     "device_arbiter_api_timeouts_total",
     "API-side arbiter acquisitions that timed out and proceeded ungated, "
     "by op",
+)
+
+# Mesh-sharding subsystem (device_mesh.py): the data-parallel device mesh
+# the bucketed entry points shard their batch axis over, and the per-device
+# breaker layer that shrinks it around a sick chip instead of tripping the
+# whole op to host.
+DEVICE_MESH_SIZE = gauge(
+    "device_mesh_size",
+    "devices in the active data-parallel mesh (0 = mesh disabled, "
+    "single-device dispatch)",
+)
+DEVICE_MESH_RESHARDS = counter(
+    "device_mesh_reshards_total",
+    "mesh topology rebuilds after a per-device breaker trip, by reason",
+)
+DEVICE_MESH_DEVICE_FAILURES = counter(
+    "device_mesh_device_failures_total",
+    "device-attributed dispatch failures recorded by the mesh layer, by device",
+)
+DEVICE_MESH_DEVICE_STATE = gauge(
+    "device_mesh_device_breaker_state",
+    "per-device mesh breaker state (0=closed, 1=open), by device",
 )
 
 # ------------------------------------------------------------------- chain

@@ -14,14 +14,24 @@ ran.  ``cuda_fq.library``, ``cuda_sha.library`` and ``cuda_epoch.library``
 build through here on first use, so the first kernel any of them needs
 builds all three.
 
-The JAX package's opt-in bucket warmup (``LIGHTHOUSE_TPU_AOT_WARMUP``) is
-not ported: no first-dispatch cost of a bucket that a warmup would remove
-has been measured on the card.
+The bucket warmup the autotune controller's adoption gate needs is here
+(:func:`aot_warmup_op`): one supervised dispatch of a neutral batch of an
+op at a bucket, on the node's device, checked against the result a
+neutral batch must give, and noted in the telemetry mirror.  The JAX
+package's opt-in warmup of the standard buckets at boot
+(``LIGHTHOUSE_TPU_AOT_WARMUP``) is not ported: no first-dispatch cost of a
+bucket that it would remove has been measured on the card.
 """
 
 from __future__ import annotations
 
+import hashlib
+import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import List
+
+import numpy as np
+import torch
 
 from .cuda_build import CSRC_DIR, build
 
@@ -48,3 +58,162 @@ def build_kernels(force: bool = False) -> dict:
         device_telemetry.note_warmup(KERNEL_SOURCES[name][1], (), res.seconds,
                                      hit=res.seconds == 0.0)
     return results
+
+
+# ------------------------------------------------------------ bucket warmup
+
+#: The device the warmups dispatch on: the node's (``configure``; the card
+#: by default, ``"cpu"`` for the kernels' plain versions).
+_WARMUP_DEVICE = "cuda"
+
+
+def configure(device=None) -> None:
+    """Point the bucket warmups at the node's device."""
+    global _WARMUP_DEVICE
+    if device is not None:
+        from .devices import resolve_device
+
+        _WARMUP_DEVICE = str(resolve_device(device))
+
+
+def reset_for_tests() -> None:
+    global _WARMUP_DEVICE
+    _WARMUP_DEVICE = "cuda"
+
+
+def _neutral_bls(nb: int, device) -> dict:
+    """``_device_verify`` on an all-padding batch at ``nb`` sets x 32 keys:
+    every weight is zero, so ``W`` is the point at infinity (its Z limbs
+    zero) — the one result a neutral batch may give."""
+    from . import ec, tower, verify
+
+    id1, id2 = ec.g1_to_limbs(None), ec.g2_to_limbs(None)
+    pk = tuple(np.broadcast_to(id1[c], (nb, 32, id1[c].shape[-1])).copy() for c in range(3))
+    sig = tuple(np.broadcast_to(id2[c], (nb,) + id2[c].shape).copy() for c in range(3))
+    msg = tuple(np.broadcast_to(verify._G2_GEN_AFF[c], (nb,) + verify._G2_GEN_AFF[c].shape
+                                ).copy() for c in range(2))
+    host = (pk, sig, msg, np.zeros((nb, 64), np.int32), np.zeros((nb,), bool))
+    _, w_z = verify._device_verify(*verify.batch_from_numpy(host, device))
+    if not tower.fq2_from_limbs(w_z.cpu()).is_zero():
+        raise RuntimeError(f"bls_verify warmup at {nb}: W of a neutral batch is not infinity")
+    return {"shape": (nb, 32)}
+
+
+def _neutral_sha(nb: int, device) -> dict:
+    """``_sha256_64byte_batch`` on ``nb`` zero blocks: every row the
+    SHA-256 of 64 zero bytes."""
+    from .sha256_device import _sha256_64byte_batch
+
+    out = _sha256_64byte_batch(torch.zeros((nb, 16), dtype=torch.int32, device=device))
+    want = np.frombuffer(hashlib.sha256(bytes(64)).digest(), dtype=">u4").astype(np.uint32)
+    got = out.cpu().numpy().view(np.uint32)
+    if got.shape != (nb, 8) or not (got == want).all():
+        raise RuntimeError(f"sha256_pairs warmup at {nb}: wrong digest of a zero block")
+    return {"shape": (nb,)}
+
+
+_EPOCH_SCALARS = dict(previous_epoch=1, base_reward_per_increment=1,
+                      total_active_balance=32 * 10**9, increment=10**9,
+                      inactivity_score_bias=4, inactivity_score_recovery_rate=16,
+                      quotient=1 << 24)
+
+
+def _neutral_deltas(nb: int, device, in_leak: bool) -> None:
+    """``_deltas_kernel`` on ``nb`` never-active pad rows: every delta and
+    every inactivity score zero."""
+    from .epoch_device import _PAD_FILLS, _deltas_kernel
+
+    dtypes = (torch.int64,) * 4 + (torch.bool,) + (torch.int64,) * 2
+    rows = [torch.full((nb,), f, dtype=d, device=device) for f, d in zip(_PAD_FILLS, dtypes)]
+    inactivity, delta = _deltas_kernel(*rows, *_EPOCH_SCALARS.values(), in_leak=in_leak)
+    if bool(inactivity.any()) or bool(delta.any()):
+        raise RuntimeError(f"epoch_deltas warmup at {nb}: a pad row moved")
+
+
+def _neutral_epoch(nb: int, device) -> dict:
+    _neutral_deltas(nb, device, False)
+    _neutral_deltas(nb, device, True)
+    return {"shape": (nb,)}
+
+
+def _neutral_shuffle(nb: int, device) -> dict:
+    """``_shuffle_kernel`` over 90 rounds with no live lane: the identity."""
+    from .shuffle_device import _chunk_count, _shuffle_kernel
+
+    values = torch.arange(nb, dtype=torch.int32, device=device)
+    pivots = torch.zeros(90, dtype=torch.int32, device=device)
+    digests = torch.zeros((90, _chunk_count(nb) * 32), dtype=torch.uint8, device=device)
+    out = _shuffle_kernel(values, pivots, digests, 0)
+    if not torch.equal(out, values):
+        raise RuntimeError(f"shuffle warmup at {nb}: a pad lane moved")
+    return {"shape": (nb,)}
+
+
+def _neutral_proposer(nb: int, device) -> dict:
+    """``_proposer_kernel`` over ``nb`` zero effective balances with every
+    acceptance byte 255: no candidate can be accepted."""
+    from .shuffle_device import PROPOSER_CANDIDATES, _proposer_kernel
+
+    seed_words = torch.zeros((32, 8), dtype=torch.int32, device=device)
+    pivots = torch.zeros((32, 90), dtype=torch.int32, device=device)
+    rbytes = torch.full((32, PROPOSER_CANDIDATES), 255, dtype=torch.int32, device=device)
+    eff = torch.zeros(nb, dtype=torch.int64, device=device)
+    pos, found = _proposer_kernel(seed_words, pivots, rbytes, eff, nb, 32 * 10**9)
+    if bool(found.any()) or bool((pos != -1).any()):
+        raise RuntimeError(f"proposer_select warmup at {nb}: a zero balance was accepted")
+    return {"shape": (nb,)}
+
+
+def _neutral_boundary(nb: int, device) -> dict:
+    """The fused boundary's parts at ``nb`` (its deltas pass in both leak
+    modes, a round-free shuffle, the walk's acceptance): each on neutral
+    rows, each with its neutral result."""
+    _neutral_epoch(nb, device)
+    _neutral_shuffle(nb, device)
+    _neutral_proposer(nb, device)
+    return {"shape": (nb,)}
+
+
+#: op -> (the supervised op its dispatch runs under, the neutral dispatch)
+_NEUTRAL = {
+    "bls_verify": ("bls_verify", _neutral_bls),
+    "sha256_pairs": ("sha256_pairs", _neutral_sha),
+    "epoch_deltas": ("epoch_deltas", _neutral_epoch),
+    "shuffle": ("shuffle", _neutral_shuffle),
+    "proposer_select": ("proposer_select", _neutral_proposer),
+    "epoch_boundary": ("epoch_boundary", _neutral_boundary),
+}
+
+
+def aot_warmup_op(op: str, nb: int, device=None) -> List[dict]:
+    """Warm ``op``'s bucket ``nb`` off the request path — the autotune
+    controller's adoption prerequisite: one supervised dispatch
+    (``device_supervisor.run``, on the card with ``host_on_failure=False``)
+    of a neutral batch on the node's device, whose result must be the one
+    a neutral batch gives (else this raises), noted in the telemetry
+    mirror (``device_telemetry.note_warmup``: the first production
+    dispatch at the bucket is then not counted as its first)."""
+    from .. import device_supervisor, device_telemetry
+    from ..logs import get_logger
+    from .devices import on_device, resolve_device, wait_for
+
+    if op not in _NEUTRAL:
+        raise ValueError(f"no warmup for op {op!r}")
+    supervised_op, neutral = _NEUTRAL[op]
+    dev = resolve_device(device if device is not None else _WARMUP_DEVICE)
+    nb = int(nb)
+
+    def run() -> dict:
+        with on_device(dev):
+            out = neutral(nb, dev)
+            wait_for(dev)
+        return out
+
+    t0 = time.perf_counter()
+    out = device_supervisor.run(supervised_op, run, host_on_failure=dev.type != "cuda")
+    seconds = time.perf_counter() - t0
+    device_telemetry.note_warmup(op, out["shape"], seconds, hit=False)
+    record = {"op": op, "shape": "x".join(str(s) for s in out["shape"]),
+              "seconds": round(seconds, 6), "outcome": "ok", "device": str(dev)}
+    get_logger("compile_cache").info("bucket warmup", **record)
+    return [record]

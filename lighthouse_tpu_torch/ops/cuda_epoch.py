@@ -10,8 +10,10 @@ Kernels (source ``lighthouse_tpu_torch/csrc/shuffle.cu``, built for
   XLA program ``lighthouse_tpu/ops/shuffle_device.py:_shuffle_kernel``.
 - ``proposer_walk``: the spec's candidate walk of (slot, candidate) lanes,
   one SHA-256 block a round, several rounds a step (the lookahead, one of
-  :data:`WALK_LOOKAHEADS`; the source's default on the main path, and
-  :func:`_proposer_walk_k` forces it for the tests and the card's timing),
+  :data:`WALK_LOOKAHEADS`; on the main path the one
+  ``autotune.measure_walk_lookahead`` measured fastest on this card where
+  it is cached, else the source's default; :func:`_proposer_walk_k`
+  forces it for the tests and the card's timing),
   by :func:`proposer_walk`.  Replaces the walk of
   ``lighthouse_tpu/ops/shuffle_device.py:_proposer_kernel`` (its
   acceptance stays in PyTorch, ``ops/shuffle_device.py``).
@@ -202,18 +204,36 @@ def shuffle_rounds(values: torch.Tensor, pivots: torch.Tensor, digests: torch.Te
     return out
 
 
-def walk_lookahead() -> int:
-    """The lookahead the CUDA walk takes on the main path (the source's
-    default; builds the library)."""
+def measured_lookahead(device=None) -> Optional[int]:
+    """The lookahead ``autotune.measure_walk_lookahead`` cached for this
+    card, torch and CUDA, or None (no measurement, or autotune mode 0)."""
+    from .. import autotune
+
+    entry = autotune.cached_walk_lookahead(device)
+    return None if entry is None else int(entry["lookahead"])
+
+
+def walk_lookahead(device=None) -> int:
+    """The lookahead the CUDA walk takes on the main path: the measured
+    choice where one is cached (``autotune.py``), else the source's
+    static default (builds the library)."""
+    measured = measured_lookahead(device)
+    if measured is not None:
+        return measured
     return int(library().lt_walk_lookahead())
 
 
 def proposer_walk(seed_words: torch.Tensor, pivots: torch.Tensor, k: int,
                   m_live: int) -> torch.Tensor:
     """The (S, k) final positions of the candidate walks over ``m_live``
-    active validators: ``proposer_walk_kernel`` on a CUDA tensor, the plain
-    version on a CPU tensor.  Each pivot counts mod max(m_live, 1)."""
-    return _proposer_walk_k(seed_words, pivots, k, m_live, None)
+    active validators: ``proposer_walk_kernel`` on a CUDA tensor (at the
+    measured lookahead where one is cached, else the source's default),
+    the plain version on a CPU tensor.  Each pivot counts mod
+    max(m_live, 1)."""
+    lookahead = None
+    if seed_words.device.type == "cuda":
+        lookahead = measured_lookahead(seed_words.device)
+    return _proposer_walk_k(seed_words, pivots, k, m_live, lookahead)
 
 
 def _proposer_walk_k(seed_words: torch.Tensor, pivots: torch.Tensor, k: int,

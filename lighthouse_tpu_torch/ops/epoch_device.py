@@ -22,9 +22,13 @@ are ineligible for every flag mask and therefore contribute exactly zero
 to the registry-wide participating-increment sums.
 
 Semantics are bit-identical to the numpy path and to the JAX program (same
-floor divisions, same masks; ``tests/test_torch_epoch.py``).  Not ported:
-the JAX package's device-mesh branch and its autotune vocabulary
-enrolment (ROADMAP A4.1).
+floor divisions, same masks; ``tests/test_torch_epoch.py``).  The
+registry axis buckets against ``autotune.bucket_vocabulary(
+"epoch_deltas", N_BUCKETS)``.  **No mesh split**: the participating-
+increment sums reduce over the whole registry and PyTorch has no
+partitioner to insert those collectives, so while the device mesh is on
+the pass runs on the mesh's first device (:func:`op_device`; the split is
+queued in ROADMAP A).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from ..types.spec import (
     TIMELY_TARGET_FLAG_INDEX,
     WEIGHT_DENOMINATOR,
 )
+from .. import autotune
 from .devices import on_device, resolve_device, wait_for
 
 
@@ -181,12 +186,41 @@ N_BUCKETS = (64, 256, 1024, 4096, 16384, 65536, 262144, 1048576)
 _PAD_FILLS = (0, _PAD_ACTIVATION_EPOCH, 0, 0, False, 0, 0)
 
 
-def _bucket(n: int) -> int:
-    """The registry bucket for ``n`` validators (exact size past the top)."""
-    for b in N_BUCKETS:
+def _warmup(nb: int) -> None:
+    from .compile_cache import aot_warmup_op
+
+    aot_warmup_op("epoch_deltas", nb)
+
+
+# Self-tuning enrolment (autotune.py): the registry vocabulary is ratio-4
+# past the 64 bucket, so a network parked between buckets can earn a
+# midpoint registry bucket; the warmup dispatches both leak modes.
+autotune.register_vocabulary(
+    "epoch_deltas", N_BUCKETS,
+    telemetry_ops=("epoch_deltas", "epoch_deltas_leak"), warmup=_warmup)
+
+
+def _bucket(n: int, vocabulary: str = "epoch_deltas") -> int:
+    """The registry bucket for ``n`` validators (exact size past the top),
+    against the live vocabulary (static :data:`N_BUCKETS` plus any
+    controller-adopted overlay buckets)."""
+    for b in autotune.bucket_vocabulary(vocabulary, N_BUCKETS):
         if n <= b:
             return b
     return n
+
+
+def op_device(device, resolve=None) -> torch.device:
+    """``device`` resolved (by ``resolve``, default ``resolve_device``) —
+    or, while the device mesh is on, the mesh's first device: the epoch
+    programs reduce and gather across the whole registry, so they run
+    whole on one member rather than split."""
+    from .. import device_mesh
+
+    dev = (resolve or resolve_device)(device)
+    if device_mesh.enabled():
+        return device_mesh.first_device()
+    return dev
 
 
 def grow_rows(a: np.ndarray, rows: int, fill) -> np.ndarray:
@@ -231,7 +265,7 @@ def epoch_deltas_device(
     are sliced back off the outputs."""
     from .. import device_telemetry
 
-    device = resolve_device(device)
+    device = op_device(device)
     op = "epoch_deltas_leak" if in_leak else "epoch_deltas"
     n = int(np.asarray(arrays.effective_balance).shape[0])
     nb = _bucket(n)

@@ -23,6 +23,13 @@ Supervised like the BLS entry point (``device_supervisor.run("kzg_batch",
 watchdog worker, and a hung or failing device resolves through the
 caller's ``host_fn`` (``Kzg``'s host MSM path).  ``kzg_batch`` reduces over
 the blob axis, so it never splits.
+
+**Device mesh** (``device_mesh.py``): while the mesh is on, the blob axis
+pads to a multiple of the mesh size with identity points and zero scalars
+(exact neutral contributions) and splits into row blocks; each member
+computes its three partial lincombs (:func:`_kzg_shard`), and
+:func:`_kzg_combine` adds them on the mesh's first device before the one
+pairing check — the same points, so the same verdict, for any mesh size.
 """
 
 from __future__ import annotations
@@ -69,9 +76,14 @@ def _device_kzg_batch(c, p, r_bits, rz_bits, ry_bits, tau, g2gen):
     prod = ec.scalar_mul_bits(ec.G1_OPS, pts, bits)
     lincombs = ec.tree_sum(ec.G1_OPS, tuple(x[: 3 * n].reshape(3, n, -1) for x in prod),
                            axis=1)
-    c_lincomb, proof_lincomb, pz_lincomb = (tuple(x[i] for x in lincombs) for i in range(3))
-    gen_ry = tuple(x[3 * n] for x in prod)
+    return _kzg_pairing(lincombs, tuple(x[3 * n] for x in prod), tau, g2gen)
 
+
+def _kzg_pairing(lincombs, gen_ry, tau, g2gen):
+    """The program's one 2-pairing from the three lincombs (a G1 point
+    batch of 3: ``sum [r_i]C_i``, ``sum [r_i]P_i``, ``sum [r_i z_i]P_i``)
+    and ``[sum r_i y_i]G1``: the final-exponentiation limbs."""
+    c_lincomb, proof_lincomb, pz_lincomb = (tuple(x[i] for x in lincombs) for i in range(3))
     rhs = ec.point_add(
         ec.G1_OPS,
         ec.point_add(ec.G1_OPS, c_lincomb, ec.point_neg(gen_ry)),
@@ -79,8 +91,66 @@ def _device_kzg_batch(c, p, r_bits, rz_bits, ry_bits, tau, g2gen):
     )
     p1 = tuple(torch.stack([a, b]) for a, b in zip(proof_lincomb, ec.point_neg(rhs)))
     q2 = tuple(torch.stack([a, b]) for a, b in zip(tau, g2gen))
-    mask = torch.ones(2, dtype=torch.bool, device=r_bits.device)
+    mask = torch.ones(2, dtype=torch.bool, device=gen_ry[0].device)
     return pairing.multi_pairing_fe(p1, q2, mask)
+
+
+def _kzg_shard(c, p, r_bits, rz_bits, ry_bits, tau, g2gen):
+    """One mesh member's part of :func:`_device_kzg_batch` over its row
+    block (same arguments; the replicated ones are read by the combine):
+    the three partial lincombs ``sum [r_i]C_i``, ``sum [r_i]P_i`` and
+    ``sum [r_i z_i]P_i`` of its rows, as one G1 point batch of 3."""
+    n = r_bits.shape[0]
+    pts = tuple(torch.cat([ci, pi, pi]) for ci, pi in zip(c, p))
+    bits = torch.cat([r_bits, r_bits, rz_bits])
+    prod = ec.scalar_mul_bits(ec.G1_OPS, pts, bits)
+    return ec.tree_sum(ec.G1_OPS, tuple(x.reshape(3, n, -1) for x in prod), axis=1)
+
+
+def _kzg_combine(parts, ry_bits, tau, g2gen):
+    """The combine of a sharded KZG batch on the mesh's first device: the
+    shards' partial lincombs added in shard order (a sum of points: the
+    unsharded lincombs for any split), ``[sum r_i y_i]G1``, and the
+    program's one 2-pairing.  Returns the final-exponentiation limbs."""
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = ec.point_add(ec.G1_OPS, acc, part)
+    gen = tuple(const(x, ry_bits.device)[None] for x in ec.G1_GEN_LIMBS)
+    gen_ry = tuple(x[0] for x in ec.scalar_mul_bits(ec.G1_OPS, gen, ry_bits[None]))
+    return _kzg_pairing(acc, gen_ry, tau, g2gen)
+
+
+ENTRY_KEY = "lighthouse_tpu_torch/ops/kzg_device.py:_device_kzg_batch"
+
+#: device_mesh.ShardedEntry for the KZG program (lazy).
+_SHARDED_ENTRY = None
+
+
+def _sharded_entry():
+    global _SHARDED_ENTRY
+    if _SHARDED_ENTRY is None:
+        from .. import device_mesh
+
+        _SHARDED_ENTRY = device_mesh.ShardedEntry(ENTRY_KEY, _device_kzg_batch)
+    return _SHARDED_ENTRY
+
+
+def _run_sharded(host_batch: tuple):
+    """The sharded program on a mesh-padded host batch: the shards'
+    lincombs, combined on the mesh's first device (``fe`` there)."""
+    from .. import device_mesh
+
+    def i32(a):
+        return tuple(i32(x) for x in a) if isinstance(a, tuple) else np.asarray(a, np.int32)
+
+    entry = _sharded_entry()
+    placed = entry.place(*(i32(a) for a in host_batch))
+    parts = entry.run(_kzg_shard, placed)
+    # the replicated arguments, as every shard holds them, on the first device
+    ry_bits, tau, g2gen = placed[0][4:]
+    first = device_mesh.first_device()
+    return _kzg_combine(parts, ry_bits.to(first), tuple(x.to(first) for x in tau),
+                        tuple(x.to(first) for x in g2gen))
 
 
 def _bucket(n: int) -> int:
@@ -146,7 +216,7 @@ def verify_kzg_proof_batch_device(
     into the caller; off the card it resolves through ``host_fn``, the
     golden model, where one is given (with ``host_fn=None`` failures
     propagate there too)."""
-    from .. import device_supervisor, device_telemetry, fault_injection
+    from .. import device_mesh, device_supervisor, device_telemetry, fault_injection
 
     device = resolve_device(device)
     n = len(c_pts)
@@ -162,23 +232,31 @@ def verify_kzg_proof_batch_device(
             # Marshalling and upload happen INSIDE the supervised leg: an
             # OPEN breaker must not touch the device at all, and an upload
             # raising on a dead device resolves through the host fallback
-            # like any other device failure.
-            with on_device(device):
+            # like any other device failure.  The mesh pad is computed
+            # here too, so a supervisor reshard retry places under the
+            # surviving topology.
+            mesh = device_mesh.size() if device_mesh.enabled() else 0
+            nbm = device_mesh.pad_rows(nb) if mesh else nb
+            dev = device_mesh.first_device() if mesh else device
+            state_local["mesh"], state_local["nb"] = mesh, nbm
+            with on_device(dev):
                 t0 = time.perf_counter()
-                batch = batch_from_numpy(
-                    _build_kzg_batch(c_pts, p_pts, r_powers, zs, ys, g2_tau, nb), device)
+                host_batch = _build_kzg_batch(c_pts, p_pts, r_powers, zs, ys, g2_tau, nbm)
+                if not mesh:
+                    batch = batch_from_numpy(host_batch, device)
                 stages_local["setup"] = time.perf_counter() - t0
                 if fault_injection.ACTIVE:
-                    if not device_telemetry.COMPILE_CACHE.seen("kzg_batch", (nb,)):
+                    if not device_telemetry.COMPILE_CACHE.seen("kzg_batch", (nbm,), mesh=mesh):
                         fault_injection.check("device.compile", op="kzg_batch")
                     fault_injection.check("device.dispatch", op="kzg_batch")
                 t0 = time.perf_counter()
-                fe = _device_kzg_batch(*batch)
+                fe = _run_sharded(host_batch) if mesh else _device_kzg_batch(*batch)
                 stages_local["dispatch"] = time.perf_counter() - t0
-                if device_telemetry.note_dispatch("kzg_batch", (nb,), stages_local["dispatch"]):
+                if device_telemetry.note_dispatch("kzg_batch", (nbm,), stages_local["dispatch"],
+                                                  mesh=mesh):
                     state_local["compiled"] = True
                 t0 = time.perf_counter()
-                wait_for(device)
+                wait_for(dev)
                 stages_local["wait"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             ok = pairing.fe_is_one(fe)
@@ -198,6 +276,8 @@ def verify_kzg_proof_batch_device(
     if reason != "dispatch_timeout":
         stages = holder.get("stages") or {}
         state = holder.get("state") or {}
+    mesh, nb = state.get("mesh", 0), state.get("nb", nb)
+    shard_live = _sharded_entry().shard_live_counts(n, nb) if mesh else None
     host_fallback = info.get("route") == "host"
     if not host_fallback:
         LAST_STAGES.update(
@@ -208,6 +288,8 @@ def verify_kzg_proof_batch_device(
     device_telemetry.record_batch(
         op="kzg_batch",
         shape=(nb,),
+        mesh=mesh,
+        shard_live=shard_live,
         n_live=n,
         stages=stages or None,
         verdict=bool(ok),

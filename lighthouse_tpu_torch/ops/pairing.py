@@ -235,6 +235,15 @@ def multi_pairing_fe(p1, q2, mask):
     Shared accumulator: the T points and line computations stay batched per
     pair, but the Fq12 accumulator is ONE element — per step,
     f = f^2 * prod_i line_i."""
+    return final_exponentiation(multi_miller_loop(p1, q2, mask))
+
+
+def multi_miller_loop(p1, q2, mask):
+    """prod_i f_i, the Miller-loop product of :func:`multi_pairing_fe`
+    before its final exponentiation (same arguments).  As an element of
+    F_p^12 it is the product of the pairs' own Miller loops, so the
+    products of disjoint sets of pairs multiply to the product over their
+    union (the sharded verify's combine relies on it)."""
     t = _twist_start(q2)
     f = const(FQ12_ONE, q2[0].device)
 
@@ -248,7 +257,7 @@ def multi_pairing_fe(p1, q2, mask):
         if bit:
             t, line_a = _proj_add_mixed(t, q2)
             f = fold_lines(f, line_a)
-    return final_exponentiation(f)
+    return f
 
 
 # ------------------------------------------------------------ host-side check

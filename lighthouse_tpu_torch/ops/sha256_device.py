@@ -21,8 +21,12 @@ concatenate exactly); on the card a failure that survives the retry, a
 hang past the watchdog or an OPEN breaker raises into the caller — the
 host kernel answers failures only for ``device="cpu"``.
 
-Not ported: the JAX package's device-mesh branch (the batch split over
-local devices) and its autotune vocabulary enrolment (ROADMAP A4.1).
+**Device mesh** (``device_mesh.py``): while the mesh is on, the block
+axis pads to a multiple of the mesh size with zero blocks, splits into
+contiguous row blocks, one per mesh member, runs the kernel on each, and
+the digests concatenate in order on the mesh's first device (every block
+is independent, so the bytes are the unsharded ones).  The block axis
+buckets against ``autotune.bucket_vocabulary("sha256_pairs", N_BUCKETS)``.
 """
 
 from __future__ import annotations
@@ -35,12 +39,41 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import autotune
 from . import cuda_sha
 from .devices import on_device, resolve_device, wait_for
 
 N_BUCKETS = (256, 1024, 4096, 16384, 65536, 262144)
 
 ENTRY_KEY = "lighthouse_tpu_torch/ops/sha256_device.py:_sha256_64byte_batch"
+
+
+def _warmup(nb: int) -> None:
+    from .compile_cache import aot_warmup_op
+
+    aot_warmup_op("sha256_pairs", nb)
+
+
+# Self-tuning enrolment (autotune.py): this ratio-4 vocabulary has real
+# gaps, so the controller's densify heuristic can overlay midpoint buckets
+# (e.g. 640 between 256 and 1024) when the flight recorder shows the
+# median dispatched layer wasting over half its lanes.  N_BUCKETS stays
+# the floor and its top bucket the ceiling; every adoption waits for its
+# warmup dispatch.
+autotune.register_vocabulary(
+    "sha256_pairs", N_BUCKETS, telemetry_ops=("sha256_pairs",), warmup=_warmup)
+
+#: device_mesh.ShardedEntry for the pair-hash kernel (lazy).
+_SHARDED_ENTRY = None
+
+
+def _sharded_entry():
+    global _SHARDED_ENTRY
+    if _SHARDED_ENTRY is None:
+        from .. import device_mesh
+
+        _SHARDED_ENTRY = device_mesh.ShardedEntry(ENTRY_KEY, _sha256_64byte_batch)
+    return _SHARDED_ENTRY
 
 #: 64-byte blocks hashed, and seconds spent, per route since the last
 #: :func:`reset_routes`, counted where the route is chosen:
@@ -76,7 +109,9 @@ def _sha256_64byte_batch(words: torch.Tensor) -> torch.Tensor:
 
 def _bucket(n: int, buckets: Optional[Sequence[int]] = None) -> int:
     if buckets is None:
-        buckets = N_BUCKETS
+        # the live vocabulary: static N_BUCKETS plus controller-adopted
+        # overlay buckets (autotune.py)
+        buckets = autotune.bucket_vocabulary("sha256_pairs", N_BUCKETS)
     for b in buckets:
         if n <= b:
             return b
@@ -158,19 +193,35 @@ def _words(data: bytes, n: int, nb: int) -> np.ndarray:
 def _dispatch_batch(words: np.ndarray, nb: int, device: torch.device,
                     stages: dict, state: dict) -> np.ndarray:
     """Upload, launch and wait for one bucket-padded batch on the
-    supervisor's watchdog worker; the (nb, 8) uint32 digest words."""
-    from .. import device_telemetry, fault_injection
+    supervisor's watchdog worker; the (nb, 8) uint32 digest words (more
+    rows, zero blocks' digests, when the mesh padded the batch).
 
+    Mesh on: the block axis pads to a multiple of the mesh size, each
+    member hashes its row block, and the digests concatenate in shard
+    order on the mesh's first device."""
+    from .. import device_mesh, device_telemetry, fault_injection
+
+    mesh = 0
+    if device_mesh.enabled():
+        mesh = device_mesh.size()
+        nbp = device_mesh.pad_rows(nb)
+        words, nb = device_mesh.grow_rows(words, nbp, 0), nbp
+        placed = _sharded_entry().place(words.view(np.int32))
+        device = device_mesh.first_device()
+    state["mesh"], state["nb"] = mesh, nb
     if fault_injection.ACTIVE:
-        if not device_telemetry.COMPILE_CACHE.seen("sha256_pairs", (nb,)):
+        if not device_telemetry.COMPILE_CACHE.seen("sha256_pairs", (nb,), mesh=mesh):
             fault_injection.check("device.compile", op="sha256_pairs")
         fault_injection.check("device.dispatch", op="sha256_pairs")
     t_dispatch = time.perf_counter()
     with on_device(device):
-        dev_out = _sha256_64byte_batch(torch.from_numpy(words.view(np.int32)).to(device))
+        if mesh:
+            dev_out = torch.cat(_sharded_entry().run(_sha256_64byte_batch, placed))
+        else:
+            dev_out = _sha256_64byte_batch(torch.from_numpy(words.view(np.int32)).to(device))
     dispatch_s = time.perf_counter() - t_dispatch
     stages["dispatch"] = dispatch_s
-    if device_telemetry.note_dispatch("sha256_pairs", (nb,), dispatch_s):
+    if device_telemetry.note_dispatch("sha256_pairs", (nb,), dispatch_s, mesh=mesh):
         state["compiled"] = True
     t_wait = time.perf_counter()
     wait_for(device)
@@ -243,12 +294,19 @@ def hash_pairs_device(data: bytes, device="cuda") -> bytes:
     reason = info.get("fallback_reason")
     stages: dict = {}
     compiled = False
+    mesh, shard_live = 0, None
     if reason != "dispatch_timeout":
         stages = holder.get("stages") or {}
-        compiled = (holder.get("state") or {}).get("compiled", False)
+        state = holder.get("state") or {}
+        compiled = state.get("compiled", False)
+        mesh, nb = state.get("mesh", 0), state.get("nb", nb)
+        if mesh:
+            shard_live = _sharded_entry().shard_live_counts(n, nb)
     device_telemetry.record_batch(
         op="sha256_pairs",
         shape=(nb,),
+        mesh=mesh,
+        shard_live=shard_live,
         n_live=n,
         stages=stages or None,
         host_fallback=info.get("route") == "host",

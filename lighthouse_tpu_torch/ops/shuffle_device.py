@@ -36,9 +36,14 @@ On a CPU tensor the two kernels run their plain versions.  Shape
 discipline matches ``ops/epoch_device.py``: power-of-two registry buckets
 (:data:`N_BUCKETS`) with inert pad lanes — a pad lane never swaps
 (``lane < n_live`` gate), is unreachable by the candidate walk (positions
-stay below ``m_live``), and satisfies no registry-update mask.  Not
-ported: the JAX package's device-mesh branch and autotune vocabulary
-enrolment (ROADMAP A4.1).
+stay below ``m_live``), and satisfies no registry-update mask.  The lane
+axis of each op buckets against its own autotune vocabulary (``shuffle``,
+``proposer_select``, ``epoch_boundary``).  **No mesh split**: every
+swap-or-not round gathers partner lanes across the whole registry and the
+deltas reduce over it, and PyTorch has no partitioner to insert those
+collectives, so while the device mesh is on these ops run on the mesh's
+first device (``epoch_device.op_device``; the split is queued in ROADMAP
+A).
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import autotune
 from . import cuda_epoch
 from .devices import on_device, resolve_device, wait_for
 from .epoch_device import (
@@ -59,6 +65,7 @@ from .epoch_device import (
     _deltas_core,
     fault_checks,
     grow_rows,
+    op_device,
 )
 
 #: Registry buckets — same ladder as the deltas pass (they dispatch over
@@ -177,9 +184,33 @@ def _boundary_kernel(
             queue_mask, activation_mask, shuffled, proposer, found)
 
 
-def _bucket(n: int) -> int:
-    """The lane bucket for ``n`` rows (exact size past the top)."""
-    for b in N_BUCKETS:
+def _warmup_op(op: str):
+    def warmup(nb: int) -> None:
+        from .compile_cache import aot_warmup_op
+
+        aot_warmup_op(op, nb)
+
+    return warmup
+
+
+# Self-tuning enrolment (autotune.py), one vocabulary per op; the fused
+# boundary forks its program on in_leak, so its warmup covers both modes.
+autotune.register_vocabulary(
+    "shuffle", N_BUCKETS, telemetry_ops=("shuffle",), warmup=_warmup_op("shuffle"))
+autotune.register_vocabulary(
+    "proposer_select", N_BUCKETS, telemetry_ops=("proposer_select",),
+    warmup=_warmup_op("proposer_select"))
+autotune.register_vocabulary(
+    "epoch_boundary", N_BUCKETS,
+    telemetry_ops=("epoch_boundary", "epoch_boundary_leak"),
+    warmup=_warmup_op("epoch_boundary"))
+
+
+def _bucket(n: int, op: str = "shuffle") -> int:
+    """The lane bucket for ``n`` rows of ``op`` (exact size past the top),
+    against the live vocabulary (static :data:`N_BUCKETS` plus any
+    controller-adopted overlay buckets)."""
+    for b in autotune.bucket_vocabulary(op, N_BUCKETS):
         if n <= b:
             return b
     return n
@@ -264,7 +295,7 @@ def shuffle_device(values, seed: bytes, rounds: int, device="cuda") -> np.ndarra
     (``out[i] = values[compute_shuffled_index(i)]``)."""
     from .. import device_telemetry
 
-    device = resolve_device(device)
+    device = op_device(device, resolve_device)
     op = "shuffle"
     arr = np.asarray(values)
     n = int(arr.shape[0])
@@ -305,14 +336,14 @@ def proposer_select_device(
     :data:`PROPOSER_CANDIDATES` rejected) stays on the scalar walk."""
     from .. import device_telemetry
 
-    device = resolve_device(device)
+    device = op_device(device, resolve_device)
     op = "proposer_select"
     active = np.asarray(active_indices, dtype=np.int64)
     m = int(active.shape[0])
     s = len(slot_seeds)
     if m == 0 or s == 0:
         return (np.full(s, -1, dtype=np.int64), np.zeros(s, dtype=bool))
-    nb = _bucket(m)
+    nb = _bucket(m, op)
     fault_checks(op, nb)
     seed_words, pivots, rbytes = proposer_tables(slot_seeds, rounds, m)
     eff = np.asarray(effective_balance, dtype=np.int64)
@@ -391,7 +422,7 @@ def boundary_inputs(plan: BoundaryPlan, device: torch.device) -> tuple:
     ``device``: the 11 batched tensors padded to the registry bucket, the 5
     tables, the 16 scalars and ``m_live``; and the bucket."""
     n, m = plan.n, plan.m
-    nb = _bucket(n)
+    nb = _bucket(n, "epoch_boundary")
     sh_pivots, sh_digests = shuffle_tables(plan.attester_seed, plan.rounds, m, nb)
     seed_words, prop_pivots, rbytes = proposer_tables(plan.slot_seeds, plan.rounds, m)
     active_padded = np.zeros(nb, dtype=np.int32)
@@ -434,10 +465,10 @@ def epoch_boundary_device(plan: BoundaryPlan, *, in_leak: bool, device="cuda"):
     ``plan.m``, proposer/found per slot."""
     from .. import device_telemetry
 
-    device = resolve_device(device)
+    device = op_device(device, resolve_device)
     op = "epoch_boundary_leak" if in_leak else "epoch_boundary"
     n, m = plan.n, plan.m
-    fault_checks(op, _bucket(n))
+    fault_checks(op, _bucket(n, "epoch_boundary"))
     args, nb = boundary_inputs(plan, device)
     t_dispatch = time.perf_counter()
     with on_device(device):

@@ -35,7 +35,12 @@ Routing thresholds and host seams are the JAX package's.  Device tree
 hashing is on by default, on ``"cuda"`` (:func:`configure` turns it off or
 points it at ``"cpu"``).  Every path is bit-identical to the pure-hashlib
 golden model (:func:`golden_root`).
-The JAX package's device-mesh branch is not ported (ROADMAP A4.1).
+
+**Device mesh** (``device_mesh.py``): while the mesh is on, the subtree
+axis pads to a multiple of the mesh size with zero subtrees, each mesh
+member Merkleizes its contiguous block, and every level concatenates in
+shard order on the mesh's first device: subtrees are independent, so the
+levels, and every root above them, are the unsharded bytes.
 """
 
 from __future__ import annotations
@@ -62,6 +67,18 @@ SUBTREE_LEAVES = cuda_sha.SUBTREE_LEAVES
 N_BUCKETS = (8, 128, 2048, 32768)
 
 ENTRY_KEY = "lighthouse_tpu_torch/ops/tree_hash.py:_tree_hash_subtrees"
+
+#: device_mesh.ShardedEntry for the subtree kernel (lazy).
+_SHARDED_ENTRY = None
+
+
+def _sharded_entry():
+    global _SHARDED_ENTRY
+    if _SHARDED_ENTRY is None:
+        from .. import device_mesh
+
+        _SHARDED_ENTRY = device_mesh.ShardedEntry(ENTRY_KEY, _tree_hash_subtrees)
+    return _SHARDED_ENTRY
 
 #: Precomputed zero-subtree roots (index d = root of a depth-d all-zero
 #: tree) — the right-edge padding vocabulary, identical to types/ssz.py's
@@ -203,21 +220,35 @@ def _host_subtree_levels(words: np.ndarray) -> List[np.ndarray]:
 def _dispatch_subtrees(words: np.ndarray, mb: int, dev: torch.device,
                        stages: dict, state: dict) -> List[np.ndarray]:
     """Upload, launch and wait for one bucket-padded subtree batch on the
-    supervisor's watchdog worker."""
-    from .. import device_telemetry, fault_injection
+    supervisor's watchdog worker.  Mesh on: the subtree axis pads to a
+    mesh multiple, each member Merkleizes its row block, and each level
+    concatenates in shard order on the mesh's first device."""
+    from .. import device_mesh, device_telemetry, fault_injection
 
+    mesh = 0
+    if device_mesh.enabled():
+        mesh = device_mesh.size()
+        mbp = device_mesh.pad_rows(mb)
+        words, mb = device_mesh.grow_rows(words, mbp, 0), mbp
+        placed = _sharded_entry().place(words.view(np.int32))
+        dev = device_mesh.first_device()
+    state["mesh"], state["mb"] = mesh, mb
     if fault_injection.ACTIVE:
-        if not device_telemetry.COMPILE_CACHE.seen("tree_hash", (mb,)):
+        if not device_telemetry.COMPILE_CACHE.seen("tree_hash", (mb,), mesh=mesh):
             fault_injection.check("device.compile", op="tree_hash")
         fault_injection.check("device.dispatch", op="tree_hash")
     t_dispatch = _time.perf_counter()
     with on_device(dev):
         # mb is bucket-quantized by the caller
-        dev_out = _tree_hash_subtrees(
-            torch.from_numpy(words.view(np.int32)).to(dev))
+        if mesh:
+            parts = _sharded_entry().run(_tree_hash_subtrees, placed)
+            dev_out = tuple(torch.cat(level) for level in zip(*parts))
+        else:
+            dev_out = _tree_hash_subtrees(
+                torch.from_numpy(words.view(np.int32)).to(dev))
     dispatch_s = _time.perf_counter() - t_dispatch
     stages["dispatch"] = dispatch_s
-    if device_telemetry.note_dispatch("tree_hash", (mb,), dispatch_s):
+    if device_telemetry.note_dispatch("tree_hash", (mb,), dispatch_s, mesh=mesh):
         state["compiled"] = True
     t_wait = _time.perf_counter()
     wait_for(dev)
@@ -313,12 +344,19 @@ def hash_subtree_levels(chunks: np.ndarray) -> List[np.ndarray]:
     reason = info.get("fallback_reason")
     stages: dict = {}
     compiled = False
+    mesh, shard_live = 0, None
     if reason != "dispatch_timeout":
         stages = holder.get("stages") or {}
-        compiled = (holder.get("state") or {}).get("compiled", False)
+        state = holder.get("state") or {}
+        compiled = state.get("compiled", False)
+        mesh, mb = state.get("mesh", 0), state.get("mb", mb)
+        if mesh:
+            shard_live = _sharded_entry().shard_live_counts(m, mb)
     device_telemetry.record_batch(
         op="tree_hash",
         shape=(mb,),
+        mesh=mesh,
+        shard_live=shard_live,
         n_live=m,
         stages=stages or None,
         host_fallback=info.get("route") == "host",

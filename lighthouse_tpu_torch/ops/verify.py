@@ -37,6 +37,19 @@ breaker raises into the caller; with ``device="cpu"`` it resolves on the
 host golden model, as in the reference.
 ``verify_signature_sets_device`` runs the two back to back; the async
 pipeline (``device_pipeline.py``) runs them on its own two threads.
+
+**Device mesh** (``device_mesh.py``): while the mesh is on, the batch is
+padded to a multiple of the mesh size with the same neutral rows and
+split into contiguous row blocks, one per mesh member.  The program does
+not split by rows alone — the batch-wide ``(-g1, W)`` pair comes from an
+MSM over every set — so it runs in two parts: :func:`_device_verify_shard`
+on each member (pubkey sums, the G1 scalar products, the shard's partial
+``W_s = sum [r_i] sig_i`` and the Miller-loop product of its rows) and
+:func:`_combine_shards` on the mesh's first device (``W = sum W_s``, the
+``(-g1, W)`` Miller loop, the product of the shards' Fq12 values and one
+final exponentiation).  The set axis buckets against
+``autotune.bucket_vocabulary("bls_verify", N_BUCKETS)`` (the static tuple
+unless the controller adopted an overlay).
 """
 
 from __future__ import annotations
@@ -52,6 +65,7 @@ from ..crypto.bls.backends import host
 from ..crypto.bls.backends.host import _rand_scalars
 from ..crypto.bls.hash_to_curve import hash_to_g2
 from ..crypto.bls.params import DST
+from .. import autotune
 from . import ec, pairing, tower
 from .devices import on_device, resolve_device, wait_for
 from .fq import L16, const
@@ -65,6 +79,24 @@ _G2_GEN_AFF = ec.G2_GEN_LIMBS[:2]
 N_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 K_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 MAX_SETS_PER_DISPATCH = N_BUCKETS[-1]
+
+ENTRY_KEY = "lighthouse_tpu_torch/ops/verify.py:_device_verify"
+
+
+def _warmup(nb: int) -> None:
+    from .compile_cache import aot_warmup_op
+
+    aot_warmup_op("bls_verify", nb)
+
+
+# Enroll the set-axis vocabulary in the self-tuning control plane
+# (autotune.py): live mode may overlay midpoint buckets below the static
+# top (N_BUCKETS stays the floor, MAX_SETS_PER_DISPATCH the ceiling) —
+# though this ratio-2 vocabulary has no real gaps, so the densify
+# heuristic never fires here; the registration keeps a future vocabulary
+# edit tunable without re-wiring.
+autotune.register_vocabulary(
+    "bls_verify", N_BUCKETS, telemetry_ops=("bls_verify",), warmup=_warmup)
 
 #: Seconds of each stage of the last batch through
 #: :func:`execute_built_batch` that the device decided: ``build`` (weights,
@@ -111,6 +143,108 @@ def _device_verify(pk, sig, msg, wbits, live):
     return fe, w[2]
 
 
+def _device_verify_shard(pk, sig, msg, wbits, live):
+    """One mesh member's part of :func:`_device_verify` over its row block
+    (same arguments): its pubkey sums and G1 scalar products, its partial
+    ``W_s = sum_i [r_i] sig_i`` (G2 projective) and the Miller-loop product
+    of its rows' pairs, no final exponentiation.  Returns ``(w_s, f_s)``."""
+    agg = ec.tree_sum(ec.G1_OPS, pk, axis=1)
+    p_weighted = ec.scalar_mul_windowed(ec.G1_OPS, agg, wbits)
+    w = ec.msm_windowed(ec.G2_OPS, sig, wbits)
+    f = pairing.multi_miller_loop(p_weighted, msg, live)
+    return w, f
+
+
+def _combine_shards(parts):
+    """The combine of a sharded verify on the mesh's first device:
+    ``W = sum_s W_s``, the ``(-g1, W)`` pair's Miller loop, its product
+    with every shard's Fq12 value, one final exponentiation.  Returns
+    ``(fe, w_z)`` like :func:`_device_verify`.
+
+    Why the verdict does not depend on the mesh size: the shared-
+    accumulator Miller loop of N pairs is, as a field element, the product
+    of the N pairs' own Miller loops (``f^2 * prod lines`` squares every
+    factor alike), so splitting the rows into blocks and multiplying the
+    blocks' values gives the same element of F_p^12 for any split; the
+    shards' values multiply here in shard order, a fixed order, so a run
+    is reproducible limb for limb at a given mesh size.  ``W`` is a sum of
+    points, the same point for any split.  The final exponentiation of
+    the same element is the same element, so ``fe == 1`` — the verdict —
+    and the W-at-infinity check are the unsharded program's."""
+    w = parts[0][0]
+    for w_s, _ in parts[1:]:
+        w = ec.point_add(ec.G2_OPS, w, w_s)
+    device = w[2].device
+    zi = tower.fq2_inv(w[2])
+    w_aff = (tower.fq2_mul(w[0], zi), tower.fq2_mul(w[1], zi))
+    p1 = tuple(const(_NEG_G1[i], device)[None] for i in range(3))
+    q2 = tuple(x[None] for x in w_aff)
+    f = pairing.multi_miller_loop(p1, q2, torch.ones(1, dtype=torch.bool, device=device))
+    for _, f_s in parts:
+        f = tower.fq12_mul(f, f_s)
+    return pairing.final_exponentiation(f), w[2]
+
+
+#: device_mesh.ShardedEntry for the verifier (lazy: the registry-derived
+#: placement lives in device_mesh).
+_SHARDED_ENTRY = None
+
+
+def _sharded_entry():
+    global _SHARDED_ENTRY
+    if _SHARDED_ENTRY is None:
+        from .. import device_mesh
+
+        _SHARDED_ENTRY = device_mesh.ShardedEntry(ENTRY_KEY, _device_verify)
+    return _SHARDED_ENTRY
+
+
+def _pad_host_rows(host_batch: tuple, nbp: int) -> tuple:
+    """Grow the batch axis to ``nbp`` rows with the exact neutral padding
+    :func:`build_batch` uses (identity points, generator hash slots, zero
+    weights, dead ``live`` rows) — the mesh-divisibility pad."""
+    from .. import device_mesh
+
+    pk, sig, msg, wbits, live = host_batch
+    if nbp == live.shape[0]:
+        return host_batch
+    id1, id2 = ec.g1_to_limbs(None), ec.g2_to_limbs(None)
+    grow = device_mesh.grow_rows
+    pk = tuple(grow(pk[c], nbp, id1[c]) for c in range(3))
+    sig = tuple(grow(sig[c], nbp, id2[c]) for c in range(3))
+    msg = tuple(grow(msg[c], nbp, _G2_GEN_AFF[c]) for c in range(2))
+    return pk, sig, msg, grow(wbits, nbp, 0), grow(live, nbp, False)
+
+
+def place_batch(host_batch: tuple, device) -> tuple:
+    """Upload a marshalled host batch.  Mesh on: pad the batch axis to a
+    multiple of the mesh size and split it over the members
+    (``device_mesh.ShardedEntry.place``).  Mesh off: the tensors on
+    ``device``, the pre-mesh path unchanged.  Returns ``(placed,
+    mesh_size, topology_generation, rows)`` so a dispatch can detect a
+    reshard between placement and execution."""
+    from .. import device_mesh
+
+    # Generation snapshotted BEFORE padding/placement: a reshard landing
+    # mid-place leaves this batch tagged stale, and it is placed again.
+    meshed = device_mesh.enabled()
+    gen = device_mesh.generation()
+    if meshed:
+        nbp = device_mesh.pad_rows(int(host_batch[4].shape[0]))
+        placed = _sharded_entry().place(*_pad_host_rows(host_batch, nbp))
+        return placed, device_mesh.size(), gen, nbp
+    with on_device(device):
+        placed = batch_from_numpy(host_batch, device)
+    return placed, 0, gen, int(host_batch[4].shape[0])
+
+
+def _run_placed(placed, mesh: int):
+    """The device program on a placed batch: ``(fe, w_z)``."""
+    if mesh:
+        return _combine_shards(_sharded_entry().run(_device_verify_shard, placed))
+    return _device_verify(*placed)
+
+
 # ----------------------------------------------------------------- host side
 
 _hash_cache: dict = {}
@@ -136,7 +270,10 @@ def build_batch(sets, rands) -> Optional[tuple]:
     Returns None if host-side validation already decides False.
     """
     n = len(sets)
-    nb = _bucket(n, N_BUCKETS)
+    # The set axis buckets against the live vocabulary (static N_BUCKETS
+    # plus any controller-adopted overlay buckets); the key axis stays
+    # static.
+    nb = _bucket(n, autotune.bucket_vocabulary("bls_verify", N_BUCKETS))
     kb = _bucket(max(len(s.signing_keys) for s in sets), K_BUCKETS)
 
     pk = [np.zeros((nb, kb, L16), np.int32) for _ in range(3)]
@@ -206,20 +343,24 @@ def _device_batch_verdict(built: "BuiltBatch", stages: dict, state: dict) -> boo
     """
     from .. import device_supervisor, device_telemetry, fault_injection, metrics, tracing
 
-    nb, kb, device = built.nb, built.kb, built.device
+    built.ensure_placed()  # a reshard since placement re-pads + re-uploads
+    nb, kb, mesh = built.nb, built.kb, built.mesh
+    device = built.result_device()
+    state["mesh"], state["nb"] = mesh, nb
     with on_device(device):
         if fault_injection.ACTIVE:
-            if not device_telemetry.COMPILE_CACHE.seen("bls_verify", (nb, kb)):
+            if not device_telemetry.COMPILE_CACHE.seen("bls_verify", (nb, kb), mesh=mesh):
                 fault_injection.check("device.compile", op="bls_verify")
             fault_injection.check("device.dispatch", op="bls_verify")
         with tracing.span(
             "device_batch_dispatch", hist=metrics.DEVICE_DISPATCH_SECONDS,
-            n_bucket=nb, k_bucket=kb,
+            n_bucket=nb, k_bucket=kb, mesh=mesh,
         ) as sp_dispatch:
-            fe, w_z = _device_verify(*built.batch)
+            fe, w_z = _run_placed(built.batch, mesh)
         # The first dispatch of a shape (and of the process: the kernel
         # build) pays its one-time costs inside the call itself.
-        if device_telemetry.note_dispatch("bls_verify", (nb, kb), sp_dispatch.duration):
+        if device_telemetry.note_dispatch("bls_verify", (nb, kb), sp_dispatch.duration,
+                                          mesh=mesh):
             sp_dispatch.fields["compiled"] = True
             state["compiled"] = True
         stages["dispatch"] = sp_dispatch.duration
@@ -262,14 +403,16 @@ def _device_verify_subset(subset, seed: Optional[bytes], device: torch.device) -
     host_batch = build_batch(subset, _rand_scalars(len(subset), seed))
     if host_batch is None:
         return False
-    nb, kb = host_batch[0][0].shape[:2]
+    kb = int(host_batch[0][0].shape[1])
+    batch, mesh, _, nb = place_batch(host_batch, device)
+    device = _result_device(mesh, device)
     with on_device(device):
-        batch = batch_from_numpy(host_batch, device)
         if fault_injection.ACTIVE:
             fault_injection.check("device.dispatch", op="bls_verify")
         t0 = time.perf_counter()
-        fe, w_z = _device_verify(*batch)
-        device_telemetry.note_dispatch("bls_verify", (nb, kb), time.perf_counter() - t0)
+        fe, w_z = _run_placed(batch, mesh)
+        device_telemetry.note_dispatch("bls_verify", (nb, kb), time.perf_counter() - t0,
+                                       mesh=mesh)
         wait_for(device)
     if tower.fq2_from_limbs(w_z).is_zero():
         raise device_supervisor.HostFallback("w_at_infinity")
@@ -286,17 +429,41 @@ class BuiltBatch:
     ``verify_signature_sets_device`` is the two stages run back to back —
     the direct, non-pipelined path."""
 
-    __slots__ = ("sets", "seed", "device", "batch", "nb", "kb", "live_keys", "setup_s")
+    __slots__ = ("sets", "seed", "device", "host", "batch", "nb", "kb", "mesh",
+                 "generation", "live_keys", "setup_s")
 
     def __init__(self, sets, seed, device: torch.device, host_batch, setup_s: float):
         self.sets = sets
         self.seed = seed
         self.device = device
-        with on_device(device):
-            self.batch = batch_from_numpy(host_batch, device)
-        self.nb, self.kb = (int(x) for x in host_batch[0][0].shape[:2])
+        # The host arrays stay beside the placed ones: a mesh reshard
+        # between build and dispatch invalidates the placement, and
+        # ensure_placed() re-pads and re-uploads from them.
+        self.host = host_batch
+        self.batch, self.mesh, self.generation, self.nb = place_batch(host_batch, device)
+        self.kb = int(host_batch[0][0].shape[1])
         self.live_keys = sum(len(s.signing_keys) for s in sets)
         self.setup_s = setup_s
+
+    def ensure_placed(self) -> None:
+        """Place again after any topology change since the last placement
+        (mesh enabled, disabled or re-sharded: each moves the generation)."""
+        from .. import device_mesh
+
+        if device_mesh.generation() != self.generation:
+            self.batch, self.mesh, self.generation, self.nb = place_batch(
+                self.host, self.device)
+
+    def result_device(self) -> torch.device:
+        """Where the program's outputs land: the mesh's first device while
+        the batch is sharded, else the batch's device."""
+        return _result_device(self.mesh, self.device)
+
+
+def _result_device(mesh: int, device: torch.device) -> torch.device:
+    from .. import device_mesh
+
+    return (device_mesh.first_device() or device) if mesh else device
 
 
 def build_device_batch(sets, seed: Optional[bytes] = None,
@@ -381,18 +548,24 @@ def execute_built_batch(built: BuiltBatch, *, n_groups: int = 1,
     host_fallback = info.get("route") == "host"
     reason = info.get("fallback_reason")
     compiled = False
+    mesh, nb = built.mesh, built.nb
     if reason != "dispatch_timeout":
         stages.update(holder.get("stages") or {})
-        compiled = (holder.get("state") or {}).get("compiled", False)
+        state = holder.get("state") or {}
+        compiled = state.get("compiled", False)
+        mesh, nb = state.get("mesh", mesh), state.get("nb", nb)
     if not host_fallback and "split_retry" not in info:
         LAST_STAGES.update(
             build=stages["setup"],
             device=stages.get("dispatch", 0.0) + stages.get("wait", 0.0),
             verdict=stages.get("verdict", 0.0),
         )
+    shard_live = None
+    if mesh:
+        shard_live = _sharded_entry().shard_live_counts(len(sets), nb)
     rec = device_telemetry.record_batch(
         op="bls_verify",
-        shape=(built.nb, built.kb),
+        shape=(nb, built.kb),
         n_live=len(sets),
         live_keys=built.live_keys,
         n_groups=n_groups,
@@ -407,6 +580,8 @@ def execute_built_batch(built: BuiltBatch, *, n_groups: int = 1,
         # breaker-OPEN batches never reached the device: keep them out of
         # the occupancy/wasted-lane tuning data.
         dispatched=reason != "breaker_open",
+        mesh=mesh,
+        shard_live=shard_live,
     )
     # Reverse link: the enclosing span (device_verify when routed through
     # the backend) carries the flight-recorder seq of this batch.

@@ -25,8 +25,9 @@ admission deadlines are the second).
 **Latency-driven bounds.**  The configured
 :class:`ClassPolicy` values are *static guesses*; the observed handler
 latency is a *measurement* — every :class:`Ticket` release feeds a
-per-class service-time EWMA.  With ``adaptive=True`` on the controller
-(the autotune layer's live mode, once the port has one), the effective dequeue deadline tracks
+per-class service-time EWMA.  When the autotune layer runs live
+(``LIGHTHOUSE_TPU_AUTOTUNE=live``, or ``adaptive=True`` on the
+controller), the effective dequeue deadline tracks
 ``DEADLINE_LATENCY_FACTOR`` × EWMA and the effective inflight bound tracks
 how many requests one worker can clear inside that deadline — both clamped
 to a band whose ceiling IS the configured static value (the statics remain
@@ -44,10 +45,7 @@ below :data:`DRAIN_MIN_SAMPLES` completions.  This path is always on
 (it shapes a response hint, not an admission decision).
 
 A copy of the JAX package's ``lighthouse_tpu/scheduler/admission.py``, on a
-plain ``threading.Lock``.  With ``adaptive=None`` the JAX package follows
-``autotune.live()`` (False unless ``LIGHTHOUSE_TPU_AUTOTUNE=live``); the
-port has no autotune layer yet, so it resolves to False, and
-``adaptive=True`` runs the latency-driven bounds as there.
+plain ``threading.Lock``.
 """
 
 from __future__ import annotations
@@ -211,8 +209,8 @@ class Ticket:
 class AdmissionController:
     """Bounded per-class admission in front of the processor.
 
-    ``adaptive=None`` (production) follows the autotune mode — in the port,
-    which has no autotune layer yet, that is the static bounds; ``True`` /
+    ``adaptive=None`` (production) follows the autotune mode — the bounds
+    track latency only under ``LIGHTHOUSE_TPU_AUTOTUNE=live``; ``True`` /
     ``False`` pins the behavior (tests, the bench harness)."""
 
     def __init__(self, policies=DEFAULT_POLICIES,
@@ -235,10 +233,9 @@ class AdmissionController:
     def _adaptive_on(self) -> bool:
         if self._adaptive is not None:
             return self._adaptive
-        # The JAX package reads ``autotune.live()`` here, which is False
-        # unless LIGHTHOUSE_TPU_AUTOTUNE=live; the port has no autotune
-        # layer yet, so an unpinned controller keeps its static bounds.
-        return False
+        from .. import autotune
+
+        return autotune.live()
 
     def effective_bounds(self, klass: str) -> Tuple[int, float]:
         """(max_inflight, deadline_s) currently in force for ``klass``:

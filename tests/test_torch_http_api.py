@@ -9,9 +9,10 @@ response cache) vs the JAX package's.
   ``ValidatorClient``) and ``test_light_client.py``; the JAX package's
   ``ValidatorClient`` and the port's send the port's node the same
   requests for the same slot;
-- the route table: the port's ``ROUTES`` is the JAX package's without
-  ``GET /lighthouse/autotune`` (it comes with ``autotune.py``), and the
-  cached routes declare the same topics;
+- the route table: the port's ``ROUTES`` is the JAX package's, all 122
+  routes in the same order, and the cached routes declare the same topics;
+  ``GET /lighthouse/autotune`` answers 200 with the JAX body's keys (and
+  the port's ``walk_lookahead``);
 - interop: the port's client reads the JAX package's server, the JAX
   package's client the port's;
 - parity: one harness schedule in both packages, each chain served by its
@@ -792,21 +793,33 @@ def test_lc_http_routes():
 
 
 def test_route_table_is_the_jax_packages_without_autotune():
+    """The whole JAX table, ``GET /lighthouse/autotune`` included (the
+    name is from before the route was ported)."""
     def table(mod):
         return [(m, p, prio, fn.__name__) for m, p, prio, fn in mod.ROUTES]
 
     jax_table = table(jserver)
     assert ("GET", "/lighthouse/autotune", "api_request_p1", "lighthouse_autotune") in jax_table
-    assert table(pserver) == [r for r in jax_table if r[1] != "/lighthouse/autotune"]
+    assert table(pserver) == jax_table
+    assert len(pserver.ROUTES) == 122
     assert pserver.CACHED_ROUTES == jserver.CACHED_ROUTES
-    assert pserver.match_route("GET", "/lighthouse/autotune") is None
+    assert pserver.match_route("GET", "/lighthouse/autotune") is not None
 
 
 def test_autotune_route_answers_404(served):
+    """``GET /lighthouse/autotune`` answers 200 with the JAX body's keys
+    (the name is from before the route was ported): the controller's
+    snapshot beside the admission state, plus the port's measured walk
+    lookahead; the JAX package's Fq-lowering choice is always None."""
+    from lighthouse_tpu import autotune as jautotune
+
     _, server, client = served
-    with pytest.raises(ApiClientError) as e:
-        client.get("/lighthouse/autotune")
-    assert e.value.status == 404
+    data = client.get("/lighthouse/autotune")["data"]
+    jax_keys = set(jautotune.snapshot()) | {"admission"}
+    assert set(data) == jax_keys | {"walk_lookahead"}
+    assert data["fq_backend"] is None
+    assert data["mode"] in ("0", "pinned", "live")
+    assert set(data["admission"]["effective"]) == set(data["admission"]["bounds"])
 
 
 # -------------------------------------------------------------------- interop
@@ -866,8 +879,8 @@ EXEMPT = {
 }
 #: Routes that report on the process (its host, its rings and counters, its
 #: cache and admission state) rather than on the chain: compared by keys.
-#: The port's device summary has no ``autotune`` or ``mesh`` section until
-#: those modules are ported, and its fault registry names the points the
+#: The port's device summary has the JAX package's sections, ``autotune``
+#: and ``mesh`` among them, and its fault registry names the points the
 #: port has.
 PROCESS_ROUTES = {
     "/lighthouse/health", "/lighthouse/ui/health", "/lighthouse/traces",
@@ -875,7 +888,6 @@ PROCESS_ROUTES = {
     "/lighthouse/serving", "/lighthouse/postmortems",
     "/lighthouse/postmortems/journal", "/lighthouse/events/subscribers",
 }
-DEVICE_SECTIONS_NOT_PORTED = {"autotune", "mesh"}
 HTTP_FAMILIES = ("http_api_requests_total", "http_api_request_seconds",
                  "http_response_cache_hits_total", "http_response_cache_misses_total",
                  "http_response_cache_entries", "device_arbiter_grants_total")
@@ -1035,10 +1047,7 @@ def canonical(path: str, status: int, ctype: str, body: bytes):
     if route in PROCESS_ROUTES and status == 200:
         data = out["data"]
         if isinstance(data, dict):
-            keys = set(data)
-            if route == "/lighthouse/device":
-                keys -= DEVICE_SECTIONS_NOT_PORTED
-            out = sorted(keys)
+            out = sorted(data)
         else:
             out = type(data).__name__
     return status, ctype, out

@@ -1,8 +1,8 @@
 """The port's serving layer and operator routes vs the JAX package's.
 
-- The JAX package's ``test_http_serving.py`` re-pointed at the port (its
-  ``test_lighthouse_autotune_route`` waits for ``autotune.py``): the
-  checkpoint-keyed response cache, bit-identical to an uncached server
+- The JAX package's ``test_http_serving.py`` re-pointed at the port
+  (``GET /lighthouse/autotune``: the controller's snapshot, every enrolled
+  vocabulary, the admission state), the checkpoint-keyed response cache, bit-identical to an uncached server
   across a reorg and invalidated exactly, admission and shedding in front
   of the scheduler, SSE backpressure, and cache misses taking the device
   arbiter's slot;
@@ -142,6 +142,32 @@ def api_server():
 
 
 # ------------------------------------------- the JAX package's serving tests
+
+
+def test_lighthouse_autotune_route(served_pair):
+    """GET /lighthouse/autotune: the self-tuning snapshot plus the live
+    admission state — the operator's one-read triage surface."""
+    # registration mirrors module imports: pull the ops in so every
+    # tunable vocabulary is visible on the surface
+    from lighthouse_tpu_torch.ops import epoch_device  # noqa: F401
+    from lighthouse_tpu_torch.ops import sha256_device  # noqa: F401
+    from lighthouse_tpu_torch.ops import shuffle_device  # noqa: F401
+    from lighthouse_tpu_torch.ops import verify  # noqa: F401
+
+    _, cached, _ = served_pair
+    status, _, body = _get(cached.port, "/lighthouse/autotune")
+    assert status == 200
+    data = json.loads(body)["data"]
+    assert data["mode"] in ("0", "pinned", "live")
+    for vocab in ("bls_verify", "sha256_pairs", "epoch_deltas", "shuffle",
+                  "proposer_select", "epoch_boundary"):
+        v = data["vocabularies"][vocab]
+        assert v["static"] and set(v["effective"]) >= set(v["static"])
+    adm = data["admission"]
+    assert set(adm["effective"]) == {CLASS_CRITICAL, CLASS_DUTIES, CLASS_BULK}
+    for klass, eff in adm["effective"].items():
+        assert eff["max_inflight"] <= adm["bounds"][klass]
+        assert eff["deadline_s"] <= adm["deadlines_s"][klass]
 
 
 class TestResponseCache:

@@ -10,8 +10,8 @@
   summaries in both.
 - ``device_telemetry.record_batch``: the same arguments give the same
   flight-record fields (``seq``, ``t_ms`` and ``trace_id`` aside), and the
-  same ``summary()``, apart from the sections the port omits (``autotune``,
-  ``mesh``) and the device list of ``memory``.
+  same ``summary()``, apart from the device list of ``memory``, the mesh's
+  topology generation and the port's device names.
 - ``timeout_lock``, ``tracing``, ``metrics``: the copies behave as the
   reference does on small probes.
 - ``host_on_failure=False`` (the port's callers on the card): device
@@ -296,23 +296,21 @@ def test_scripted_supervisor_sequence_matches_reference():
         (("op", "bls_verify"), ("to", "open")): 2.0,
         (("op", "bls_verify"), ("to", "half_open")): 2.0,
         (("op", "bls_verify"), ("to", "closed")): 1.0}
-    # The summaries: the port omits autotune and mesh; memory lists each
-    # package's own devices (jax's CPU devices here, the port's CUDA cards).
-    for key in ("autotune", "mesh", "memory"):
-        jax_summary.pop(key)
+    # The summaries: memory lists each package's own devices (jax's CPU
+    # devices here, the port's CUDA cards); the mesh's generation counts
+    # each process's own reconfigurations, and the port names its devices.
+    jax_summary.pop("memory")
     port_summary.pop("memory")
-    jax_deadlines = jax_summary["supervisor"].pop("deadlines_s")
-    port_deadlines = port_summary["supervisor"].pop("deadlines_s")
-    assert port_deadlines == {op: jax_deadlines[op] for op in
-                              ("bls_verify", "sha256_pairs", "tree_hash", "kzg_batch",
-                               "epoch_deltas", "epoch_deltas_leak", "epoch_boundary",
-                               "epoch_boundary_leak", "shuffle", "proposer_select")}
+    for summary in (jax_summary, port_summary):
+        summary["mesh"].pop("generation")
+    assert port_summary["mesh"].pop("device_names") == []
     assert port_summary == jax_summary
 
 
 @pytest.mark.parametrize("op", ["bls_verify", "kzg_batch", "sha256_pairs", "tree_hash",
                                 "epoch_deltas", "epoch_deltas_leak", "epoch_boundary",
-                                "epoch_boundary_leak", "shuffle", "proposer_select"])
+                                "epoch_boundary_leak", "shuffle", "proposer_select",
+                                "autotune_probe"])
 def test_deadlines_and_split_policy_match_reference(op):
     assert p_ds.DEFAULT_DEADLINES[op] == j_ds.DEFAULT_DEADLINES[op]
     assert (op in p_ds.NO_SPLIT_OPS) == (op in j_ds.NO_SPLIT_OPS)
