@@ -371,6 +371,30 @@ Phases, each of which raises on a failed check:
              ``Eth1Service`` and its ``DepositCache`` into the produced
              block, imported on the card, the registry one longer), each
              root and the refusal equal to the CPU path's;
+    soak   — the soak tooling (``lighthouse_tpu_torch.scenarios``):
+             ``smoke_partition``'s fleet (3 nodes, 16 validators, fake
+             crypto), its 38 slots and partition/heal, with an
+             ``epoch_device`` event (the fused boundary) and a
+             ``state_hashing`` event (pair layers of 4+ blocks through
+             ``tree_hash.hash_pairs``) at the window's first slot, run with
+             ``device="cuda"``: its convergence and finality gates pass,
+             every flight record of the run (``sha256_pairs`` and
+             ``epoch_boundary`` among them) is off the host and no
+             fallback counter rises, ``sha256_pairs``, ``shuffle_round``,
+             ``proposer_walk`` and the fused program launched (counts set
+             to 0 just before the run, read just after); then
+             ``fused_epoch_boundary`` with ``device="cuda"``: its injected
+             ``epoch_boundary`` error raises instead of reaching the host,
+             the run ends at the window's first boundary (``RequeueWork``
+             from the breaker its faults opened), the numpy composite
+             never answers, its SOAK artifact names the failure and a
+             postmortem bundle, the routes are back and the next
+             4,096-validator boundary on the card equals the numpy run;
+             last, the card run's head root and per-slot timeline equal
+             those of a child process started with the script (no card):
+             the same scenario with ``device="cpu"`` (the kernels' plain
+             versions, several minutes) and ``smoke_partition`` on the
+             host routes;
 15. faults — the supervisor's routes on the card at small size, each with
              its exact counter deltas and none with a host fallback (on
              the card a failure raises into the caller): a
@@ -422,8 +446,8 @@ Phases, each of which raises on a failed check:
              launches replayed from a CUDA graph, so the host's launch
              overhead does not count.
 
-Every verify, KZG, hash and epoch batch of phases 4, 6 and 8 to 14 runs
-through the device supervisor (``device_supervisor.py``); the script fails
+Every verify, KZG, hash and epoch batch of phases 4, 6 and 8 to 14 (and
+[soak]) runs through the device supervisor (``device_supervisor.py``); the script fails
 if any of them took the host route or left a breaker open.  Per-batch stages come from
 the flight recorder (``device_telemetry``).
 
@@ -611,6 +635,13 @@ HARNESS_SLOTS = 40
 #: the graffiti of its builder and eth1 blocks.
 ETH1_NEW_VALIDATOR = 100
 HARNESS_GRAFFITI = b"chip_smoke builder/eth1".ljust(32, b"\x00")
+#: [soak]: the seed of its scenarios; the least pair-hash layer (64-byte
+#: blocks) its ``state_hashing`` event sends to the card; the seconds the
+#: CPU child started with the script (the KZG inputs, [soak]'s reference)
+#: may still take once the script reads it.
+SOAK_SEED = 0
+SOAK_THRESHOLD_BLOCKS = 4
+CHILD_WAIT_S = 600.0
 #: [timing]: the plain versions of the SHA-256 and epoch rows, timed on one
 #: replay of one call after the untimed warm replay (their figures held to
 #: three significant figures over PRs 7-13 at two replays).
@@ -881,22 +912,28 @@ def phase_parity() -> None:
         f"({t2 - t1:.3f} s); verdict True")
 
 
-def kzg_inputs() -> tuple:
+def kzg_inputs(child: "CpuChild" = None) -> tuple:
     """The mainnet setup, a ``Kzg`` at the default device, and KZG_BLOBS
-    distinct blobs from a seed with their commitments and proofs."""
-    from lighthouse_tpu_torch.crypto.kzg import BLS_MODULUS, FIELD_ELEMENTS_PER_BLOB, Kzg, TrustedSetup
+    distinct blobs from a seed with their commitments and proofs (from
+    ``child``'s host run where given, else computed here on the host)."""
+    from lighthouse_tpu_torch.crypto.kzg import Kzg, TrustedSetup
 
     t0 = time.perf_counter()
     setup = TrustedSetup.from_json(KZG_SETUP.read_text(), validate=False)
     t1 = time.perf_counter()
     kzg = Kzg(setup)
-    rng = random.Random(0xB10B)
-    blobs = [b"".join((rng.getrandbits(256) % BLS_MODULUS).to_bytes(32, "big")
-                      for _ in range(FIELD_ELEMENTS_PER_BLOB)) for _ in range(KZG_BLOBS)]
-    commitments = [kzg.blob_to_kzg_commitment(b) for b in blobs]
-    proofs = [kzg.compute_blob_kzg_proof(b, c) for b, c in zip(blobs, commitments)]
+    blobs = kzg_blobs()
+    if child is None:
+        commitments, proofs = host_commitments(kzg, blobs)
+        where = f"on the host in {time.perf_counter() - t1:.1f} s"
+    else:
+        out = child.result("kzg.json", CHILD_WAIT_S)
+        commitments = [bytes.fromhex(c) for c in out["commitments"]]
+        proofs = [bytes.fromhex(p) for p in out["proofs"]]
+        where = (f"on the host in a child process in {out['seconds']:.1f} s (waited "
+                 f"{time.perf_counter() - t1:.1f} s here)")
     log(f"[kzg] mainnet setup ({setup.width} G1 points) loaded in {t1 - t0:.1f} s; "
-        f"{KZG_BLOBS} blobs committed and proved on the host in {time.perf_counter() - t1:.1f} s")
+        f"{KZG_BLOBS} blobs committed and proved {where}")
     return kzg, blobs, commitments, proofs
 
 
@@ -5913,6 +5950,342 @@ def phase_chain_harness(card: str, device: str = "cuda") -> dict:
             "split": split, "boundaries": len(boundaries), "epoch_launches": epoch_launches}
 
 
+def soak_scenario(seed: int = SOAK_SEED):
+    """[soak]'s scenario, built with the port's public API: smoke_partition's
+    fleet (3 nodes, 16 validators), slots and partition/heal, plus the fused
+    epoch boundary and Merkle pair layers of SOAK_THRESHOLD_BLOCKS blocks or
+    more on the runner's device from the window's first slot."""
+    import dataclasses
+
+    from lighthouse_tpu_torch.scenarios import Event, smoke_partition
+
+    base = smoke_partition(seed=seed)
+    return dataclasses.replace(base, name="soak_device", events=base.events + (
+        Event(0, "epoch_device", {"enable": True, "fused": True}),
+        Event(0, "state_hashing", {"enable": True,
+                                   "threshold_blocks": SOAK_THRESHOLD_BLOCKS}),
+    ))
+
+
+def soak_run(scenario, out_dir: str, device: str) -> dict:
+    """One scenario run: its head root, per-slot timeline and seconds."""
+    from lighthouse_tpu_torch.scenarios import run_scenario
+
+    t = time.perf_counter()
+    artifact = run_scenario(scenario, out_dir=out_dir, device=device)
+    if not artifact["passed"]:
+        raise AssertionError(f"[soak] {scenario.name} on {device} failed its gates")
+    return {"head_root": artifact["result"]["head_root"], "timeline": artifact["timeline"],
+            "finalized": artifact["result"]["final_finalized_epoch"],
+            "seconds": time.perf_counter() - t}
+
+
+def kzg_blobs() -> list:
+    """KZG_BLOBS distinct blobs from a seed."""
+    from lighthouse_tpu_torch.crypto.kzg import BLS_MODULUS, FIELD_ELEMENTS_PER_BLOB
+
+    rng = random.Random(0xB10B)
+    return [b"".join((rng.getrandbits(256) % BLS_MODULUS).to_bytes(32, "big")
+                     for _ in range(FIELD_ELEMENTS_PER_BLOB)) for _ in range(KZG_BLOBS)]
+
+
+def host_commitments(kzg, blobs: list) -> tuple:
+    """The blobs' commitments and proofs on the host (pure Python)."""
+    commitments = [kzg.blob_to_kzg_commitment(b) for b in blobs]
+    proofs = [kzg.compute_blob_kzg_proof(b, c) for b, c in zip(blobs, commitments)]
+    return commitments, proofs
+
+
+def cpu_child(out_dir: str) -> None:
+    """The work the script hands to a child process that sees no card,
+    beside the card phases: first the KZG blobs' commitments and proofs on
+    the host (``kzg.json``; cut (k): ~25 s of pure Python off the main
+    path), then [soak]'s CPU reference (``reference.json``):
+    smoke_partition on the host routes (host tree hashing, the numpy epoch
+    backend), then [soak]'s scenario on ``device="cpu"`` with the card's
+    routes on the CPU (the kernels' plain versions: several minutes)."""
+    import os
+
+    import torch
+
+    from lighthouse_tpu_torch import blackbox
+    from lighthouse_tpu_torch.consensus import per_epoch as pe
+    from lighthouse_tpu_torch.crypto.bls import set_backend
+    from lighthouse_tpu_torch.crypto.kzg import Kzg, TrustedSetup
+    from lighthouse_tpu_torch.ops import tree_hash as th
+    from lighthouse_tpu_torch.scenarios import route_device, smoke_partition
+
+    def write(name: str, obj) -> None:
+        with open(os.path.join(out_dir, name + ".tmp"), "w") as f:
+            json.dump(obj, f)
+        os.replace(os.path.join(out_dir, name + ".tmp"), os.path.join(out_dir, name))
+
+    torch.set_num_threads(1)
+    t = time.perf_counter()
+    kzg = Kzg(TrustedSetup.from_json(KZG_SETUP.read_text(), validate=False), device=None)
+    commitments, proofs = host_commitments(kzg, kzg_blobs())
+    write("kzg.json", {"commitments": [c.hex() for c in commitments],
+                       "proofs": [p.hex() for p in proofs], "seconds": time.perf_counter() - t})
+    blackbox.configure(directory=os.path.join(out_dir, "postmortems"))
+    set_backend("fake")
+    th.configure(enabled=False)
+    pe.configure(backend="numpy")
+    out = {"smoke_host": soak_run(smoke_partition(seed=SOAK_SEED), os.path.join(out_dir, "host"),
+                                  "cpu")}
+    route_device("cpu")
+    out["soak_cpu"] = soak_run(soak_scenario(), os.path.join(out_dir, "cpu"), "cpu")
+    write("reference.json", out)
+
+
+class CpuChild:
+    """The child process of :func:`cpu_child`, started with the script
+    (``CUDA_VISIBLE_DEVICES`` empty) and stopped when [soak] has read it or
+    the script exits."""
+
+    def __init__(self):
+        import atexit
+        import os
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_child_")
+        self.log_path = os.path.join(self.dir, "child.log")
+        self.started = time.perf_counter()
+        with open(self.log_path, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", f"import chip_smoke; chip_smoke.cpu_child({self.dir!r})"],
+                cwd=str(Path(__file__).resolve().parent), stdout=out,
+                stderr=subprocess.STDOUT, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        atexit.register(self.stop)
+
+    def result(self, name: str, timeout: float) -> dict:
+        """The child's ``name`` file, waiting up to ``timeout`` s for it."""
+        import os
+
+        path = os.path.join(self.dir, name)
+        deadline = time.perf_counter() + timeout
+        while not os.path.exists(path):
+            if self.proc.poll() is not None or time.perf_counter() > deadline:
+                with open(self.log_path) as f:
+                    tail = f.read()[-4000:]
+                raise AssertionError(f"no {name} from the CPU child (exit {self.proc.poll()}):"
+                                     f"\n{tail}")
+            time.sleep(0.5)
+        with open(path) as f:
+            out = json.load(f)
+        out["wall_s"] = time.perf_counter() - self.started
+        return out
+
+    def stop(self) -> None:
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def recorded_batches():
+    """Every flight record made inside the block, as ``(op, host_fallback)``
+    (the recorder's ring of 256 cannot hold a soak's thousands of pair
+    batches, so ``record_batch`` is wrapped)."""
+    from lighthouse_tpu_torch import device_telemetry
+
+    seen, real = [], device_telemetry.record_batch
+
+    def record_batch(*args, **kw):
+        entry = real(*args, **kw)
+        seen.append((entry["op"], entry["host_fallback"]))
+        return entry
+
+    device_telemetry.record_batch = record_batch
+    try:
+        yield seen
+    finally:
+        device_telemetry.record_batch = real
+
+
+def boundary_invocations() -> int:
+    """Fused-boundary programs dispatched so far (the telemetry mirror's
+    invocation counts of both boundary ops)."""
+    from lighthouse_tpu_torch import device_telemetry
+
+    return sum(e["invocations"] for e in device_telemetry.COMPILE_CACHE.inventory()
+               if e["op"] in ("epoch_boundary", "epoch_boundary_leak"))
+
+
+def soak_fault(out_dir: str, device: str = "cuda") -> dict:
+    """fused_epoch_boundary on the card: its injected ``epoch_boundary``
+    dispatch error raises instead of reaching the host, so the run ends at
+    the window's first boundary with the fault (or the breaker it opened)
+    in its artifact, the numpy composite never answering; afterwards the
+    routes in force before the run are back."""
+    import os
+
+    from lighthouse_tpu_torch import device_supervisor, fault_injection
+    from lighthouse_tpu_torch.consensus import per_epoch as pe
+    from lighthouse_tpu_torch.ops import tree_hash as th
+    from lighthouse_tpu_torch.scenarios import fused_epoch_boundary, run_scenario
+
+    routes = (pe._EPOCH_BACKEND, pe._FUSED_BOUNDARY, pe._DEVICE, th._ENABLED, th._DEVICE,
+              th._DEVICE_MIN_BLOCKS)
+    host_calls = []
+    real_numpy = pe._epoch_boundary_numpy
+
+    def spy(plan, **kw):
+        host_calls.append(plan.n)
+        return real_numpy(plan, **kw)
+
+    pe._epoch_boundary_numpy = spy
+    t = time.perf_counter()
+    try:
+        run_scenario(fused_epoch_boundary(seed=SOAK_SEED), out_dir=out_dir, device=device)
+    except (fault_injection.InjectedFault, device_supervisor.RequeueWork) as e:
+        raised = e
+    else:
+        raise AssertionError("[soak] fused_epoch_boundary passed on the card: the fault "
+                             "reached no caller")
+    finally:
+        pe._epoch_boundary_numpy = real_numpy
+    seconds = time.perf_counter() - t
+    with open(os.path.join(out_dir, f"SOAK_fused_epoch_boundary_seed{SOAK_SEED}.json")) as f:
+        artifact = json.load(f)
+    hits = sum(p.get("hits", 0) for p in artifact["faults"] or ()
+               if p.get("op") == "epoch_boundary")
+    breaker = artifact["breakers"].get("epoch_boundary", {})
+    bundle = artifact.get("postmortem_bundle")
+    if host_calls:
+        raise AssertionError(f"[soak] the numpy boundary answered on the card: {host_calls}")
+    if artifact["passed"] or type(raised).__name__ not in artifact.get("failure", "") or \
+            artifact["timeline"] or not hits or breaker.get("trips_total", 0) < 1 or \
+            not (bundle and os.path.exists(bundle)):
+        raise AssertionError(
+            f"[soak] the fault run's artifact: passed {artifact['passed']}, failure "
+            f"{artifact.get('failure')!r}, {len(artifact['timeline'])} slots stepped, plan hits "
+            f"{hits}, breaker {breaker}, bundle {bundle}")
+    after = (pe._EPOCH_BACKEND, pe._FUSED_BOUNDARY, pe._DEVICE, th._ENABLED, th._DEVICE,
+             th._DEVICE_MIN_BLOCKS)
+    if after != routes:
+        raise AssertionError(f"[soak] the fault run left the routes {after}, not {routes}")
+    return {"seconds": seconds, "raised": f"{type(raised).__name__}: {raised}",
+            "hits": hits, "breaker": breaker, "bundle": os.path.basename(bundle)}
+
+
+def soak_boundary_check(device: str = "cuda") -> float:
+    """The next boundary through the routes in force (the card's, after
+    [soak]) equals the numpy run, on a 4,096-validator state."""
+    import copy
+
+    from lighthouse_tpu_torch.consensus import per_epoch as pe
+    from lighthouse_tpu_torch.consensus import per_slot
+    from lighthouse_tpu_torch.ops import tree_hash as th
+    from lighthouse_tpu_torch.types.spec import mainnet_spec
+    from lighthouse_tpu_torch.workload import boundary_state
+
+    spec = mainnet_spec()
+    base, types = boundary_state(EPOCH_FAULT_VALIDATORS, seed=0xFA0C, leak=False)
+    target = base.slot + 1
+    enabled = th._ENABLED
+    th.configure(enabled=False)
+    try:
+        mark = boundary_invocations()
+        t = time.perf_counter()
+        card = per_slot.process_slots(copy.deepcopy(base), target, types, spec).as_ssz_bytes()
+        seconds = time.perf_counter() - t
+        if boundary_invocations() != mark + 1:
+            raise AssertionError("[soak] the boundary after the fault run did not run the fused "
+                                 f"program on {device}")
+        pe.configure(backend="numpy")
+        ref = per_slot.process_slots(copy.deepcopy(base), target, types, spec).as_ssz_bytes()
+    finally:
+        pe.configure(backend="device", fused_boundary=True, device=device)
+        th.configure(enabled=enabled)
+    if card != ref:
+        raise AssertionError("[soak] the boundary after the fault run != the numpy run")
+    return seconds
+
+
+def phase_soak(card: str, child: CpuChild, device: str = "cuda") -> dict:
+    """The soak tooling on the card (see the module docstring)."""
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    from lighthouse_tpu_torch import device_supervisor, metrics
+    from lighthouse_tpu_torch.consensus import per_epoch as pe
+    from lighthouse_tpu_torch.crypto.bls import set_backend
+    from lighthouse_tpu_torch.ops import cuda_epoch, cuda_sha
+    from lighthouse_tpu_torch.ops import tree_hash as th
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_soak_card_")
+    th.configure(enabled=True, device=device)
+    pe.configure(backend="device", fused_boundary=True, device=device)
+    try:
+        # 1. The soak with its device routes on the card.
+        fallback = metrics.DEVICE_HOST_FALLBACK.snapshot()
+        with recorded_batches() as records:
+            cuda_sha.reset_launch_counts()
+            cuda_epoch.reset_launch_counts()
+            boundaries = boundary_invocations()
+            run = soak_run(soak_scenario(), tmp, device)
+            launches = {**cuda_sha.LAUNCHES, **cuda_epoch.LAUNCHES,
+                        "epoch_boundary": boundary_invocations() - boundaries}
+        batches = Counter(op for op, _ in records)
+        fallen = Counter(op for op, host in records if host)
+        if fallen or metrics.DEVICE_HOST_FALLBACK.snapshot() != fallback:
+            raise AssertionError(f"[soak] batches took the host route: {dict(fallen)}, "
+                                 f"{metrics.DEVICE_HOST_FALLBACK.snapshot()}")
+        missing = [k for k in ("sha256_pairs", "shuffle_round", "proposer_walk", "epoch_boundary")
+                   if not launches[k]]
+        if missing or not batches["sha256_pairs"] or not batches["epoch_boundary"]:
+            raise AssertionError(f"[soak] not launched on {device}: {missing} (launches "
+                                 f"{launches}); flight records {dict(batches)}")
+        for op in ("sha256_pairs", "epoch_boundary"):
+            if device_supervisor.breaker_state(op) != "closed":
+                raise AssertionError(f"[soak] the {op} breaker is "
+                                     f"{device_supervisor.breaker_state(op)}")
+        log(f"[soak] {card}: soak_device (smoke_partition's 3 nodes, 16 validators, "
+            f"{len(run['timeline'])} window and recovery slots, partition and heal, the fused "
+            f"boundary and pair layers of {SOAK_THRESHOLD_BLOCKS}+ blocks on {device}) passed in "
+            f"{run['seconds']:.2f} s, finalized epoch {run['finalized']}, head "
+            f"{run['head_root'][:16]}; launches {json.dumps(launches)}; flight records "
+            f"{json.dumps(dict(batches))}, none on the host")
+
+        # 2. A fault on the card, then the routes back.
+        set_backend("fake")
+        fault = soak_fault(f"{tmp}/fault", device)
+        boundary_s = soak_boundary_check(device)
+        log(f"[soak] {card}: fused_epoch_boundary on {device} ended at the window's first "
+            f"boundary in {fault['seconds']:.2f} s with {fault['raised']!r} (plan hits "
+            f"{fault['hits']}, the epoch_boundary breaker {fault['breaker'].get('state')}, "
+            f"{fault['breaker'].get('trips_total')} trip), its artifact naming it with bundle "
+            f"{fault['bundle']}; the numpy composite never answered; the routes restored, the "
+            f"next {EPOCH_FAULT_VALIDATORS}-validator boundary on {device} ({boundary_s:.2f} s) "
+            f"equal to the numpy run")
+
+        # 3. The card's run against the CPU reference (the child's runs).
+        t = time.perf_counter()
+        ref = child.result("reference.json", CHILD_WAIT_S)
+        waited = time.perf_counter() - t
+        for label in ("soak_cpu", "smoke_host"):
+            if (ref[label]["head_root"], ref[label]["timeline"]) != (run["head_root"],
+                                                                     run["timeline"]):
+                raise AssertionError(f"[soak] the card's run != the CPU reference's {label}: "
+                                     f"head {run['head_root'][:16]} vs "
+                                     f"{ref[label]['head_root'][:16]}")
+        log(f"[soak] {card}: the card's head and per-slot timeline equal to the CPU "
+            f"reference's device=\"cpu\" run ({ref['soak_cpu']['seconds']:.1f} s) and "
+            f"smoke_partition on the host routes ({ref['smoke_host']['seconds']:.1f} s); the "
+            f"child done {ref['wall_s']:.1f} s after its start ({waited:.1f} s waited here)")
+    finally:
+        child.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        set_backend("torch")
+        pe.reset_for_tests()
+        th.configure(enabled=False)
+    return {"seconds": run["seconds"], "launches": launches, "fault": fault}
+
+
 def walk_sweep(seed_words, pivots, k: int, m: int, bound_ms: float) -> dict:
     """proposer_walk at every lookahead on the (S, R) tables, in turns, and
     each lookahead's latency floor: one lane alone, so each of its
@@ -6351,6 +6724,7 @@ def main() -> int:
     from lighthouse_tpu_torch.ops import cuda_fq
 
     t_start = time.perf_counter()
+    child = CpuChild()  # the KZG inputs and [soak]'s CPU reference, beside the card phases
     card = nvidia_smi("name,power.limit")
     log(card)
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
@@ -6370,7 +6744,7 @@ def main() -> int:
     with phase_wall("parity"):
         phase_parity()
     with phase_wall("kzg"):
-        kzg_in = kzg_inputs()
+        kzg_in = kzg_inputs(child)
         lanes = blob_lanes(*kzg_in)
         kzg_out = phase_kzg(cuda_fq, *kzg_in, lanes)
     with phase_wall("kzg-parity"):
@@ -6403,6 +6777,8 @@ def main() -> int:
         gc.collect()
     with phase_wall("chain-harness"):
         phase_chain_harness(card)
+    with phase_wall("soak"):
+        soak_out = phase_soak(card, child)
     with phase_wall("faults"):
         phase_faults(cuda_fq, *kzg_in)
     with phase_wall("timing"):
@@ -6416,6 +6792,8 @@ def main() -> int:
         parts.append(time.perf_counter())
         epoch_rows, programs = phase_epoch_timing(epoch_out, max_err, clock_mhz)
         kernels += epoch_rows
+        for row in kernels:  # [soak]'s launches (0: fake crypto, or below the thresholds)
+            row["soak_launches"] = soak_out["launches"].get(row["name"], 0)
         parts.append(time.perf_counter())
         log(f"[timing] epoch programs {json.dumps(programs)}")
         log(f"[timing] the Fq kernels {parts[1] - parts[0]:.1f} s, the SHA-256 kernels "

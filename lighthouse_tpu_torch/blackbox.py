@@ -201,9 +201,12 @@ def emit(source: str, event: str, *, trace_id: Optional[str] = None,
 #: — the merged timeline must be byte-identical across two runs at one
 #: seed, so only seed-deterministic fields survive the fold.  Canonical
 #: fleet time is the virtual ``slot`` (the fault-injection slot provider),
-#: not ``t_ms``.
+#: not ``t_ms``.  ``capture_seq`` counts postmortem captures over the
+#: process's life, so a second run in one process numbers its captures on
+#: from the first's (the JAX package keeps it, and its breaker scenarios'
+#: fleet timelines differ between two runs in one process).
 VOLATILE_FIELDS = frozenset({"t_ms", "trace_id", "remote_trace_id",
-                             "flight_seq"})
+                             "flight_seq", "capture_seq"})
 
 
 def merge_key(record: dict):

@@ -100,32 +100,62 @@ def _to_i32(values: torch.Tensor) -> torch.Tensor:
     return torch.where(values >= 1 << 31, values - (1 << 32), values).to(torch.int32)
 
 
-def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
-    return ((x >> n) | (x << (32 - n))) & _MASK
+def _rotr3(x: torch.Tensor, r1: int, r2: int, r3: int) -> torch.Tensor:
+    """XOR of three 32-bit right-rotations of ``x`` (int64, below 2^32):
+    ``x`` doubled into both halves of an int64, so a right shift of the
+    pair is the rotation in its low 32 bits."""
+    y = x | (x << 32)
+    return ((y >> r1) ^ (y >> r2) ^ (y >> r3)) & _MASK
 
 
-def _compress(state: list, w: list) -> list:
-    """One SHA-256 compression: ``state`` 8 and ``w`` 16 int64 tensors of
-    equal shape, values below 2^32; the JAX package's ``_compress`` round
-    function, with the schedule as a 16-word ring."""
-    ring = list(w)
+def _sigma(x: torch.Tensor, r1: int, r2: int, s: int) -> torch.Tensor:
+    """The schedule's small sigma: two rotations and a shift, XORed."""
+    y = x | (x << 32)
+    return ((y >> r1) ^ (y >> r2)) & _MASK ^ (x >> s)
+
+
+def _schedule_plus_k(words) -> list:
+    """The 64 schedule words of a 16-word block, each plus its round
+    constant (Python ints)."""
+    w = [int(v) for v in words]
+    for i in range(16, 64):
+        s0 = (((w[i - 15] >> 7) | (w[i - 15] << 25)) ^ ((w[i - 15] >> 18) | (w[i - 15] << 14))
+              ^ (w[i - 15] >> 3)) & _MASK
+        s1 = (((w[i - 2] >> 17) | (w[i - 2] << 15)) ^ ((w[i - 2] >> 19) | (w[i - 2] << 13))
+              ^ (w[i - 2] >> 10)) & _MASK
+        w.append((w[i - 16] + s0 + w[i - 7] + s1) & _MASK)
+    return [w[i] + int(_K[i]) for i in range(64)]
+
+
+#: The padding block of a 64-byte message is a constant: its schedule (plus
+#: the round constants) is computed once.
+_PAD_WK = _schedule_plus_k(_PAD_WORDS)
+
+
+def _compress(state: list, w: Optional[list]) -> list:
+    """One SHA-256 compression: ``state`` 8 int64 tensors of equal shape,
+    values below 2^32, and ``w`` the block's 16 words as such tensors, or
+    None for the constant padding block of a 64-byte message; the JAX
+    package's ``_compress`` round function, with the schedule as a 16-word
+    ring.  Sums stay below 2^35, so they are reduced mod 2^32 only where a
+    value feeds a rotation or the next round."""
+    ring = list(w) if w is not None else None
     a, b, c, d, e, f, g, h = state
     for i in range(64):
-        wi = ring[0]
-        s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
-        ch = (e & f) ^ (~e & g)
-        t1 = (h + s1 + ch + int(_K[i]) + wi) & _MASK
-        s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
-        maj = (a & b) ^ (a & c) ^ (b & c)
-        t2 = (s0 + maj) & _MASK
-        a, b, c, d, e, f, g, h = (t1 + t2) & _MASK, a, b, c, (d + t1) & _MASK, e, f, g
-        if i < 48:
-            w1, w14 = ring[1], ring[14]
-            sig0 = _rotr(w1, 7) ^ _rotr(w1, 18) ^ (w1 >> 3)
-            sig1 = _rotr(w14, 17) ^ _rotr(w14, 19) ^ (w14 >> 10)
-            ring = ring[1:] + [(ring[0] + sig0 + ring[9] + sig1) & _MASK]
+        s1 = _rotr3(e, 6, 11, 25)
+        ch = g ^ (e & (f ^ g))
+        if ring is None:
+            t1 = h + s1 + ch + _PAD_WK[i]
         else:
-            ring = ring[1:]
+            t1 = h + s1 + ch + ring[0] + int(_K[i])
+            if i < 48:
+                w1, w14 = ring[1], ring[14]
+                nxt = (ring[0] + _sigma(w1, 7, 18, 3) + ring[9] + _sigma(w14, 17, 19, 10)) & _MASK
+                ring = ring[1:] + [nxt]
+            else:
+                ring = ring[1:]
+        t2 = _rotr3(a, 2, 13, 22) + ((a & b) | (c & (a | b)))
+        a, b, c, d, e, f, g, h = (t1 + t2) & _MASK, a, b, c, (d + t1) & _MASK, e, f, g
     return [(s + o) & _MASK for s, o in zip(state, (a, b, c, d, e, f, g, h))]
 
 
@@ -134,8 +164,7 @@ def _hash_blocks(words: torch.Tensor) -> torch.Tensor:
     lead = words.shape[:-1]
     state = [torch.full(lead, int(v), dtype=torch.int64, device=words.device) for v in _H0]
     state = _compress(state, list(words.unbind(-1)))
-    pad = [torch.full(lead, int(v), dtype=torch.int64, device=words.device) for v in _PAD_WORDS]
-    return torch.stack(_compress(state, pad), dim=-1)
+    return torch.stack(_compress(state, None), dim=-1)
 
 
 def sha256_pairs_plain(words: torch.Tensor) -> torch.Tensor:
