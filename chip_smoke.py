@@ -32,7 +32,11 @@ Phases, each of which raises on a failed check:
              default lookahead, against the host ``compute_shuffled_index``
              at every size, and at every lookahead of
              ``cuda_epoch.WALK_LOOKAHEADS`` against its plain version at 63
-             and 2^20 with 90 and 10 rounds;
+             and 2^20 with 90 and 10 rounds; shuffle_round's block form (a
+             mesh shard's part of a round) at 1,000 and 2^20 - 1,000 live
+             lanes against its plain version and the whole round's slice:
+             the two halves, a block across the live count and a block of
+             padding only, which must pass through;
 4. verify  — ``crypto.bls.api.verify_signature_sets`` through the torch
              backend (default device, supervised) at 128 sets x 32 keys (valid -> True,
              one tampered set -> False) and 64 sets x 1 key (-> True); the
@@ -96,7 +100,9 @@ Phases, each of which raises on a failed check:
              then, in live mode, on the flight record the earlier phases
              filled plus eight 300-block sha256_pairs batches (bucket
              1,024), one evaluation starts the midpoint 640's warmup (a
-             neutral dispatch on the card), the next adopts it, a 500-block
+             neutral dispatch on the card), the next adopts it (the overlay
+             equals what the two evaluations adopted: the earlier phases'
+             traffic may qualify another bucket too), a 500-block
              layer dispatches at 640 with hashlib's digests; the decision
              log printed; the mode and vocabularies restored after;
 10. state  — BeaconState tree hashing at mainnet width on the default
@@ -130,7 +136,18 @@ Phases, each of which raises on a failed check:
              no host fallback; host seconds, device seconds (flight record)
              and the kernels' launches (counts set to 0 just before the
              first boundary, read after the last; both kernels must have
-             run);
+             run); then the epoch programs split across the device mesh:
+             the two boundaries' plans (no new state) through
+             ``epoch_boundary_device`` and ``epoch_deltas_device``
+             unsharded on the card and on a mesh of MESH_DEVICES (two
+             shards of the card), every output of the split equal to the
+             unsharded run's and numpy's, the flight records ``mesh`` 2
+             with ``shard_live`` summing to the registry, shuffle_round
+             launched 90 times by each shard (counts set to 0 just before
+             the split boundary), the walk once on the first member; the
+             seconds of each run and the exchange's bytes as the split
+             shuffle counts them where it copies and gathers; the mesh off
+             again;
 12. block  — block import at mainnet width on the default device: a Deneb
              mainnet-preset state of 2^20 validators at the first slot of
              an epoch and the full block a mainnet proposer packs for the
@@ -311,7 +328,9 @@ Phases, each of which raises on a failed check:
              epoch 0), then ``python -m lighthouse_tpu_torch bn
              --testnet-dir D --genesis-state D/state.ssz --datadir D/db
              --http-port 0 --listen-port 0 --peers <host:port>`` on the
-             card (no ``--device``; ``LIGHTHOUSE_TPU_MESH=auto``,
+             card (no ``--device``; ``--aot-warmup`` with
+             ``LIGHTHOUSE_TPU_AOT_BUCKETS=128x32``;
+             ``LIGHTHOUSE_TPU_MESH=auto``,
              ``LIGHTHOUSE_TPU_AUTOTUNE=pinned``), its peer a ``LocalNode``
              of [chain]'s
              node on a ``TcpEndpoint`` (the builder's endpoint is
@@ -321,7 +340,10 @@ Phases, each of which raises on a failed check:
              --query-compute-apps``; its head root, state root and
              finality checkpoints [chain]'s and [http]'s, its sync
              distance the wall clock's, its ``/lighthouse/device`` mesh
-             section size 0 (disabled, one card) and autotune mode pinned
+             section size 0 (disabled, one card) and autotune mode pinned,
+             its ``programs`` listing the 128 x 32 bucket as a warmup
+             (outcome hit or miss, no failed warmup in its log; its
+             seconds, and the first POST's extra device seconds, logged)
              (its header route 404: the anchor
              has no signed block, as in the JAX package); [network]'s
              double-vote slashing POSTed with attestation_1 under
@@ -377,7 +399,11 @@ Phases, each of which raises on a failed check:
              ``epoch_device`` event (the fused boundary) and a
              ``state_hashing`` event (pair layers of 4+ blocks through
              ``tree_hash.hash_pairs``) at the window's first slot, run with
-             ``device="cuda"``: its convergence and finality gates pass,
+             ``device="cuda"``, its objects built on the lock sanitizer's
+             locks (``LIGHTHOUSE_TPU_LOCK_SANITIZE=1`` set just before the
+             run; ``locksmith.check()`` after it finds no violation, the
+             locks built and acquisitions checked logged): its
+             convergence and finality gates pass,
              every flight record of the run (``sha256_pairs`` and
              ``epoch_boundary`` among them) is off the host and no
              fallback counter rises, ``sha256_pairs``, ``shuffle_round``,
@@ -581,6 +607,11 @@ WALK_CHECK_ROUNDS = (90, 10)
 EPOCH_VALIDATORS = 1 << 20
 EPOCH_LEAK_VALIDATORS = 1 << 16
 EPOCH_FAULT_VALIDATORS = 4096
+#: [epoch-kernels]: shuffle_round's block form (a mesh shard's part of a
+#: round) at these live counts, in three rounds of a 90-round table: the
+#: two halves, a block across the live count and one of padding only.
+SHUFFLE_BLOCK_NS = (1000, (1 << 20) - 1000)
+SHUFFLE_BLOCK_ROUNDS = (0, 45, 89)
 #: [block]: validators in the registry (mainnet's order), the [faults]
 #: block's registry, and the seed both cases are made from.
 BLOCK_VALIDATORS = 1 << 20
@@ -629,6 +660,12 @@ VC_PASSWORD = "chip_smoke validator client"
 CLIENT_BOOT_S = 600.0
 CLIENT_STOP_S = 30.0
 CLIENT_LOG_TAIL = 60
+#: [client]: the node starts with ``--aot-warmup`` and warms this bucket
+#: list (``LIGHTHOUSE_TPU_AOT_BUCKETS``; the default's 4096 x 32 bucket is
+#: left out to keep the boot short); the seconds its record may take to
+#: appear after ``beacon node up``.
+CLIENT_WARMUP_BUCKETS = "128x32"
+CLIENT_WARMUP_S = 300.0
 HARNESS_VALIDATORS = 64
 HARNESS_SLOTS = 40
 #: [chain-harness]'s eth1 path: the interop index of the new depositor;
@@ -1751,6 +1788,7 @@ def phase_autotune(card: str, device: str = "cuda") -> dict:
         if sha256_device.hash_pairs_device(data, device=dev) != \
                 tree_hash.golden_hash_pairs(data):
             raise AssertionError("[autotune] a 300-block batch's digests differ")
+    overlay_before = autotune.overlay().get("sha256_pairs", ())
     try:
         autotune.set_mode("live")
         started = autotune.CONTROLLER.evaluate()
@@ -1763,13 +1801,23 @@ def phase_autotune(card: str, device: str = "cuda") -> dict:
             time.sleep(0.01)
         warm = next(e for e in device_telemetry.COMPILE_CACHE.inventory()
                     if e["op"] == "sha256_pairs" and e["shape"] == "640")
-        second = [d for d in autotune.CONTROLLER.evaluate()
+        evaluated = autotune.CONTROLLER.evaluate()
+        second = [d for d in evaluated
                   if (d.get("vocab"), d.get("bucket")) == ("sha256_pairs", 640)]
+        # The earlier phases' traffic may give another sha256_pairs bucket
+        # its own evidence: the overlay is then exactly what the two
+        # evaluations adopted on top of what it held, 640 among them.
+        adopted = {d["bucket"] for d in started + evaluated
+                   if d.get("vocab") == "sha256_pairs" and d.get("outcome") == "adopted"}
+        want_overlay = tuple(sorted(set(overlay_before) | adopted))
+        others = [d for d in started + evaluated if d not in first + second]
         if [d["outcome"] for d in first] != ["warmup_started"] or \
                 [d["outcome"] for d in second] != ["adopted"] or \
-                warm.get("source") != "warmup" or \
-                autotune.overlay().get("sha256_pairs") != (640,):
-            raise AssertionError(f"[autotune] decisions {first} then {second}, mirror {warm}")
+                warm.get("source") != "warmup" or 640 not in want_overlay or \
+                autotune.overlay().get("sha256_pairs") != want_overlay:
+            raise AssertionError(f"[autotune] decisions {first} then {second}, mirror {warm}, "
+                                 f"overlay {autotune.overlay()} (want sha256_pairs "
+                                 f"{want_overlay}), the evaluations' other decisions {others}")
         data = rng.integers(0, 256, 500 * 64, dtype=np.uint8).tobytes()
         if sha256_device.hash_pairs_device(data, device=dev) != \
                 tree_hash.golden_hash_pairs(data):
@@ -1781,7 +1829,8 @@ def phase_autotune(card: str, device: str = "cuda") -> dict:
             f"{ {k: len(v) for k, v in sorted(before.items())} } batches a bucket, then "
             f"{autotune.MIN_SAMPLES} of 300 blocks at 1024; evaluation 1 "
             f"{first[0]['outcome']} (midpoint 640), the warmup's neutral dispatch on the card "
-            f"{warm['compile_seconds']:.4f} s, evaluation 2 {second[0]['outcome']}; a 500-block "
+            f"{warm['compile_seconds']:.4f} s, evaluation 2 {second[0]['outcome']}; "
+            f"sha256_pairs overlay {want_overlay} ({len(others)} other decisions); a 500-block "
             f"layer then dispatched at {rec['shape']}, digests equal to hashlib's")
         for d in autotune.CONTROLLER.decision_log():
             log(f"[autotune] decision {json.dumps(d, sort_keys=True)}")
@@ -2140,7 +2189,56 @@ def phase_epoch_kernels() -> dict:
             f"plain version{host}; proposer_walk {EPOCH_SLOTS} x {k} lanes (lookahead "
             f"{cuda_epoch.walk_lookahead()}) equals compute_shuffled_index{plain}; "
             f"{time.perf_counter() - t0:.2f} s")
+    max_err["shuffle_round"] = max(max_err["shuffle_round"], shuffle_block_check())
     return max_err
+
+
+def shuffle_block_check() -> int:
+    """shuffle_round's block form on the card (one launch over ``count``
+    lanes from ``offset``, reading the whole list: a mesh shard's part of a
+    round) against its plain version and the whole-list round's slice, at
+    the SHUFFLE_BLOCK_NS live counts: the two halves, a block across the
+    live count, and a block made only of padding (which must pass through).
+    Returns the largest difference (0)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from lighthouse_tpu_torch.ops import cuda_epoch
+    from lighthouse_tpu_torch.ops import shuffle_device as psd
+
+    worst = 0
+    for n in SHUFFLE_BLOCK_NS:
+        t0 = time.perf_counter()
+        nb = psd._bucket(n)
+        pad = (nb - n) // 2
+        blocks = [(0, nb // 2), (nb // 2, nb - nb // 2), (n - 12, 24), (nb - pad, pad)]
+        seed = hashlib.sha256(b"shuffle-blocks-%d" % n).digest()
+        values = torch.from_numpy(np.random.default_rng(n).permutation(nb).astype(np.int32))
+        pivots, digests = psd.shuffle_tables(seed, SHUFFLE_ROUNDS, n, nb)
+        x = values.cuda()
+        for r in SHUFFLE_BLOCK_ROUNDS:
+            one = (torch.from_numpy(pivots[r:r + 1]).cuda(),
+                   torch.from_numpy(digests[r:r + 1]).cuda())
+            whole = cuda_epoch.shuffle_rounds(x, *one, n)
+            for offset, count in blocks:
+                got = cuda_epoch.shuffle_rounds(x, *one, n, offset, count)
+                want = cuda_epoch.shuffle_rounds_plain(x, *one, n, offset, count)
+                err = int((got.long() - want.long()).abs().max()) if count else 0
+                worst = max(worst, err)
+                if not (torch.equal(got, want) and torch.equal(got, whole[offset:offset + count])):
+                    raise AssertionError(f"shuffle_round block ({offset}, {count}) of n={n} "
+                                         f"round {r}: != its plain version or the whole round")
+                if offset >= n and not torch.equal(got, x[offset:offset + count]):
+                    raise AssertionError(f"shuffle_round padding block ({offset}, {count}) of "
+                                         f"n={n} moved")
+        torch.cuda.synchronize()
+        log(f"[epoch-kernels] shuffle_round's block form at n={n} (bucket {nb}): blocks "
+            f"{blocks} (the halves, one across the live count, one of padding only) in rounds "
+            f"{SHUFFLE_BLOCK_ROUNDS} equal the plain version's and the whole round's slice; "
+            f"the padding block passes through; {time.perf_counter() - t0:.2f} s")
+    return worst
 
 
 def reference_duties(state, spec, epoch: int) -> tuple:
@@ -2343,6 +2441,137 @@ def staged_deltas(state, spec, next_epoch: int, device: str) -> dict:
         f"equal to the numpy pass ({numpy_s:.4f} s on the host)")
     return {"deltas_args": (arrays, prev_part, inactivity, kwargs), "staged_s": staged_s,
             "deltas_numpy_s": numpy_s}
+
+
+def plan_deltas_inputs(plan, leak: bool) -> tuple:
+    """``epoch_deltas_device``'s arguments for a boundary plan's registry:
+    ``(arrays, prev_part, inactivity, kwargs)``."""
+    import types
+
+    from lighthouse_tpu_torch.consensus import per_epoch as pe
+
+    arrays = pe.EpochArrays.__new__(pe.EpochArrays)
+    arrays.n = plan.n
+    for name in ("effective_balance", "activation_epoch", "exit_epoch", "withdrawable_epoch",
+                 "slashed"):
+        setattr(arrays, name, getattr(plan, name))
+    spec = types.SimpleNamespace(
+        effective_balance_increment=plan.increment,
+        inactivity_score_bias=plan.inactivity_score_bias,
+        inactivity_score_recovery_rate=plan.inactivity_score_recovery_rate)
+    kwargs = dict(previous_epoch=plan.previous_epoch, in_leak=leak,
+                  base_reward_per_increment=plan.base_reward_per_increment,
+                  total_active_balance=plan.total_active_balance, quotient=plan.quotient,
+                  spec=spec)
+    return arrays, plan.prev_part, plan.inactivity, kwargs
+
+
+def phase_epoch_mesh(card: str, epoch_out: dict, device: str = "cuda") -> dict:
+    """The epoch programs split across the device mesh: [epoch]'s two
+    boundary plans (2^20 validators out of a leak, 2^16 in one; no new
+    state) through ``epoch_boundary_device`` and ``epoch_deltas_device``,
+    unsharded on the card and then on a mesh of MESH_DEVICES (two shards of
+    the one card).  Every output of the split equals the unsharded run's
+    and the numpy blocks'; its flight records carry mesh 2 and per-shard
+    live rows summing to the registry; each shard launched
+    ``shuffle_round`` once a round (``cuda_epoch.LAUNCHES``, counted apart
+    by ``ShardLaunches``; counts set to 0 just before the split boundary,
+    read just after) and the walk ran once, on the first member.  Logs the
+    seconds of each run and the bytes of the shuffle's exchange, as
+    ``shuffle_device.EXCHANGE_BYTES`` counts them where the split shuffle
+    copies and gathers (set to 0 just before the split boundary)."""
+    import numpy as np
+
+    from lighthouse_tpu_torch import device_mesh, device_telemetry
+    from lighthouse_tpu_torch.consensus import per_epoch as pe
+    from lighthouse_tpu_torch.ops import cuda_epoch, epoch_device
+    from lighthouse_tpu_torch.ops import shuffle_device as psd
+
+    def same(a, b) -> bool:
+        return all(np.array_equal(x, y) for x, y in zip(a, b)) and len(a) == len(b)
+
+    def record(op: str, n: int) -> dict:
+        rec = device_telemetry.FLIGHT_RECORDER.recent(1, op=op)[0]
+        if rec.get("mesh") != 2 or sum(rec.get("shard_live") or []) != n or \
+                rec["host_fallback"]:
+            raise AssertionError(f"[epoch] mesh: the {op} flight record {rec}")
+        return rec
+
+    runs = {}
+    try:
+        for plan, leak in epoch_out["plans"]:
+            label = "leak" if leak else "no leak"
+            op = "epoch_boundary_leak" if leak else "epoch_boundary"
+            dop = "epoch_deltas_leak" if leak else "epoch_deltas"
+            n, rounds = plan.n, plan.rounds
+            deltas_args = plan_deltas_inputs(plan, leak)
+            arrays, prev_part, inactivity, kwargs = deltas_args
+            t = time.perf_counter()
+            golden = pe._epoch_boundary_numpy(plan, in_leak=leak)
+            dgolden = pe._epoch_deltas_numpy(arrays, prev_part, inactivity, **kwargs)
+            numpy_s = time.perf_counter() - t
+            device_mesh.configure("0")
+            t = time.perf_counter()
+            whole = psd.epoch_boundary_device(plan, in_leak=leak, device=device)
+            whole_s = time.perf_counter() - t
+            whole_st = device_telemetry.FLIGHT_RECORDER.recent(1, op=op)[0]["stages_s"]
+            t = time.perf_counter()
+            dwhole = epoch_device.epoch_deltas_device(arrays, prev_part, inactivity,
+                                                      device=device, **kwargs)
+            dwhole_s = time.perf_counter() - t
+            if not (same(whole, golden) and same(dwhole, dgolden)):
+                raise AssertionError(f"[epoch] mesh, {label}: the unsharded card run != numpy")
+            if device_mesh.configure("auto", devices=MESH_DEVICES) != 2:
+                raise AssertionError(f"[epoch] mesh over {MESH_DEVICES}: not two members")
+            cuda_epoch.reset_launch_counts()
+            psd.reset_exchange_bytes()
+            with ShardLaunches(cuda_epoch.LAUNCHES, [(psd, "_shuffle_block_shard")]) as shards:
+                t = time.perf_counter()
+                split = psd.epoch_boundary_device(plan, in_leak=leak, device=device)
+                split_s = time.perf_counter() - t
+            launches = dict(cuda_epoch.LAUNCHES)
+            exchange = dict(psd.EXCHANGE_BYTES)
+            rec = record(op, n)
+            t = time.perf_counter()
+            dsplit = epoch_device.epoch_deltas_device(arrays, prev_part, inactivity,
+                                                      device=device, **kwargs)
+            dsplit_s = time.perf_counter() - t
+            drec = record(dop, n)
+            if not (same(split, whole) and same(split, golden)):
+                bad = [i for i, (x, y) in enumerate(zip(split, whole)) if not np.array_equal(x, y)]
+                raise AssertionError(f"[epoch] mesh, {label}: the split boundary's outputs {bad} "
+                                     "!= the unsharded run's")
+            if not (same(dsplit, dwhole) and same(dsplit, dgolden)):
+                raise AssertionError(f"[epoch] mesh, {label}: the split deltas != unsharded")
+            per_shard = {s: c["shuffle_round"] for s, c in sorted(shards.items())}
+            if launches["shuffle_round"] != rounds * 2 or per_shard != {0: rounds, 1: rounds} \
+                    or launches["proposer_walk"] != 1 or \
+                    any(c["proposer_walk"] for c in shards.values()):
+                raise AssertionError(f"[epoch] mesh, {label}: launches {launches}, per shard "
+                                     f"{shards} (want {rounds} shuffle_round a shard, one walk "
+                                     "on the first member)")
+            rows = int(rec["shape"].split("@")[0])
+            runs[label] = {"validators": n, "rows": rows, "numpy_s": numpy_s,
+                           "boundary_s": whole_s, "boundary_split_s": split_s,
+                           "deltas_s": dwhole_s, "deltas_split_s": dsplit_s,
+                           "launches": launches, "shuffle_round_per_shard": per_shard,
+                           "exchange_bytes": exchange, "shard_live": rec["shard_live"],
+                           "stages_s": rec["stages_s"], "unsharded_stages_s": whole_st,
+                           "deltas_stages_s": drec["stages_s"]}
+            log(f"[epoch] {card}, mesh of {list(MESH_DEVICES)}, {label}, {n} validators: the "
+                f"split boundary {split_s:.4f} s (unsharded {whole_s:.4f} s; flight record "
+                f"{rec['shape']}, dispatch {rec['stages_s']['dispatch']:.4f} s, wait "
+                f"{rec['stages_s']['wait']:.4f} s, unsharded {whole_st['dispatch']:.4f} s and "
+                f"{whole_st['wait']:.4f} s; shard_live {rec['shard_live']}), the split "
+                f"deltas {dsplit_s:.4f} s (unsharded {dwhole_s:.4f} s; {drec['shape']}); every "
+                f"output equals the unsharded card run's and numpy's ({numpy_s:.2f} s on the "
+                f"host); shuffle_round {per_shard} launches by shard ({rounds} rounds x 2), "
+                f"proposer_walk {launches['proposer_walk']} on the first member; the exchange "
+                f"counted {exchange['copied']} bytes copied to other members and "
+                f"{exchange['gathered']} bytes gathered over {rounds} rounds")
+    finally:
+        device_mesh.configure("0")
+    return runs
 
 
 def phase_epoch_faults(device: str = "cuda") -> None:
@@ -5101,7 +5330,7 @@ class ClientCell:
         self.argv = [sys.executable, "-m", "lighthouse_tpu_torch", "bn",
                      "--testnet-dir", self.dir, "--genesis-state", state_path,
                      "--datadir", os.path.join(self.dir, "db"), "--http-port", "0",
-                     "--listen-port", "0", "--peers", f"{host}:{port}"]
+                     "--listen-port", "0", "--peers", f"{host}:{port}", "--aot-warmup"]
         if device == "cpu":
             self.argv += ["--device", "cpu"]
         self.log_path = os.path.join(self.dir, "bn.log")
@@ -5113,7 +5342,8 @@ class ClientCell:
         # single-device branch.
         env = dict(os.environ, PYTHONUNBUFFERED="1",
                    LIGHTHOUSE_TPU_API_TIMEOUT_S=str(HTTP_TIMEOUT_S),
-                   LIGHTHOUSE_TPU_MESH="auto", LIGHTHOUSE_TPU_AUTOTUNE="pinned")
+                   LIGHTHOUSE_TPU_MESH="auto", LIGHTHOUSE_TPU_AUTOTUNE="pinned",
+                   LIGHTHOUSE_TPU_AOT_BUCKETS=CLIENT_WARMUP_BUCKETS)
         self.apps = compute_apps() if device == "cuda" else []
         self.child = subprocess.Popen(self.argv, stdout=self.log_file, stderr=subprocess.STDOUT,
                                       cwd=str(Path(__file__).resolve().parent), env=env)
@@ -5158,6 +5388,33 @@ class ClientCell:
             time.sleep(0.1)
         raise AssertionError(f"[client] the node was not up after {CLIENT_BOOT_S:.0f} s")
 
+    def _warmup(self) -> dict:
+        """``--aot-warmup``'s record: the node's device summary lists each
+        bucket of CLIENT_WARMUP_BUCKETS as a warmup (outcome hit or miss,
+        never an error) once its background thread is done, and its log
+        has no failed warmup."""
+        wanted = CLIENT_WARMUP_BUCKETS.split(",")
+        deadline = time.perf_counter() + CLIENT_WARMUP_S
+        while True:
+            _, device = self.get("/lighthouse/device")
+            with open(self.log_path, "rb") as f:
+                text = f.read().decode(errors="replace")
+            if "bucket warmup failed" in text:
+                raise AssertionError("[client] the node's log: a bucket warmup failed")
+            entries = {e["shape"]: e for e in device["data"]["programs"]
+                       if e["op"] == "bls_verify" and e.get("source") == "warmup"}
+            if all(b in entries for b in wanted):
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"[client] no warmup of {wanted} after "
+                                     f"{CLIENT_WARMUP_S:.0f} s: {device['data']['programs']}")
+            time.sleep(0.5)
+        for b in wanted:
+            if entries[b].get("warmup_outcome") not in ("hit", "miss"):
+                raise AssertionError(f"[client] the {b} warmup record {entries[b]}")
+        return {b: {"seconds": entries[b]["compile_seconds"],
+                    "outcome": entries[b]["warmup_outcome"]} for b in wanted}
+
     def launches(self) -> dict:
         """The node's kernel launches so far (its ``/metrics``)."""
         _, text = self.get("/metrics")
@@ -5173,6 +5430,8 @@ class ClientCell:
         chain, card = self.chain, self.card
         out = self.out
         out["up_s"] = self._up()
+        # the warmup's launches count with the boot's, not the POSTs'
+        out["warmup"] = self._warmup()
         out["boot_launches"] = self.launches()
         with open(self.log_path, "rb") as f:
             boot_log = f.read().decode(errors="replace")
@@ -5224,6 +5483,11 @@ class ClientCell:
         self.say(f"LIGHTHOUSE_TPU_MESH=auto on {cards} device(s): the node's mesh size "
                  f"{mesh['size']} (disabled, generation {mesh['generation']}); autotune "
                  f"mode {tune['mode']}, overlay {tune['overlay']}")
+        self.say(f"--aot-warmup with LIGHTHOUSE_TPU_AOT_BUCKETS={CLIENT_WARMUP_BUCKETS}: the "
+                 f"node's /lighthouse/device lists the warmed bucket(s) before its first batch: "
+                 + ", ".join(f"{b} {w['outcome']} in {w['seconds']:.4f} s (one neutral "
+                             f"supervised verify)" for b, w in out["warmup"].items())
+                 + "; no failed warmup in its log")
 
         # Same chain.
         seconds = {}
@@ -5317,14 +5581,18 @@ class ClientCell:
                  f"{len(trees['data'])} tree_hash batches of the boot's root on the card; "
                  f"its whole flight record by op {ops} (its committees come from the host "
                  f"shuffle: no boundary)")
-        self.say(f"the node's kernel launches (its /metrics): booting (the anchor's root) "
-                 f"{out['boot_launches']}; for the two POSTs {out['post_launches']}")
+        self.say(f"the node's kernel launches (its /metrics): booting (the anchor's root "
+                 f"and the warmup) {out['boot_launches']}; for the two POSTs "
+                 f"{out['post_launches']}")
         for label, st in zip(("the first (tampered)", "the second"), stages):
             self.say(f"  {label} slashing's verify: setup {st['setup']:.4f} s, device "
                      f"{st['dispatch'] + st['wait']:.4f} s (dispatch {st['dispatch']:.4f}, "
                      f"wait {st['wait']:.4f}), verdict {st['verdict']:.4f} s")
         out["first_dispatch_s"] = stages[0]["dispatch"] + stages[0]["wait"] - (
             stages[1]["dispatch"] + stages[1]["wait"])
+        self.say(f"the first POST's verify took {out['first_dispatch_s']:.4f} s of device "
+                 f"stages more than the second's, after the {CLIENT_WARMUP_BUCKETS} warmup "
+                 f"(the POSTs' verifies are 2-set batches)")
 
         # Joined.
         seconds["peer_count"], peers = self.get("/eth/v1/node/peer_count")
@@ -6105,6 +6373,55 @@ def recorded_batches():
         device_telemetry.record_batch = real
 
 
+class LockSanitizer:
+    """``LIGHTHOUSE_TPU_LOCK_SANITIZE=1`` while in the block, so every lock
+    the block's objects build comes from the sanitizer (``locksmith``);
+    counts the sanitized locks built and the acquisitions the sanitizer
+    checked (each first acquire of a lock by a thread), and on leaving
+    puts the variable back.  :meth:`check` raises on any recorded
+    violation."""
+
+    def __enter__(self):
+        import itertools
+        import os
+
+        from lighthouse_tpu_torch import locksmith
+
+        self.locksmith, self.env = locksmith, os.environ.get(locksmith.ENV_VAR)
+        locksmith.reset()
+        self.made, self.checked = itertools.count(), itertools.count()
+        self.real = (locksmith._SanitizedLock.__init__, locksmith._note_attempt)
+        init, note = self.real
+
+        def counted_init(lock, label):
+            next(self.made)
+            init(lock, label)
+
+        def counted_note(label):
+            next(self.checked)
+            note(label)
+
+        locksmith._SanitizedLock.__init__, locksmith._note_attempt = counted_init, counted_note
+        os.environ[locksmith.ENV_VAR] = "1"
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        locksmith = self.locksmith
+        locksmith._SanitizedLock.__init__, locksmith._note_attempt = self.real
+        if self.env is None:
+            os.environ.pop(locksmith.ENV_VAR, None)
+        else:
+            os.environ[locksmith.ENV_VAR] = self.env
+        self.locks = next(self.made)
+        self.acquisitions = next(self.checked)
+        return False
+
+    def check(self) -> None:
+        self.locksmith.check()
+
+
 def boundary_invocations() -> int:
     """Fused-boundary programs dispatched so far (the telemetry mirror's
     invocation counts of both boundary ops)."""
@@ -6221,15 +6538,18 @@ def phase_soak(card: str, child: CpuChild, device: str = "cuda") -> dict:
     th.configure(enabled=True, device=device)
     pe.configure(backend="device", fused_boundary=True, device=device)
     try:
-        # 1. The soak with its device routes on the card.
+        # 1. The soak with its device routes on the card, its objects built
+        # on the lock sanitizer's locks.
         fallback = metrics.DEVICE_HOST_FALLBACK.snapshot()
-        with recorded_batches() as records:
+        with recorded_batches() as records, LockSanitizer() as sanitizer:
             cuda_sha.reset_launch_counts()
             cuda_epoch.reset_launch_counts()
             boundaries = boundary_invocations()
             run = soak_run(soak_scenario(), tmp, device)
             launches = {**cuda_sha.LAUNCHES, **cuda_epoch.LAUNCHES,
                         "epoch_boundary": boundary_invocations() - boundaries}
+        sanitizer.check()
+        edges = sanitizer.locksmith.observed_edges()
         batches = Counter(op for op, _ in records)
         fallen = Counter(op for op, host in records if host)
         if fallen or metrics.DEVICE_HOST_FALLBACK.snapshot() != fallback:
@@ -6250,6 +6570,10 @@ def phase_soak(card: str, child: CpuChild, device: str = "cuda") -> dict:
             f"{run['seconds']:.2f} s, finalized epoch {run['finalized']}, head "
             f"{run['head_root'][:16]}; launches {json.dumps(launches)}; flight records "
             f"{json.dumps(dict(batches))}, none on the host")
+        log(f"[soak] the run under LIGHTHOUSE_TPU_LOCK_SANITIZE=1: {sanitizer.locks} locks "
+            f"built by the sanitizer, {sanitizer.acquisitions} acquisitions checked against "
+            f"the static lock graph, {len(edges)} nested lock orders observed {edges}; "
+            f"locksmith.check(): 0 violations")
 
         # 2. A fault on the card, then the routes back.
         set_backend("fake")
@@ -6283,7 +6607,8 @@ def phase_soak(card: str, child: CpuChild, device: str = "cuda") -> dict:
         set_backend("torch")
         pe.reset_for_tests()
         th.configure(enabled=False)
-    return {"seconds": run["seconds"], "launches": launches, "fault": fault}
+    return {"seconds": run["seconds"], "launches": launches, "fault": fault,
+            "sanitizer": {"locks": sanitizer.locks, "acquisitions": sanitizer.acquisitions}}
 
 
 def walk_sweep(seed_words, pivots, k: int, m: int, bound_ms: float) -> dict:
@@ -6368,6 +6693,13 @@ def phase_epoch_timing(epoch_out: dict, max_err: dict, clock_mhz: float,
     row_bytes = sh_digests.shape[1]
     b_ms, b_by = bound(8 * nb, 8 * nb + row_bytes + 4)
     whole_b_ms, _ = bound(8 * nb * SHUFFLE_ROUNDS, 8 * nb + row_bytes * SHUFFLE_ROUNDS)
+    # A two-shard mesh's block: half the lanes of a round, reading the
+    # whole list (its lanes and their partners: 8 bytes a lane in, 4 out).
+    half = nb // 2
+    block_ms = graph_ms(lambda: cuda_epoch.shuffle_rounds(values, *one, m, half, nb - half))
+    block_b_ms, _ = bound(8 * half, 12 * half)
+    log(f"[timing] shuffle_round's block form, lanes [{half}, {nb}) of {nb}: {block_ms:.4f} ms "
+        f"a round, bound {block_b_ms:.4f} ms (bytes), {block_b_ms / block_ms:.1%} of bound")
     log(f"[timing] shuffle_round at {nb} lanes: kernel {ms:.4f} ms a round, plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound; the {SHUFFLE_ROUNDS}-round "
         f"shuffle {shuffle_ms:.4f} ms (plain {shuffle_plain_ms:.4f} ms), "
@@ -6381,7 +6713,10 @@ def phase_epoch_timing(epoch_out: dict, max_err: dict, clock_mhz: float,
                  "shuffle_ms": shuffle_ms, "shuffle_plain_ms": shuffle_plain_ms,
                  "shuffle_bound_ms": b_ms * SHUFFLE_ROUNDS, "shuffle_one_pass_bound_ms": whole_b_ms,
                  "launches_per_boundary": epoch_out["launches"]["shuffle_round"]
-                 / len(epoch_out["plans"])})
+                 / len(epoch_out["plans"]),
+                 "block_ms": block_ms, "block_bound_ms": block_b_ms,
+                 "sharded": {label: {"launches_by_shard": r["shuffle_round_per_shard"]}
+                             for label, r in epoch_out.get("mesh", {}).items()}})
     # proposer_walk: the [epoch] launch (32 slots x 64 candidates x 90 rounds).
     s = seed_words.shape[0]
     ms = graph_ms(lambda: cuda_epoch.proposer_walk(seed_words, prop_pivots, k, m))
@@ -6761,6 +7096,7 @@ def main() -> int:
         state_out = phase_state(card)
     with phase_wall("epoch"):
         epoch_out = phase_epoch(card)
+        epoch_out["mesh"] = phase_epoch_mesh(card, epoch_out)
     # [block] and [chain] share one case whose block carries the six KZG
     # commitments; [block] applies the block to its pre-state in place, so
     # [chain]'s anchor is a copy taken before (after [block]'s warm root),

@@ -61,7 +61,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-from . import blackbox, metrics
+from . import blackbox, locksmith, metrics
 from .logs import get_logger
 
 log = get_logger("autotune")
@@ -111,7 +111,7 @@ AUTOTUNE_WALK_MEASURE_SECONDS = metrics.histogram(
 # ------------------------------------------------------------------- mode
 
 _MODE: Optional[str] = None
-_MODE_LOCK = threading.Lock()
+_MODE_LOCK = locksmith.lock("autotune._MODE_LOCK")
 
 
 def mode() -> str:
@@ -181,7 +181,7 @@ _VOCABS: Dict[str, VocabSpec] = {}
 #: hot bucket_vocabulary() path reads it without the lock.
 _MERGED: Dict[str, Tuple[int, ...]] = {}
 _OVERLAY: Dict[str, Tuple[int, ...]] = {}
-_OVERLAY_LOCK = threading.Lock()
+_OVERLAY_LOCK = locksmith.lock("autotune._OVERLAY_LOCK")
 
 #: Fast-path flag: True iff the overlay is non-empty AND the mode allows
 #: it (bucket_vocabulary() is on every device dispatch).
@@ -242,7 +242,7 @@ class Controller:
     wall-clock-free by construction."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("Controller._lock")
         self.evaluations = 0
         self._decisions: List[dict] = []
         self._decision_seq = 0
@@ -684,7 +684,7 @@ def walk_cache_key(device=None) -> str:
 
 
 _WALK_MEMO: Dict[str, Tuple[float, dict]] = {}
-_WALK_MEMO_LOCK = threading.Lock()
+_WALK_MEMO_LOCK = locksmith.lock("autotune._WALK_MEMO_LOCK")
 
 
 def _read_walk_cache(path: str) -> dict:
@@ -855,7 +855,7 @@ def _write_walk_cache(key: str, decision: dict) -> None:
 
 _THREAD: Optional[threading.Thread] = None
 _THREAD_STOP: Optional[threading.Event] = None
-_THREAD_LOCK = threading.Lock()
+_THREAD_LOCK = locksmith.lock("autotune._THREAD_LOCK")
 
 
 def maybe_start_from_env(device="cuda") -> Optional[threading.Thread]:

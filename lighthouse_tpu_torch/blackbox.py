@@ -34,12 +34,11 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional
 
-from . import metrics, telemetry_scope
+from . import locksmith, metrics, telemetry_scope
 from .logs import get_logger
 
 log = get_logger("blackbox")
@@ -94,7 +93,7 @@ class Journal:
     def __init__(self, capacity: int = JOURNAL_CAPACITY):
         self.capacity = capacity
         self._buf: deque = deque(maxlen=capacity)
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("Journal._lock")
         self._seq = 0
 
     def append(self, record: dict) -> dict:
@@ -260,7 +259,7 @@ def fleet_summary(limit: Optional[int] = None) -> dict:
 #: HTTP server registers its admission controller here; anything process-
 #: local that a 3am triage would want can join.
 _SNAPSHOTTERS: Dict[str, Callable[[], Any]] = {}
-_SNAPSHOTTERS_LOCK = threading.Lock()
+_SNAPSHOTTERS_LOCK = locksmith.lock("blackbox._SNAPSHOTTERS_LOCK")
 
 
 def register_snapshot(name: str, fn: Callable[[], Any]) -> None:
@@ -287,7 +286,7 @@ def _safe(fn: Callable[[], Any]) -> Any:
 #: Serializes captures AND guards the index/dir state.  Module-level (not
 #: per-object): captures are rare, seconds-scale events — serializing the
 #: whole freeze keeps bundle contents internally consistent.
-_CAPTURE_LOCK = threading.Lock()
+_CAPTURE_LOCK = locksmith.lock("blackbox._CAPTURE_LOCK")
 _CAPTURE_SEQ = 0
 _INDEX: deque = deque(maxlen=64)
 _DIR_OVERRIDE: Optional[str] = None

@@ -9,9 +9,11 @@ A copy of the JAX package's ``lighthouse_tpu/cli.py`` on the port.  ``bn``
 runs on the card by default (``--device cuda``; ``--device cpu`` runs the
 CUDA kernels' plain versions) and exits non-zero before serving where there
 is no card; its ``--bls-backend`` is ``torch`` (the card), ``host`` or
-``fake``.  The JAX package's ``--aot-warmup`` has no counterpart: the port
-has no bucket warmup.  ``lcli transition-bench`` runs the port's own
-``python -m lighthouse_tpu_torch.transition_bench``.
+``fake``.  ``--aot-warmup`` sets ``LIGHTHOUSE_TPU_AOT_WARMUP``, as in the
+JAX package: the builder then warms the standard verifier buckets on a
+background thread, one neutral verify each
+(``ops/compile_cache.maybe_warmup_from_env``).  ``lcli transition-bench``
+runs the port's own ``python -m lighthouse_tpu_torch.transition_bench``.
 """
 
 from __future__ import annotations
@@ -74,6 +76,10 @@ def run_beacon_node(args) -> int:
         spec = Eth2NetworkConfig.from_testnet_dir(args.testnet_dir).spec
     else:
         spec = _spec_for(args.network)
+    if getattr(args, "aot_warmup", False):
+        # The builder's warmup hook reads the env flag; the CLI flag is just
+        # its spelled-out form.
+        os.environ["LIGHTHOUSE_TPU_AOT_WARMUP"] = "1"
     builder.with_spec(spec).with_bls_backend(args.bls_backend)
     if getattr(args, "checkpoint_sync_url", None):
         builder.with_checkpoint_sync(args.checkpoint_sync_url)
@@ -602,6 +608,10 @@ def build_parser() -> argparse.ArgumentParser:
     bn.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the device routes run: the card, or the CPU "
                          "(the CUDA kernels' plain versions)")
+    bn.add_argument("--aot-warmup", action="store_true",
+                    help="warm the standard verifier buckets at startup, one "
+                         "neutral verify each on a background thread "
+                         "(LIGHTHOUSE_TPU_AOT_BUCKETS picks them)")
     bn.add_argument("--debug", action="store_true")
     bn.add_argument("--log-json", action="store_true", dest="log_json",
                     help="emit structured JSON log lines (one object per line)")

@@ -15,8 +15,11 @@ the device pipeline) runs there, and ``build()`` raises before anything is
 served where there is no card.  ``with_device("cpu")`` runs the CUDA
 kernels' plain PyTorch versions, as the tests do.  On the card ``build()``
 builds the kernel libraries (``ops.compile_cache.build_kernels``) where the
-JAX package configures its XLA compile cache.  Then, as in the JAX
-package, the device mesh (``device_mesh.configure()``,
+JAX package configures its XLA compile cache; after it, as in the JAX
+package, ``ops.compile_cache.maybe_warmup_from_env`` starts the
+standard-bucket warmup where ``LIGHTHOUSE_TPU_AOT_WARMUP`` asks for it
+(``bn --aot-warmup``; a warmup that fails on the card raises on its
+thread).  Then, as in the JAX package, the device mesh (``device_mesh.configure()``,
 ``LIGHTHOUSE_TPU_MESH``) and the autotune controller
 (``autotune.maybe_start_from_env``, ``LIGHTHOUSE_TPU_AUTOTUNE``); on the
 card a mesh or autotune setup that fails raises out of ``build()`` (the
@@ -169,13 +172,19 @@ class ClientBuilder:
         pipeline and the autotune controller."""
         from .. import autotune, device_mesh, device_pipeline
 
+        from ..ops import compile_cache
+
         self._route_device()
         if self._device == "cuda":
-            from ..ops import compile_cache
-
             t = time.perf_counter()
             compile_cache.build_kernels()
             log.info("kernel libraries ready in %.2f s", time.perf_counter() - t)
+        if self._bls_backend == "torch":
+            # Standard-bucket warmup (ops/compile_cache.py): with
+            # LIGHTHOUSE_TPU_AOT_WARMUP=1 (bn --aot-warmup) one neutral verify
+            # a standard bucket runs on a background thread, so its first
+            # dispatch's cost is paid before the first batch arrives.
+            self._runtime_setup("bucket warmup", compile_cache.maybe_warmup_from_env)
         # Mesh sharding (device_mesh.py): LIGHTHOUSE_TPU_MESH=N|auto shards
         # the bucketed device ops' batch axis over the visible cards,
         # configured at assembly so the topology is logged and gauged before

@@ -44,8 +44,12 @@
 // threads a block, each round a launch that reads the old buffer and writes
 // the new one, so a round needs no synchronisation inside it (the pairs
 // (lane, flip) are symmetric within a round, and every lane reads the values
-// the round started from).  Round rows arrive host-reversed
-// (shuffle_tables), so launch r reads row r.  The digest byte covering
+// the round started from).  A launch covers a block of lanes, `count` from
+// `offset`, and reads the whole list: the unsharded shuffle launches offset 0
+// and count nb, a shard of the device mesh its own block, one round a launch
+// (lt_shuffle_round_block), the blocks gathered into the whole list on every
+// member before the next round (ops/shuffle_device.py).  Round rows arrive
+// host-reversed (shuffle_tables), so launch r reads row r.  The digest byte covering
 // `position` is byte `position >> 3` of the round's flat row.
 // `flip = (pivot - lane) mod n_live` is a floored modulo: C's `%` truncates,
 // and `pivot - lane` goes negative, on pad lanes past n_live too (their swap
@@ -88,20 +92,23 @@ constexpr int WALK_MAX_ROUNDS = 256;   // the round is one byte of the message
 constexpr int WALK_LOOKAHEAD = 3;      // rounds resolved a step on the main path
 constexpr unsigned FULL_WARP = 0xffffffffu;
 
-// One swap-or-not round: out[lane] = in[flip] where the round's bit at
-// max(lane, flip) is set and lane < n_live, else in[lane].
+// One swap-or-not round over the block of `count` lanes from `offset`:
+// out[lane - offset] = in[flip] where the round's bit at max(lane, flip) is
+// set and lane < n_live, else in[lane].  `in` is the whole list (a partner
+// lane can sit anywhere in it); the whole-list round is offset 0, count nb.
 __global__ void __launch_bounds__(SHUFFLE_THREADS)
 shuffle_round_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
                      const int32_t* __restrict__ pivots, const uint8_t* __restrict__ row,
-                     int round, int n_live, int nb) {
-  const int lane = blockIdx.x * SHUFFLE_THREADS + threadIdx.x;
-  if (lane >= nb) return;
+                     int round, int n_live, int offset, int count) {
+  const int i = blockIdx.x * SHUFFLE_THREADS + threadIdx.x;
+  if (i >= count) return;
+  const int lane = offset + i;
   const int n_mod = n_live > 1 ? n_live : 1;
   int flip = (pivots[round] - lane) % n_mod;
   if (flip < 0) flip += n_mod;
   const int position = lane > flip ? lane : flip;
   const int bit = (row[position >> 3] >> (position & 7)) & 1;
-  out[lane] = (bit && lane < n_live) ? in[flip] : in[lane];
+  out[i] = (bit && lane < n_live) ? in[flip] : in[lane];
 }
 
 // A slot's part of every round's message: the SHA-256 state after rounds
@@ -254,6 +261,12 @@ proposer_walk_kernel(const uint32_t* __restrict__ seed_words, const int32_t* __r
 
 unsigned blocks(long long n, int per_block) { return (unsigned)((n + per_block - 1) / per_block); }
 
+int launch_round(const int32_t* in, int32_t* out, const int32_t* pivots, const uint8_t* row,
+                 int round, int n_live, int offset, int count, cudaStream_t stream) {
+  shuffle_round_kernel<<<blocks(count, SHUFFLE_THREADS), SHUFFLE_THREADS, 0, stream>>>(in, out, pivots, row, round, n_live, offset, count);
+  return (int)cudaGetLastError();
+}
+
 template <int LOOK>
 int launch_walk(const uint32_t* seed_words, const int32_t* pivots, int32_t* out, int s_count,
                 int rounds, int k, int m_live, cudaStream_t stream) {
@@ -285,12 +298,21 @@ int lt_shuffle_rounds(const int32_t* values, int32_t* out, int32_t* scratch, con
   const int32_t* src = values;
   for (int r = 0; r < rounds; ++r) {
     int32_t* dst = ((rounds - 1 - r) % 2 == 0) ? out : scratch;
-    shuffle_round_kernel<<<blocks(nb, SHUFFLE_THREADS), SHUFFLE_THREADS, 0, st>>>(src, dst, pivots, digests + (long long)r * row_bytes, r, n_live, nb);
-    const int err = (int)cudaGetLastError();
+    const int err = launch_round(src, dst, pivots, digests + (long long)r * row_bytes, r, n_live, 0, nb, st);
     if (err != 0) return err;
     src = dst;
   }
   return 0;
+}
+
+// One swap-or-not round (pivots[0], digest row `row`) over the block of
+// `count` lanes from `offset` of the whole nb-lane list `values`, into the
+// `count` words of `out`: a mesh shard's part of a round, whose blocks the
+// caller gathers into the whole list before the next round.
+int lt_shuffle_round_block(const int32_t* values, int32_t* out, const int32_t* pivots,
+                           const uint8_t* row, int n_live, int offset, int count, void* stream) {
+  if (count <= 0) return 0;
+  return launch_round(values, out, pivots, row, 0, n_live, offset, count, (cudaStream_t)stream);
 }
 
 // The candidate walk with `lookahead` (1-4) rounds a step: out holds

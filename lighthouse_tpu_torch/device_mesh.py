@@ -24,7 +24,13 @@ The port of ``lighthouse_tpu/device_mesh.py``.  The layer between the
   outputs to the mesh's first device.  The combine step is explicit per
   entry point (``ops/verify.py``, ``ops/kzg_device.py``: partial sums
   combined before one pairing check; ``ops/sha256_device.py``,
-  ``ops/tree_hash.py``: rows concatenated in order).
+  ``ops/tree_hash.py``: rows concatenated in order;
+  ``ops/epoch_device.py``, ``ops/shuffle_device.py``: the participating
+  sums added on the first member and sent back to every shard
+  (:func:`replicate`) before each finishes its rows, the shuffle's blocks
+  gathered into the whole list on every member after each round
+  (:meth:`ShardedEntry.blocks` names each shard's block), the proposer
+  walk on the first member over the gathered rows).
 - **per-device breakers** — a dispatch failure while the mesh is active is
   charged to a member (the one the error names — ``cuda:N`` or ``device
   N``, see :data:`_DEVICE_ID_RE` — else the deterministic suspect, the
@@ -128,7 +134,7 @@ class MeshState:
     """The process-wide mesh: members, breakers, topology generation."""
 
     def __init__(self) -> None:
-        self._lock = TimeoutLock("device_mesh")
+        self._lock = TimeoutLock("device_mesh", label="MeshState._lock")
         self._configured = False
         #: live members in mesh-index order: (mesh index, torch.device)
         self._devices: List[Tuple[int, Any]] = []
@@ -529,7 +535,8 @@ class ShardedEntry:
         """Split the arguments over the live members: each batched leaf
         (a numpy array or tensor, possibly inside tuples) into contiguous
         row blocks along the batch axis, each replicated leaf copied whole;
-        every leaf uploaded to its member's device.  The batch axis must
+        every leaf uploaded to its member's device, except a replicated
+        Python number, which every shard gets as it is.  The batch axis must
         already be a multiple of the mesh size (:func:`pad_rows`)."""
         import numpy as np
         import torch
@@ -545,6 +552,8 @@ class ShardedEntry:
         out: List[tuple] = []
         for s, (_, dev) in enumerate(members):
             def upload(leaf, batched, s=s, dev=dev):
+                if not batched and isinstance(leaf, (bool, int, float)):
+                    return leaf  # a replicated Python number travels by value
                 t = torch.as_tensor(np.asarray(leaf)) if not isinstance(
                     leaf, torch.Tensor) else leaf
                 if batched:
@@ -624,6 +633,16 @@ class ShardedEntry:
             gathered.append(fn_out)
         return gathered
 
+    def blocks(self, rows: int) -> List[Tuple[int, int]]:
+        """``(offset, count)`` of each live member's row block of a batch
+        axis of ``rows`` rows (a multiple of the mesh size), in shard
+        order: the rows :meth:`place` gives it."""
+        m = STATE.size()
+        if m < 2 or rows % m:
+            raise ValueError(f"{self.entry_key}: {rows} rows over a mesh of {m}")
+        per = rows // m
+        return [(s * per, per) for s in range(m)]
+
     def shard_live_counts(self, n_live: int, padded_rows: int) -> List[int]:
         """Host-side per-shard live-row counts (live rows are packed at the
         front of every batch): padding lands on the LAST shards, and this
@@ -633,3 +652,15 @@ class ShardedEntry:
             return [n_live]
         rows = padded_rows // m
         return [max(0, min(rows, n_live - s * rows)) for s in range(m)]
+
+
+# ------------------------------------------------------- exchange helpers
+
+
+def replicate(t) -> list:
+    """``t`` (a tensor on the mesh's first device) on every live member,
+    in shard order: the tensor itself on a member of its own device, a
+    copy on another (issued on the current streams, which
+    :meth:`ShardedEntry.run` orders each shard after)."""
+    return [t if t.device == dev else t.to(dev) for _, dev in STATE.members()]
+

@@ -84,7 +84,7 @@ from collections import deque
 from contextlib import contextmanager
 from typing import Callable, Dict, List, Optional
 
-from . import blackbox, metrics, tracing
+from . import blackbox, locksmith, metrics, tracing
 from .logs import get_logger
 from .scheduler.work import STANDARD_DEVICE_BATCH
 
@@ -179,8 +179,8 @@ class DeviceArbiter:
     its worker."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._stats = threading.Lock()
+        self._lock = locksmith.lock("DeviceArbiter._lock")
+        self._stats = locksmith.lock("DeviceArbiter._stats")
         self._grants: Dict[str, int] = {}
         self._wait_s: Dict[str, float] = {}
         self._holder: Optional[str] = None
@@ -416,7 +416,7 @@ class DevicePipeline:
                           else float(linger_s))
         self._verify_flat_fn = verify_flat_fn
         self._recheck_fn = recheck_fn
-        self._cond = threading.Condition()
+        self._cond = locksmith.condition("DevicePipeline._cond")
         self._pending: deque = deque()          # _Group FIFO
         self._pending_sets = 0
         self._in_flight_groups = 0              # taken but not yet resolved
@@ -850,7 +850,7 @@ class HashPipeline:
         self._linger_s = (DEFAULT_LINGER_S if linger_s is None
                           else float(linger_s))
         self._hash_flat_fn = hash_flat_fn
-        self._cond = threading.Condition()
+        self._cond = locksmith.condition("HashPipeline._cond")
         self._pending: deque = deque()          # _HashGroup FIFO
         self._pending_blocks = 0
         self._in_flight_groups = 0
@@ -1124,7 +1124,7 @@ class JobPipeline:
         self._q: "queue.SimpleQueue[Optional[tuple]]" = queue.SimpleQueue()
         self._shutdown = False
         self._pending = 0
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("JobPipeline._lock")
         self.jobs_total = 0
         self._worker = threading.Thread(
             target=self._run_loop, name=f"device-pipeline-job-{op}",
@@ -1205,7 +1205,7 @@ class JobPipeline:
 
 # ----------------------------------------------------------- module wiring
 
-_LOCK = threading.Lock()
+_LOCK = locksmith.lock("device_pipeline._LOCK")
 _PIPELINE: Optional[DevicePipeline] = None
 _HASH_PIPELINE: Optional[HashPipeline] = None
 _JOB_PIPELINES: Dict[str, JobPipeline] = {}

@@ -196,7 +196,7 @@ class CircuitBreaker:
     def __init__(self, op: str, config: BreakerConfig):
         self.op = op
         self.config = config
-        self._lock = TimeoutLock(f"breaker[{op}]")
+        self._lock = TimeoutLock(f"breaker[{op}]", label="CircuitBreaker._lock")
         self._state = STATE_CLOSED
         self._consecutive_failures = 0
         self._opened_at = 0.0  # monotonic
@@ -347,7 +347,7 @@ class _OpWorker:
 class DeviceSupervisor:
     def __init__(self, config: Optional[BreakerConfig] = None,
                  deadlines: Optional[Dict[str, float]] = None):
-        self._lock = TimeoutLock("device_supervisor")
+        self._lock = TimeoutLock("device_supervisor", label="DeviceSupervisor._lock")
         self._config = config or BreakerConfig.from_env()
         self._breakers: Dict[str, CircuitBreaker] = {}
         self._workers: Dict[str, _OpWorker] = {}

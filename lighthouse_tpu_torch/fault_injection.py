@@ -213,7 +213,7 @@ class FaultPlan:
 
 class FaultRegistry:
     def __init__(self) -> None:
-        self._lock = TimeoutLock("fault_registry")
+        self._lock = TimeoutLock("fault_registry", label="FaultRegistry._lock")
         self._plans: List[FaultPlan] = []
         self._next_id = 1
 

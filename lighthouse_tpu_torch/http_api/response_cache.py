@@ -34,20 +34,19 @@ cache hit is a dict lookup plus a socket write, and cached vs uncached
 responses are bit-identical by construction — the property the ``api_load``
 scenario's determinism gate pins down.
 
-A copy of the JAX package's ``lighthouse_tpu/http_api/response_cache.py``,
-on a plain ``threading.Lock`` (what the JAX package's ``locksmith.lock``
-returns while its lock sanitizer is off).
+A copy of the JAX package's ``lighthouse_tpu/http_api/response_cache.py``;
+its lock comes from the lock sanitizer's factory (``locksmith.lock``: a
+plain ``threading.Lock`` while the sanitizer is off).
 """
 
 from __future__ import annotations
 
 import json
 import os
-import threading
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
-from .. import metrics, tracing
+from .. import locksmith, metrics, tracing
 
 #: Topics a cached route may declare.  ``head`` and ``finalized_checkpoint``
 #: prune dead-fingerprint entries; ``block``/``chain_reorg`` additionally
@@ -100,7 +99,7 @@ class ResponseCache:
         self.chain = chain
         self.capacity = capacity if capacity is not None else default_capacity()
         self._entries: "OrderedDict[Tuple, CacheEntry]" = OrderedDict()
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("ResponseCache._lock")
         self._attached_bus = None
         self.hits = 0
         self.misses = 0

@@ -27,10 +27,10 @@ recording is enabled, appended to a per-directed-link schedule whose
 :meth:`Hub.schedule_digest` is the determinism fingerprint scenario soak
 artifacts carry.
 
-A copy of the JAX package's ``lighthouse_tpu/network/transport.py``, on a
-plain ``threading.Lock`` (what the JAX package's ``locksmith.lock`` returns
-while its lock sanitizer is off); the ``net.deliver`` point goes through the port's
-``fault_injection``.
+A copy of the JAX package's ``lighthouse_tpu/network/transport.py``; its
+lock comes from the lock sanitizer's factory (``locksmith.lock``: a plain
+``threading.Lock`` while the sanitizer is off), and the ``net.deliver``
+point goes through the port's ``fault_injection``.
 """
 
 from __future__ import annotations
@@ -39,10 +39,10 @@ import hashlib
 import heapq
 import queue
 import random
-import threading
 from dataclasses import dataclass, replace
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
+from .. import locksmith
 from ..metrics import (
     NET_ENVELOPES_DELAYED,
     NET_ENVELOPES_DROPPED,
@@ -163,7 +163,7 @@ class Hub:
     def __init__(self, seed: int = 0):
         self._endpoints: Dict[str, Endpoint] = {}
         self._links: Set[Tuple[str, str]] = set()
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("Hub._lock")
         self._rng = random.Random(seed)
         self.seed = seed
         self.drop_probability: float = 0.0

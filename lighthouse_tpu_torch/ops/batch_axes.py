@@ -68,8 +68,10 @@ BATCH_AXES = {
         ],
         "reduces_over_batch": True,
         "out_batched": True,
-        "notes": "participating-increment sums span the whole registry "
-                 "(NO_SPLIT_OPS)",
+        "notes": "participating-increment sums span the whole registry: "
+                 "the mesh split adds the shards' raw sums on the first "
+                 "member before each shard finishes its rows; no "
+                 "split-batch retry (NO_SPLIT_OPS)",
     },
     "lighthouse_tpu_torch/ops/shuffle_device.py:_shuffle_kernel": {
         "op": "shuffle",
@@ -118,7 +120,9 @@ BATCH_AXES = {
             False, False,  # per-slot proposer table + found flags
         ],
         "notes": "fused boundary: deltas sums span the registry AND the "
-                 "shuffle/proposer stages gather across lanes — "
-                 "NO_SPLIT_OPS",
+                 "shuffle/proposer stages gather across lanes — the mesh "
+                 "split combines the sums, exchanges the shuffle's blocks "
+                 "every round and walks the proposers on the first "
+                 "member; no split-batch retry (NO_SPLIT_OPS)",
     },
 }

@@ -17,18 +17,26 @@ builds all three.
 The bucket warmup the autotune controller's adoption gate needs is here
 (:func:`aot_warmup_op`): one supervised dispatch of a neutral batch of an
 op at a bucket, on the node's device, checked against the result a
-neutral batch must give, and noted in the telemetry mirror.  The JAX
-package's opt-in warmup of the standard buckets at boot
-(``LIGHTHOUSE_TPU_AOT_WARMUP``) is not ported: no first-dispatch cost of a
-bucket that it would remove has been measured on the card.
+neutral batch must give, and noted in the telemetry mirror.  So is the
+JAX package's opt-in warmup of the standard verifier buckets at boot
+(:func:`maybe_warmup_from_env`, ``LIGHTHOUSE_TPU_AOT_WARMUP``, ``bn
+--aot-warmup``; the buckets from ``LIGHTHOUSE_TPU_AOT_BUCKETS``, else
+:data:`DEFAULT_WARMUP_BUCKETS`): the port compiles no program, so a warm
+bucket is one neutral ``bls_verify`` dispatch through
+:func:`aot_warmup_op`, and what it takes off the request path is the
+first dispatch's extra cost.  Its records (outcome ``miss``: this was the
+bucket's first dispatch; ``hit``: the bucket was warm already;
+``error``) feed ``GET /lighthouse/device`` before the first batch.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import List
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -81,14 +89,14 @@ def reset_for_tests() -> None:
     _WARMUP_DEVICE = "cuda"
 
 
-def _neutral_bls(nb: int, device) -> dict:
-    """``_device_verify`` on an all-padding batch at ``nb`` sets x 32 keys:
-    every weight is zero, so ``W`` is the point at infinity (its Z limbs
-    zero) — the one result a neutral batch may give."""
+def _neutral_bls(nb: int, device, keys: int = 32) -> dict:
+    """``_device_verify`` on an all-padding batch at ``nb`` sets x ``keys``
+    keys: every weight is zero, so ``W`` is the point at infinity (its Z
+    limbs zero) — the one result a neutral batch may give."""
     from . import ec, tower, verify
 
     id1, id2 = ec.g1_to_limbs(None), ec.g2_to_limbs(None)
-    pk = tuple(np.broadcast_to(id1[c], (nb, 32, id1[c].shape[-1])).copy() for c in range(3))
+    pk = tuple(np.broadcast_to(id1[c], (nb, keys, id1[c].shape[-1])).copy() for c in range(3))
     sig = tuple(np.broadcast_to(id2[c], (nb,) + id2[c].shape).copy() for c in range(3))
     msg = tuple(np.broadcast_to(verify._G2_GEN_AFF[c], (nb,) + verify._G2_GEN_AFF[c].shape
                                 ).copy() for c in range(2))
@@ -96,7 +104,7 @@ def _neutral_bls(nb: int, device) -> dict:
     _, w_z = verify._device_verify(*verify.batch_from_numpy(host, device))
     if not tower.fq2_from_limbs(w_z.cpu()).is_zero():
         raise RuntimeError(f"bls_verify warmup at {nb}: W of a neutral batch is not infinity")
-    return {"shape": (nb, 32)}
+    return {"shape": (nb, keys)}
 
 
 def _neutral_sha(nb: int, device) -> dict:
@@ -185,27 +193,31 @@ _NEUTRAL = {
 }
 
 
-def aot_warmup_op(op: str, nb: int, device=None) -> List[dict]:
+def aot_warmup_op(op: str, nb: int, device=None, keys: Optional[int] = None) -> List[dict]:
     """Warm ``op``'s bucket ``nb`` off the request path — the autotune
     controller's adoption prerequisite: one supervised dispatch
     (``device_supervisor.run``, on the card with ``host_on_failure=False``)
     of a neutral batch on the node's device, whose result must be the one
     a neutral batch gives (else this raises), noted in the telemetry
     mirror (``device_telemetry.note_warmup``: the first production
-    dispatch at the bucket is then not counted as its first)."""
+    dispatch at the bucket is then not counted as its first).  ``keys``:
+    the key bucket of a ``bls_verify`` warmup (32 when None)."""
     from .. import device_supervisor, device_telemetry
     from ..logs import get_logger
     from .devices import on_device, resolve_device, wait_for
 
     if op not in _NEUTRAL:
         raise ValueError(f"no warmup for op {op!r}")
+    if keys is not None and op != "bls_verify":
+        raise ValueError(f"{op} has no key bucket")
     supervised_op, neutral = _NEUTRAL[op]
     dev = resolve_device(device if device is not None else _WARMUP_DEVICE)
     nb = int(nb)
+    extra = {} if keys is None else {"keys": int(keys)}
 
     def run() -> dict:
         with on_device(dev):
-            out = neutral(nb, dev)
+            out = neutral(nb, dev, **extra)
             wait_for(dev)
         return out
 
@@ -217,3 +229,102 @@ def aot_warmup_op(op: str, nb: int, device=None) -> List[dict]:
               "seconds": round(seconds, 6), "outcome": "ok", "device": str(dev)}
     get_logger("compile_cache").info("bucket warmup", **record)
     return [record]
+
+
+# ------------------------------------------------- standard buckets at boot
+
+AOT_WARMUP_ENV = "LIGHTHOUSE_TPU_AOT_WARMUP"
+AOT_BUCKETS_ENV = "LIGHTHOUSE_TPU_AOT_BUCKETS"
+
+#: The standard verifier buckets warmed by default: the headline 128 x 32
+#: and the 4,096-set top bucket (``ops/verify.py`` ``N_BUCKETS[-1]``).
+DEFAULT_WARMUP_BUCKETS: Tuple[Tuple[int, int], ...] = ((128, 32), (4096, 32))
+
+
+def _env_buckets() -> Optional[List[Tuple[int, int]]]:
+    """Parse ``LIGHTHOUSE_TPU_AOT_BUCKETS`` ("128x32,4096x32"; case-insensitive
+    separator, empty parts skipped).  Raises ValueError naming the variable on
+    garbage — callers decide whether to fall back."""
+    raw = os.environ.get(AOT_BUCKETS_ENV, "").strip()
+    if not raw:
+        return None
+    buckets = []
+    for part in raw.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        nb, _, kb = part.lower().partition("x")
+        try:
+            bucket = (int(nb), int(kb))
+        except ValueError:
+            raise ValueError(
+                f"{AOT_BUCKETS_ENV}={raw!r}: expected e.g. \"128x32,4096x32\""
+            ) from None
+        buckets.append(bucket)
+    return buckets or None
+
+
+def warmup_standard_buckets(
+    buckets: Optional[Sequence[Tuple[int, int]]] = None,
+) -> List[dict]:
+    """Warm the standard verifier buckets on the node's device
+    (:func:`configure`), one neutral supervised ``bls_verify`` dispatch each
+    (:func:`aot_warmup_op`); returns per-bucket records ``{"op", "shape",
+    "seconds", "outcome"}``, outcome ``miss`` (the bucket's first
+    dispatch), ``hit`` (it was warm already) or ``error``.  Off the card an
+    error is recorded and the next bucket warmed; on the card it is logged
+    and raised (a warmup never stands in for an answer).
+
+    The mirror entries (``device_telemetry.note_warmup``) show the warmed
+    buckets in ``GET /lighthouse/device`` before the first batch."""
+    from .. import device_telemetry
+    from ..logs import get_logger
+    from .devices import resolve_device
+
+    log = get_logger("compile_cache")
+    dev = resolve_device(_WARMUP_DEVICE)
+    if buckets is None:
+        try:
+            buckets = _env_buckets()
+        except ValueError as e:
+            # A bad env list must neither kill the warmup thread nor
+            # silently disable the warmup the operator asked for: log loud,
+            # warm the defaults.
+            log.warning("warmup bucket list invalid, warming defaults", error=str(e))
+            buckets = None
+        buckets = buckets or list(DEFAULT_WARMUP_BUCKETS)
+    results: List[dict] = []
+    for nb, kb in buckets:
+        nb, kb = int(nb), int(kb)
+        warm = device_telemetry.COMPILE_CACHE.seen("bls_verify", (nb, kb))
+        t0 = time.perf_counter()
+        try:
+            aot_warmup_op("bls_verify", nb, device=dev, keys=kb)
+        except Exception as e:
+            record = {"op": "bls_verify", "shape": f"{nb}x{kb}",
+                      "seconds": round(time.perf_counter() - t0, 6), "outcome": "error",
+                      "error": f"{type(e).__name__}: {e}", "device": str(dev)}
+            log.error("bucket warmup failed", **record)
+            if dev.type == "cuda":
+                raise
+            results.append(record)
+            continue
+        results.append({"op": "bls_verify", "shape": f"{nb}x{kb}",
+                        "seconds": round(time.perf_counter() - t0, 6),
+                        "outcome": "hit" if warm else "miss", "device": str(dev)})
+    return results
+
+
+def maybe_warmup_from_env(*, background: bool = True) -> Optional[threading.Thread]:
+    """Startup hook: run :func:`warmup_standard_buckets` iff
+    ``LIGHTHOUSE_TPU_AOT_WARMUP`` is truthy.  Background by default, so node
+    startup never waits on it; returns the thread (None when disabled or
+    run inline)."""
+    if os.environ.get(AOT_WARMUP_ENV, "").strip().lower() not in ("1", "true", "yes"):
+        return None
+    if not background:
+        warmup_standard_buckets()
+        return None
+    thread = threading.Thread(target=warmup_standard_buckets, name="aot-warmup", daemon=True)
+    thread.start()
+    return thread

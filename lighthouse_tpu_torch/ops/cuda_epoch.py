@@ -5,9 +5,11 @@ Kernels (source ``lighthouse_tpu_torch/csrc/shuffle.cu``, built for
 ``sm_90a`` with ``nvcc`` into a plain-C shared library through
 ``ops/compile_cache.build_kernels``, loaded with ``ctypes``):
 
-- ``shuffle_round``: one swap-or-not round over every lane of a registry
-  bucket, launched once per round by :func:`shuffle_rounds`.  Replaces the
-  XLA program ``lighthouse_tpu/ops/shuffle_device.py:_shuffle_kernel``.
+- ``shuffle_round``: one swap-or-not round over a block of lanes of a
+  registry bucket (all of them, or a mesh shard's block read from the
+  whole list), launched once per round by :func:`shuffle_rounds`.
+  Replaces the XLA program
+  ``lighthouse_tpu/ops/shuffle_device.py:_shuffle_kernel``.
 - ``proposer_walk``: the spec's candidate walk of (slot, candidate) lanes,
   one SHA-256 block a round, several rounds a step (the lookahead, one of
   :data:`WALK_LOOKAHEADS`; on the main path the one
@@ -61,21 +63,38 @@ def reset_launch_counts() -> None:
 # ------------------------------------------------------------ plain versions
 
 
+def _block(nb: int, rounds: int, offset: int, count: Optional[int]) -> int:
+    """The block's lane count, checked: ``count`` lanes from ``offset``
+    inside the nb-lane list (None: the rest of it); a block narrower than
+    the list takes at most one round (the mesh gathers the blocks into the
+    whole list between rounds)."""
+    count = nb - offset if count is None else int(count)
+    if offset < 0 or count < 0 or offset + count > nb:
+        raise ValueError(f"block of {count} lanes from {offset} outside [0, {nb})")
+    if count != nb and rounds > 1:
+        raise ValueError(f"a block of {count} of {nb} lanes takes one round, got {rounds}")
+    return count
+
+
 def shuffle_rounds_plain(values: torch.Tensor, pivots: torch.Tensor,
-                         digests: torch.Tensor, n_live: int) -> torch.Tensor:
+                         digests: torch.Tensor, n_live: int, offset: int = 0,
+                         count: Optional[int] = None) -> torch.Tensor:
     """``shuffle_round_kernel`` over all rounds in plain PyTorch: (nb,)
     int32 values, (R,) int32 pivots (row 0 first), (R, row) uint8 digest
-    rows; lanes at or past ``n_live`` never swap."""
+    rows; lanes at or past ``n_live`` never swap.  With ``offset`` /
+    ``count`` it returns the block of ``count`` lanes from ``offset``
+    after one round (or none) over the whole list ``values``."""
     nb = values.shape[0]
-    lane = torch.arange(nb, dtype=torch.int64, device=values.device)
+    count = _block(nb, pivots.shape[0], offset, count)
+    lane = torch.arange(offset, offset + count, dtype=torch.int64, device=values.device)
     n_mod = max(int(n_live), 1)
-    a = values
+    a, whole = values[offset:offset + count], values
     for r in range(pivots.shape[0]):
         flip = torch.remainder(pivots[r].to(torch.int64) - lane, n_mod)
         position = torch.maximum(lane, flip)
         byte = digests[r][position >> 3].to(torch.int64)
         bit = (byte >> (position & 7)) & 1
-        a = torch.where((bit == 1) & (lane < n_live), a[flip], a)
+        a = whole = torch.where((bit == 1) & (lane < n_live), whole[flip], a)
     return a
 
 
@@ -124,6 +143,8 @@ def load_library(path) -> ctypes.CDLL:
     ptr, i64, cint = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.lt_shuffle_rounds.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, cint, cint, cint, ptr]
     lib.lt_shuffle_rounds.restype = cint
+    lib.lt_shuffle_round_block.argtypes = [ptr, ptr, ptr, ptr, cint, cint, cint, ptr]
+    lib.lt_shuffle_round_block.restype = cint
     lib.lt_proposer_walk.argtypes = [ptr, ptr, ptr, cint, cint, cint, cint, ptr]
     lib.lt_proposer_walk.restype = cint
     lib.lt_proposer_walk_k.argtypes = [ptr, ptr, ptr, cint, cint, cint, cint, cint, ptr]
@@ -169,10 +190,13 @@ def _same_device(first: torch.Tensor, *others: torch.Tensor) -> None:
 
 
 def shuffle_rounds(values: torch.Tensor, pivots: torch.Tensor, digests: torch.Tensor,
-                   n_live: int) -> torch.Tensor:
+                   n_live: int, offset: int = 0, count: Optional[int] = None) -> torch.Tensor:
     """Every swap-or-not round of ``pivots`` / ``digests`` (row 0 first)
     over the (nb,) int32 ``values``: one launch of ``shuffle_round_kernel``
-    a round on a CUDA tensor, the plain version on a CPU tensor."""
+    a round on a CUDA tensor, the plain version on a CPU tensor.  With
+    ``offset`` / ``count``: the block of ``count`` lanes from ``offset``
+    after one round over the whole list (a mesh shard's part of a round,
+    one launch)."""
     _check(values, torch.int32, 1, "values")
     _check(pivots, torch.int32, 1, "pivots")
     _check(digests, torch.uint8, 2, "digests")
@@ -184,8 +208,11 @@ def shuffle_rounds(values: torch.Tensor, pivots: torch.Tensor, digests: torch.Te
         raise ValueError(f"digest rows of {digests.shape[1]} bytes cover fewer than {nb} lanes")
     if not 0 <= n_live <= nb:
         raise ValueError(f"n_live {n_live} outside [0, {nb}]")
+    count = _block(nb, rounds, offset, count)
     if values.device.type == "cpu":
-        return shuffle_rounds_plain(values, pivots, digests, n_live)
+        return shuffle_rounds_plain(values, pivots, digests, n_live, offset, count)
+    if count != nb:
+        return _shuffle_round_block(values, pivots, digests, n_live, offset, count)
     out = torch.empty_like(values)
     if nb == 0:
         return out
@@ -201,6 +228,27 @@ def shuffle_rounds(values: torch.Tensor, pivots: torch.Tensor, digests: torch.Te
     check_cuda(lib, err, "lt_shuffle_rounds")
     LAUNCHES["shuffle_round"] += rounds
     SIZES["shuffle_round"][nb] += rounds
+    return out
+
+
+def _shuffle_round_block(values: torch.Tensor, pivots: torch.Tensor, digests: torch.Tensor,
+                         n_live: int, offset: int, count: int) -> torch.Tensor:
+    """:func:`shuffle_rounds`' block form on a CUDA tensor: one launch
+    over ``count`` lanes from ``offset``, or a copy of them with no round."""
+    if pivots.shape[0] == 0:
+        return values[offset:offset + count].clone()
+    out = torch.empty(count, dtype=values.dtype, device=values.device)
+    if count == 0:
+        return out
+    lib = library()
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.lt_shuffle_round_block(
+            values.data_ptr(), out.data_ptr(), pivots.data_ptr(), digests.data_ptr(),
+            int(n_live), int(offset), int(count), stream)
+    check_cuda(lib, err, "lt_shuffle_round_block")
+    LAUNCHES["shuffle_round"] += 1
+    SIZES["shuffle_round"][count] += 1
     return out
 
 

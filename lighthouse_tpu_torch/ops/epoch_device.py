@@ -24,11 +24,17 @@ to the registry-wide participating-increment sums.
 Semantics are bit-identical to the numpy path and to the JAX program (same
 floor divisions, same masks; ``tests/test_torch_epoch.py``).  The
 registry axis buckets against ``autotune.bucket_vocabulary(
-"epoch_deltas", N_BUCKETS)``.  **No mesh split**: the participating-
-increment sums reduce over the whole registry and PyTorch has no
-partitioner to insert those collectives, so while the device mesh is on
-the pass runs on the mesh's first device (:func:`op_device`; the split is
-queued in ROADMAP A).
+"epoch_deltas", N_BUCKETS)``.
+
+**Mesh split** (``device_mesh.ShardedEntry``, while the mesh is on): the
+registry pads to a multiple of the mesh size and splits into row blocks.
+The only registry-wide terms are the three participating-balance sums, so
+each shard first sums its rows (:func:`_participating_sums`), the raw sums
+are added on the first member and sent back, and each shard finishes its
+own rows (:func:`_deltas_core` with the combined sums).  The floor
+division by the increment applies to the combined raw sum: a sum of
+per-shard floors would differ.  PyTorch has no partitioner to insert that
+collective, so the combine is explicit, as the verify's is.
 """
 
 from __future__ import annotations
@@ -69,16 +75,20 @@ def _deltas_core(
     quotient,           # int
     *,
     in_leak: bool,
+    participating=None,  # (3,) int64 registry-wide raw sums, or None
 ):
     """Body of the deltas pass — shared between the standalone
     :func:`_deltas_kernel` entry and the fused epoch-boundary program
     (``ops/shuffle_device.py:_boundary_kernel``).  Returns
-    ``(new_inactivity, balance_delta)``."""
+    ``(new_inactivity, balance_delta)``.  ``participating`` holds the
+    registry-wide participating-balance sums where these rows are one
+    shard of it (:func:`_participating_sums`, combined); None sums these
+    rows."""
     active_prev = (activation_epoch <= previous_epoch) & (previous_epoch < exit_epoch)
     eligible = active_prev | (slashed & (previous_epoch + 1 < withdrawable_epoch))
 
     def flag_mask(flag_index):
-        return (((prev_part >> flag_index) & 1) == 1) & active_prev & ~slashed
+        return _flag_mask(prev_part, active_prev, slashed, flag_index)
 
     prev_target = flag_mask(TIMELY_TARGET_FLAG_INDEX)
 
@@ -95,21 +105,37 @@ def _deltas_core(
     rewards = torch.zeros_like(eff_bal)
     penalties = torch.zeros_like(eff_bal)
     for flag_index, weight in enumerate(PARTICIPATION_FLAG_WEIGHTS):
-        participating = flag_mask(flag_index)
-        participating_increments = _floor_div(
-            torch.where(participating, eff_bal, 0).sum(), increment)
+        participating_mask = flag_mask(flag_index)
+        raw = (torch.where(participating_mask, eff_bal, 0).sum() if participating is None
+               else participating[flag_index])
+        participating_increments = _floor_div(raw, increment)
         if not in_leak:
             flag_rewards = _floor_div(
                 base_reward * weight * participating_increments,
                 active_increments * WEIGHT_DENOMINATOR)
-            rewards = rewards + torch.where(eligible & participating, flag_rewards, 0)
+            rewards = rewards + torch.where(eligible & participating_mask, flag_rewards, 0)
         if flag_index != TIMELY_HEAD_FLAG_INDEX:
             penalties = penalties + torch.where(
-                eligible & ~participating,
+                eligible & ~participating_mask,
                 _floor_div(base_reward * weight, WEIGHT_DENOMINATOR), 0)
     inactivity_penalty = _floor_div(eff_bal * new_inactivity, inactivity_score_bias * quotient)
     penalties = penalties + torch.where(eligible & ~prev_target, inactivity_penalty, 0)
     return new_inactivity, rewards - penalties
+
+
+def _flag_mask(prev_part, active_prev, slashed, flag_index: int):
+    return (((prev_part >> flag_index) & 1) == 1) & active_prev & ~slashed
+
+
+def _participating_sums(eff_bal, activation_epoch, exit_epoch, slashed, prev_part,
+                        previous_epoch):
+    """(3,) int64: the raw sum of ``eff_bal`` over each flag's
+    participating rows — a shard's part of the registry-wide sums
+    (exact: int64 sums of at most 2^20 balances of ~3.2e10 gwei)."""
+    active_prev = (activation_epoch <= previous_epoch) & (previous_epoch < exit_epoch)
+    return torch.stack([
+        torch.where(_flag_mask(prev_part, active_prev, slashed, f), eff_bal, 0).sum()
+        for f in range(len(PARTICIPATION_FLAG_WEIGHTS))])
 
 
 def _deltas_kernel(
@@ -212,9 +238,10 @@ def _bucket(n: int, vocabulary: str = "epoch_deltas") -> int:
 
 def op_device(device, resolve=None) -> torch.device:
     """``device`` resolved (by ``resolve``, default ``resolve_device``) —
-    or, while the device mesh is on, the mesh's first device: the epoch
-    programs reduce and gather across the whole registry, so they run
-    whole on one member rather than split."""
+    or, while the device mesh is on, the mesh's first device: the
+    standalone shuffle and proposer programs gather across the whole list
+    and run whole on one member (the deltas and the fused boundary split
+    over the mesh instead)."""
     from .. import device_mesh
 
     dev = (resolve or resolve_device)(device)
@@ -230,16 +257,69 @@ def grow_rows(a: np.ndarray, rows: int, fill) -> np.ndarray:
     return out
 
 
-def fault_checks(op: str, nb: int) -> None:
-    """The fault-injection points of a device dispatch of ``op`` at bucket
-    ``nb``: ``device.compile`` before its first dispatch, then
-    ``device.dispatch``."""
+def fault_checks(op: str, nb: int, mesh: int = 0) -> None:
+    """The fault-injection points of a device dispatch of ``op`` at
+    ``nb`` rows (over ``mesh`` members, 0 unsharded): ``device.compile``
+    before its first dispatch, then ``device.dispatch``."""
     from .. import device_telemetry, fault_injection
 
     if fault_injection.ACTIVE:
-        if not device_telemetry.COMPILE_CACHE.seen(op, (nb,)):
+        if not device_telemetry.COMPILE_CACHE.seen(op, (nb,), mesh=mesh):
             fault_injection.check("device.compile", op=op)
         fault_injection.check("device.dispatch", op=op)
+
+
+def mesh_rows(nb: int) -> tuple:
+    """``(mesh size, rows)`` of a dispatch at bucket ``nb``: (0, nb) while
+    the mesh is off, else the live members and ``nb`` padded to a
+    multiple of them."""
+    from .. import device_mesh
+
+    if not device_mesh.enabled():
+        return 0, nb
+    return device_mesh.size(), device_mesh.pad_rows(nb)
+
+
+def shard_sums(entry, placed: list, sums_fn) -> list:
+    """The registry-wide participating sums of a sharded dispatch on every
+    member, in shard order: each shard's raw sums (``sums_fn`` over its
+    placed arguments) added on the first member, then sent to each."""
+    from .. import device_mesh
+
+    return device_mesh.replicate(torch.stack(entry.run(sums_fn, placed)).sum(dim=0))
+
+
+#: The deltas' placement over the mesh (device_mesh.ShardedEntry; lazy).
+ENTRY_KEY = "lighthouse_tpu_torch/ops/epoch_device.py:_deltas_kernel"
+_SHARDED_ENTRY = None
+
+
+def _sharded_entry():
+    global _SHARDED_ENTRY
+    if _SHARDED_ENTRY is None:
+        from .. import device_mesh
+
+        _SHARDED_ENTRY = device_mesh.ShardedEntry(ENTRY_KEY, _deltas_kernel)
+    return _SHARDED_ENTRY
+
+
+def _deltas_sums_shard(eff_bal, activation_epoch, exit_epoch, withdrawable_epoch, slashed,
+                       prev_part, inactivity, previous_epoch, *scalars):
+    """One member's raw participating sums over its row block."""
+    return _participating_sums(eff_bal, activation_epoch, exit_epoch, slashed, prev_part,
+                               previous_epoch)
+
+
+def _deltas_sharded(placed: list, in_leak: bool):
+    """The deltas over the mesh: per-shard sums, combined on the first
+    member and sent back, then each shard's rows.  Returns the outputs on
+    the first device, rows in order."""
+    entry = _sharded_entry()
+    sums = shard_sums(entry, placed, _deltas_sums_shard)
+    parts = entry.run(
+        lambda *a: _deltas_core(*a[:-1], in_leak=in_leak, participating=a[-1]),
+        [p + (t,) for p, t in zip(placed, sums)])
+    return tuple(torch.cat(rows) for rows in zip(*parts))
 
 
 def epoch_deltas_device(
@@ -261,15 +341,16 @@ def epoch_deltas_device(
 
     The registry pads to its power-of-two bucket (:data:`N_BUCKETS`) with
     never-active rows (far-future activation: ineligible for every flag
-    mask, so the participating-increment sums are untouched); the pad rows
-    are sliced back off the outputs."""
+    mask, so the participating-increment sums are untouched) — mesh on,
+    further to a multiple of the mesh size, split over the members — and
+    the pad rows are sliced back off the outputs."""
     from .. import device_telemetry
 
-    device = op_device(device)
     op = "epoch_deltas_leak" if in_leak else "epoch_deltas"
     n = int(np.asarray(arrays.effective_balance).shape[0])
-    nb = _bucket(n)
-    fault_checks(op, nb)
+    mesh, nb = mesh_rows(_bucket(n))
+    device = None if mesh else resolve_device(device)
+    fault_checks(op, nb, mesh)
     batched = (
         np.asarray(arrays.effective_balance, dtype=np.int64),
         np.asarray(arrays.activation_epoch, dtype=np.int64),
@@ -287,12 +368,17 @@ def epoch_deltas_device(
     if nb != n:
         batched = tuple(grow_rows(a, nb, f) for a, f in zip(batched, _PAD_FILLS))
     t_dispatch = time.perf_counter()
-    with on_device(device):
-        out = _deltas_kernel(
-            *(torch.from_numpy(a).to(device) for a in batched), *scalars,
-            in_leak=bool(in_leak))
+    if mesh:
+        entry = _sharded_entry()
+        out = _deltas_sharded(entry.place(*batched, *scalars), bool(in_leak))
+        device = out[0].device
+    else:
+        with on_device(device):
+            out = _deltas_kernel(
+                *(torch.from_numpy(a).to(device) for a in batched), *scalars,
+                in_leak=bool(in_leak))
     dispatch_s = time.perf_counter() - t_dispatch
-    compiled = device_telemetry.note_dispatch(op, (nb,), dispatch_s)
+    compiled = device_telemetry.note_dispatch(op, (nb,), dispatch_s, mesh=mesh)
     t_wait = time.perf_counter()
     wait_for(device)
     new_inactivity, balance_delta = (t[:n].cpu().numpy() for t in out)
@@ -303,6 +389,8 @@ def epoch_deltas_device(
         stages={"dispatch": dispatch_s, "wait": time.perf_counter() - t_wait},
         trace_id=device_telemetry.active_trace_id(),
         compiled=compiled,
+        mesh=mesh,
+        shard_live=_sharded_entry().shard_live_counts(n, nb) if mesh else None,
     )
     return (np.asarray(new_inactivity, dtype=np.int64),
             np.asarray(balance_delta, dtype=np.int64))

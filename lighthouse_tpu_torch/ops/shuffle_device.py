@@ -38,17 +38,32 @@ discipline matches ``ops/epoch_device.py``: power-of-two registry buckets
 (``lane < n_live`` gate), is unreachable by the candidate walk (positions
 stay below ``m_live``), and satisfies no registry-update mask.  The lane
 axis of each op buckets against its own autotune vocabulary (``shuffle``,
-``proposer_select``, ``epoch_boundary``).  **No mesh split**: every
-swap-or-not round gathers partner lanes across the whole registry and the
-deltas reduce over it, and PyTorch has no partitioner to insert those
-collectives, so while the device mesh is on these ops run on the mesh's
-first device (``epoch_device.op_device``; the split is queued in ROADMAP
-A).
+``proposer_select``, ``epoch_boundary``).
+
+**Mesh split** of the fused boundary (:func:`_boundary_sharded`, while the
+device mesh is on; PyTorch has no partitioner, so each collective is
+explicit): the registry pads to a multiple of the mesh size and splits
+into row blocks (``device_mesh.ShardedEntry.place``).  The deltas' three
+participating-balance sums are summed per shard, added on the first
+member and sent back, then each shard finishes its rows (deltas, balance
+application, hysteresis and masks).  The shuffle runs shard-local
+swap-or-not rounds with an exchange a round: a round's partner lane can
+sit in any shard, so each shard computes its own block of lanes from the
+whole previous round (``shuffle_round`` at the block's offset), and the
+blocks are gathered into the whole list on every member before the next
+round (the gather waits on every shard's event of that round).  The
+proposer walk reads ``new_eff`` at active positions across the registry:
+the rows are gathered to the first member and the walk, per-slot work,
+runs there.  The standalone :func:`shuffle_device` and
+:func:`proposer_select_device` stay whole on the mesh's first device
+(``epoch_device.op_device``).
 """
 
 from __future__ import annotations
 
+import inspect
 import time
+from collections import namedtuple
 from dataclasses import dataclass
 from hashlib import sha256
 from typing import Sequence, Tuple
@@ -63,9 +78,12 @@ from .epoch_device import (
     _PAD_ACTIVATION_EPOCH,
     _balance_core,
     _deltas_core,
+    _participating_sums,
     fault_checks,
     grow_rows,
+    mesh_rows,
     op_device,
+    shard_sums,
 )
 
 #: Registry buckets — same ladder as the deltas pass (they dispatch over
@@ -184,6 +202,105 @@ def _boundary_kernel(
             queue_mask, activation_mask, shuffled, proposer, found)
 
 
+#: The fused boundary's positional arguments by name (a shard's placed
+#: tuple read as one).
+_BoundaryArgs = namedtuple("_BoundaryArgs", [
+    p.name for p in inspect.signature(_boundary_kernel).parameters.values()
+    if p.kind is p.POSITIONAL_OR_KEYWORD])
+
+#: The fused boundary's placement over the mesh (device_mesh.ShardedEntry;
+#: lazy).
+ENTRY_KEY = "lighthouse_tpu_torch/ops/shuffle_device.py:_boundary_kernel"
+_SHARDED_ENTRY = None
+
+
+def _sharded_entry():
+    global _SHARDED_ENTRY
+    if _SHARDED_ENTRY is None:
+        from .. import device_mesh
+
+        _SHARDED_ENTRY = device_mesh.ShardedEntry(ENTRY_KEY, _boundary_kernel)
+    return _SHARDED_ENTRY
+
+
+def _boundary_sums_shard(*args):
+    """One member's raw participating sums over its row block."""
+    a = _BoundaryArgs(*args)
+    return _participating_sums(a.eff_bal, a.activation_epoch, a.exit_epoch, a.slashed,
+                               a.prev_part, a.previous_epoch)
+
+
+def _boundary_rows_shard(*args, in_leak: bool):
+    """One member's rows of the boundary, with the combined sums (the
+    last argument): deltas, balance application, hysteresis and the
+    registry masks.  Returns ``_boundary_kernel``'s first six outputs for
+    the block."""
+    a = _BoundaryArgs(*args[:-1])
+    new_inactivity, balance_delta = _deltas_core(
+        a.eff_bal, a.activation_epoch, a.exit_epoch, a.withdrawable_epoch, a.slashed,
+        a.prev_part, a.inactivity, a.previous_epoch, a.base_reward_per_increment,
+        a.total_active_balance, a.increment, a.inactivity_score_bias,
+        a.inactivity_score_recovery_rate, a.quotient, in_leak=in_leak,
+        participating=args[-1])
+    new_bal = (a.balance + balance_delta).clamp(min=0)
+    return (new_inactivity, balance_delta) + _balance_core(
+        new_bal, a.eff_bal, a.activation_epoch, a.exit_epoch, a.act_elig_epoch,
+        a.eb_cap, a.current_epoch, a.increment, a.downward, a.upward,
+        a.ejection_balance, a.far_future, a.finalized_epoch, a.queue_lo, a.queue_hi)
+
+
+# Bytes the split shuffle's exchange moved: ``copied`` to the other
+# members by ``device_mesh.replicate``, ``gathered`` by the round's
+# ``torch.cat`` on the first member.  Bumped where each happens.
+EXCHANGE_BYTES = {"copied": 0, "gathered": 0}
+
+
+def reset_exchange_bytes() -> None:
+    for key in EXCHANGE_BYTES:
+        EXCHANGE_BYTES[key] = 0
+
+
+def _shuffle_block_shard(values, pivots, digests, n_live: int, offset: int, count: int):
+    """One member's block of one swap-or-not round over the whole list."""
+    return cuda_epoch.shuffle_rounds(values, pivots, digests, n_live, offset, count)
+
+
+def _boundary_sharded(placed: list, in_leak: bool) -> tuple:
+    """``_boundary_kernel`` over the mesh, on ``place``'s per-shard
+    arguments: the outputs on the first device, as the unsharded
+    program's."""
+    from .. import device_mesh
+
+    entry = _sharded_entry()
+    shards = [_BoundaryArgs(*p) for p in placed]
+    sums = shard_sums(entry, placed, _boundary_sums_shard)
+    rows = entry.run(lambda *a: _boundary_rows_shard(*a, in_leak=in_leak),
+                     [p + (t,) for p, t in zip(placed, sums)])
+    per_validator = tuple(torch.cat(out) for out in zip(*rows))
+    # The shuffle: every member holds the whole list; a round's blocks are
+    # gathered on the first member (run waits on each shard's event) and
+    # sent to every member before the next round.
+    first = shards[0]
+    m_live = first.m_live
+    active = torch.cat([a.active_idx.to(first.active_idx.device) for a in shards])
+    blocks = entry.blocks(active.shape[0])
+    whole = active
+    for r in range(int(first.sh_pivots.shape[0])):
+        members = device_mesh.replicate(whole)
+        EXCHANGE_BYTES["copied"] += sum(x.nbytes for x in members if x is not whole)
+        whole = torch.cat(entry.run(_shuffle_block_shard, [
+            (x, a.sh_pivots[r:r + 1], a.sh_digests[r:r + 1], m_live, off, count)
+            for x, a, (off, count) in zip(members, shards, blocks)]))
+        EXCHANGE_BYTES["gathered"] += whole.nbytes
+    # The proposer walk on the first member, over the gathered rows.
+    active = active.to(torch.int64)
+    new_eff = per_validator[2]
+    pos, found = _proposer_core(first.seed_words, first.prop_pivots, first.rbytes,
+                                new_eff[active], m_live, first.max_eb)
+    proposer = torch.where(found, active[pos.clamp(min=0)], -1)
+    return per_validator + (whole, proposer, found)
+
+
 def _warmup_op(op: str):
     def warmup(nb: int) -> None:
         from .compile_cache import aot_warmup_op
@@ -243,8 +360,9 @@ def proposer_tables(
     slot_seeds: Sequence[bytes], rounds: int, m: int,
     k: int = PROPOSER_CANDIDATES,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Per-slot seed words, forward-order pivots, and acceptance random
-    bytes for the device candidate walk (``m`` live active validators)."""
+    """Per-slot seed words (big-endian SHA words as int32 bits, the form
+    the walk takes), forward-order pivots, and acceptance random bytes for
+    the device candidate walk (``m`` live active validators)."""
     s = len(slot_seeds)
     seed_words = np.zeros((s, 8), dtype=np.uint32)
     pivots = np.zeros((s, rounds), dtype=np.int32)
@@ -262,18 +380,16 @@ def proposer_tables(
             )
             take = min(32, k - g * 32)
             rbytes[si, g * 32:g * 32 + take] = block[:take]
-    return seed_words, pivots, rbytes
+    return seed_words.view(np.int32), pivots, rbytes
 
 
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``; uint32 SHA words travel as int32 bits."""
-    if a.dtype == np.uint32:
-        a = a.view(np.int32)
+    """A host array on ``device``."""
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def _record(op: str, nb: int, n_live: int, dispatch_s: float, t_wait: float,
-            compiled: bool) -> None:
+            compiled: bool, mesh: int = 0, shard_live=None) -> None:
     from .. import device_telemetry
 
     device_telemetry.record_batch(
@@ -283,6 +399,8 @@ def _record(op: str, nb: int, n_live: int, dispatch_s: float, t_wait: float,
         stages={"dispatch": dispatch_s, "wait": time.perf_counter() - t_wait},
         trace_id=device_telemetry.active_trace_id(),
         compiled=compiled,
+        mesh=mesh,
+        shard_live=shard_live,
     )
 
 
@@ -417,12 +535,11 @@ class BoundaryPlan:
         return int(self.active_idx.shape[0])
 
 
-def boundary_inputs(plan: BoundaryPlan, device: torch.device) -> tuple:
-    """``_boundary_kernel``'s positional arguments for ``plan`` on
-    ``device``: the 11 batched tensors padded to the registry bucket, the 5
-    tables, the 16 scalars and ``m_live``; and the bucket."""
+def boundary_arrays(plan: BoundaryPlan, nb: int) -> tuple:
+    """``_boundary_kernel``'s positional arguments for ``plan`` as host
+    values: the 11 batched arrays padded to ``nb`` rows, the 5 tables, the
+    16 scalars and ``m_live``."""
     n, m = plan.n, plan.m
-    nb = _bucket(n, "epoch_boundary")
     sh_pivots, sh_digests = shuffle_tables(plan.attester_seed, plan.rounds, m, nb)
     seed_words, prop_pivots, rbytes = proposer_tables(plan.slot_seeds, plan.rounds, m)
     active_padded = np.zeros(nb, dtype=np.int32)
@@ -452,9 +569,15 @@ def boundary_inputs(plan: BoundaryPlan, device: torch.device) -> tuple:
         plan.ejection_balance, plan.far_future, plan.finalized_epoch,
         plan.max_effective_balance, plan.queue_lo, plan.queue_hi,
     )
-    args = (*(_upload(a, device) for a in batched + tables),
-            *(int(s) for s in scalars), m)
-    return args, nb
+    return (*batched, *tables, *(int(s) for s in scalars), m)
+
+
+def boundary_inputs(plan: BoundaryPlan, device: torch.device) -> tuple:
+    """``_boundary_kernel``'s positional arguments for ``plan`` on
+    ``device``, padded to the registry bucket; and the bucket."""
+    nb = _bucket(plan.n, "epoch_boundary")
+    host = boundary_arrays(plan, nb)
+    return (*(_upload(a, device) for a in host[:16]), *host[16:]), nb
 
 
 def epoch_boundary_device(plan: BoundaryPlan, *, in_leak: bool, device="cuda"):
@@ -462,24 +585,34 @@ def epoch_boundary_device(plan: BoundaryPlan, *, in_leak: bool, device="cuda"):
     epoch boundary.  Returns ``(new_inactivity, balance_delta, new_eff,
     ejection_mask, queue_mask, activation_mask, shuffling, proposer,
     found)``; per-validator arrays sliced to ``plan.n``, the shuffling to
-    ``plan.m``, proposer/found per slot."""
+    ``plan.m``, proposer/found per slot.  While the device mesh is on the
+    program splits over its members (:func:`_boundary_sharded`), with the
+    same outputs."""
     from .. import device_telemetry
 
-    device = op_device(device, resolve_device)
     op = "epoch_boundary_leak" if in_leak else "epoch_boundary"
     n, m = plan.n, plan.m
-    fault_checks(op, _bucket(n, "epoch_boundary"))
-    args, nb = boundary_inputs(plan, device)
-    t_dispatch = time.perf_counter()
-    with on_device(device):
-        out = _boundary_kernel(*args, in_leak=bool(in_leak))
+    mesh, nb = mesh_rows(_bucket(n, "epoch_boundary"))
+    fault_checks(op, nb, mesh)
+    if mesh:
+        placed = _sharded_entry().place(*boundary_arrays(plan, nb))
+        t_dispatch = time.perf_counter()
+        out = _boundary_sharded(placed, bool(in_leak))
+        device = out[0].device
+    else:
+        device = resolve_device(device)
+        args, nb = boundary_inputs(plan, device)
+        t_dispatch = time.perf_counter()
+        with on_device(device):
+            out = _boundary_kernel(*args, in_leak=bool(in_leak))
     dispatch_s = time.perf_counter() - t_dispatch
-    compiled = device_telemetry.note_dispatch(op, (nb,), dispatch_s)
+    compiled = device_telemetry.note_dispatch(op, (nb,), dispatch_s, mesh=mesh)
     t_wait = time.perf_counter()
     wait_for(device)
     (new_inactivity, balance_delta, new_eff, ejection_mask, queue_mask,
      activation_mask, shuffled, proposer, found) = (t.cpu().numpy() for t in out)
-    _record(op, nb, n, dispatch_s, t_wait, compiled)
+    _record(op, nb, n, dispatch_s, t_wait, compiled, mesh=mesh,
+            shard_live=_sharded_entry().shard_live_counts(n, nb) if mesh else None)
     return (
         np.asarray(new_inactivity[:n], dtype=np.int64),
         np.asarray(balance_delta[:n], dtype=np.int64),

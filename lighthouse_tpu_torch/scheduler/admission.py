@@ -44,20 +44,19 @@ the currently-inflight requests to drain, clamped to
 below :data:`DRAIN_MIN_SAMPLES` completions.  This path is always on
 (it shapes a response hint, not an admission decision).
 
-A copy of the JAX package's ``lighthouse_tpu/scheduler/admission.py``, on a
-plain ``threading.Lock``.
+A copy of the JAX package's ``lighthouse_tpu/scheduler/admission.py``; its
+lock comes from the lock sanitizer's factory (``locksmith.lock``).
 """
 
 from __future__ import annotations
 
 import math
-import threading
 import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Deque, Dict, Optional, Tuple
 
-from .. import blackbox, metrics
+from .. import blackbox, locksmith, metrics
 
 # ------------------------------------------------------------ HTTP classes
 
@@ -217,7 +216,7 @@ class AdmissionController:
                  adaptive: Optional[bool] = None):
         self._policies: Dict[str, ClassPolicy] = {p.name: p for p in policies}
         self._inflight: Dict[str, int] = {p.name: 0 for p in policies}
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("AdmissionController._lock")
         self._adaptive = adaptive
         self._ewma: Dict[str, float] = {}
         self._done: Dict[str, Deque[float]] = {

@@ -18,9 +18,9 @@ Design notes vs the reference:
   batches — the mechanism the reference uses to amortize multi-pairings
   (``attestation_verification/batch.rs``).
 
-A copy of the JAX package's ``lighthouse_tpu/scheduler/processor.py``, on
-plain ``threading.Condition`` locks (what the JAX package's
-``locksmith.condition`` returns while its lock sanitizer is off).
+A copy of the JAX package's ``lighthouse_tpu/scheduler/processor.py``; its
+locks come from the lock sanitizer's factory (``locksmith.condition``: a
+plain ``threading.Condition`` while the sanitizer is off).
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from .work import (
 )
 
 
+from .. import locksmith
 from .. import metrics as _gm
 from .. import tracing
 from ..logs import get_logger
@@ -126,7 +127,7 @@ class BeaconProcessor:
         self._limits = dict(DEFAULT_QUEUE_LENGTHS)
         if queue_lengths:
             self._limits.update(queue_lengths)
-        self._lock = threading.Condition()
+        self._lock = locksmith.condition("BeaconProcessor._lock")
         self._active_workers = 0
         self._last_depth_sample = 0.0
         self._shutdown = False
@@ -355,7 +356,7 @@ class ReprocessQueue:
 
     def __init__(self, processor: BeaconProcessor):
         self.processor = processor
-        self._lock = threading.Condition()
+        self._lock = locksmith.condition("ReprocessQueue._lock")
         self._by_time: List = []  # heap of (due, seq, event)
         # root -> [(expires_at, event)]
         self._awaiting_root: Dict[bytes, List[tuple]] = {}

@@ -43,23 +43,23 @@ keys, so two runs at one seed produce byte-identical merged timelines.
 
 Import discipline: host-side plumbing only, like ``blackbox.py``.
 
-A copy of the JAX package's ``lighthouse_tpu/telemetry_scope.py``, on plain
-``threading.Lock`` locks (what the JAX package's ``locksmith.lock`` returns
-while its lock sanitizer is off).  As in the JAX package, ``blackbox``
-mirrors its records into the active scope, ``device_telemetry`` stamps its
-flight records with the scope's node, and the network stamps envelopes
-with a scope's trace context and defers fleet events into it.
+A copy of the JAX package's ``lighthouse_tpu/telemetry_scope.py``; its
+locks come from the lock sanitizer's factory (``locksmith.lock``: plain
+``threading.Lock`` locks while the sanitizer is off).  As in the JAX
+package, ``blackbox`` mirrors its records into the active scope,
+``device_telemetry`` stamps its flight records with the scope's node, and
+the network stamps envelopes with a scope's trace context and defers
+fleet events into it.
 """
 
 from __future__ import annotations
 
 import contextlib
-import threading
 from collections import deque
 from contextvars import ContextVar
 from typing import Dict, Iterator, List, Optional, Tuple
 
-from . import metrics
+from . import locksmith, metrics
 
 #: Per-scope flight/log tail lengths — mirrors, not the system of record
 #: (the global rings keep their own capacity).
@@ -90,7 +90,7 @@ class TelemetryScope:
         self.flight: deque = deque(maxlen=FLIGHT_TAIL)
         self.log_tail: deque = deque(maxlen=LOG_TAIL)
         self.tally = metrics.LocalTally()
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("TelemetryScope._lock")
         self._lamport = 0
         self._pending: List[dict] = []
 
@@ -174,7 +174,7 @@ def envelope_trace_ctx(scope: Optional["TelemetryScope"]) -> Optional[dict]:
 
 # ----------------------------------------------------------- scope registry
 
-_SCOPES_LOCK = threading.Lock()
+_SCOPES_LOCK = locksmith.lock("telemetry_scope._SCOPES_LOCK")
 _SCOPES: Dict[str, TelemetryScope] = {}
 
 #: The active scope on this thread/context (None = process-global plane).

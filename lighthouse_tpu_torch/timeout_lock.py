@@ -10,8 +10,7 @@ lock-ordering deadlocks — the same discipline applies.
 
 from __future__ import annotations
 
-import threading
-
+from . import locksmith
 from .logs import get_logger
 
 log = get_logger("locks")
@@ -29,8 +28,14 @@ class TimeoutLock:
     """``with lock:`` like ``threading.Lock``, but a bounded acquire that
     raises ``LockTimeout`` (and logs, with the lock's name) on expiry."""
 
-    def __init__(self, name: str = "lock", timeout: float = DEFAULT_TIMEOUT):
-        self._lock = threading.Lock()
+    def __init__(self, name: str = "lock", timeout: float = DEFAULT_TIMEOUT,
+                 label: str = None):
+        # Label routing: the inner lock comes from the lock sanitizer's
+        # factory, so under LIGHTHOUSE_TPU_LOCK_SANITIZE=1 TimeoutLock
+        # acquisitions take part in the runtime order and ownership checks
+        # under their static-graph label ("Class.attr").  Off by default:
+        # the factory returns a plain threading.Lock.
+        self._lock = locksmith.lock(label or name)
         self.name = name
         self.timeout = timeout
 

@@ -10,9 +10,8 @@
 - both packages' ``lcli`` subcommands print the same JSON on the same files
   (the seconds of ``skip-slots`` aside);
 - both parsers have the same subcommands and flags but for ``bn``'s
-  ``--device`` (the port's: the card or the CPU), the JAX package's
-  ``--aot-warmup`` (the port has no bucket warmup) and ``--bls-backend``'s
-  device backend (``torch`` for ``jax``);
+  ``--device`` (the port's: the card or the CPU) and ``--bls-backend``'s
+  device backend (``torch`` for ``jax``); ``--aot-warmup`` is in both;
 - ``lcli transition-bench`` runs the port's own bench module;
 - no module of the port imports ``jax`` or ``lighthouse_tpu``, and none but
   ``conformance/handler.py`` (the spec-test runner's optional import)
@@ -54,7 +53,7 @@ EIP_PASSWORD = "".join(chr(0x1D51E + ord(c) - ord("a")) for c in "testpassword")
 #: The flags by which the parsers differ, each for a reason the module
 #: docstring gives.
 PORT_ONLY = {("beacon_node", "--device")}
-JAX_ONLY = {("beacon_node", "--aot-warmup")}
+JAX_ONLY = set()
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -471,13 +471,17 @@ def test_chip_smoke_client_phase_on_cpu(tmp_path):
 
     served = chip_smoke.api_server(chain)
     try:
-        cell = chip_smoke.ClientCell("cpu", chain, served, case.host_state.as_ssz_bytes(),
-                                     chain.op_pool.attester_slashings()[0], spec,
-                                     device="cpu")
-        out = cell.finish()
+        with pytest.MonkeyPatch.context() as mp:
+            # the plain versions' 128 x 32 verify takes minutes: warm 2 x 1
+            mp.setattr(chip_smoke, "CLIENT_WARMUP_BUCKETS", "2x1")
+            cell = chip_smoke.ClientCell("cpu", chain, served, case.host_state.as_ssz_bytes(),
+                                         chain.op_pool.attester_slashings()[0], spec,
+                                         device="cpu")
+            out = cell.finish()
     finally:
         served[0].stop()
         served[1].shutdown()
+    assert out["warmup"]["2x1"]["outcome"] in ("hit", "miss")
     assert [r["verdict"] for r in out["records"]] == [False, True]
     assert out["ops"]["tree_hash"] > 0
     assert out["stop_s"] < chip_smoke.CLIENT_STOP_S

@@ -18,6 +18,14 @@
   (its host backend and hashlib golden models: no JAX compile here).
 - ``_dispatch_meshed``: a fault charged to a mesh member, then a second
   one that trips its breaker — the mesh re-shards and the batch retries.
+- The epoch programs split over ``[cpu] * 2`` and ``[cpu] * 8`` (1,000
+  validators padded to 1,024; 100 over 8, with shards made only of
+  padding), both leak modes: the fused boundary and the staged deltas
+  equal the unsharded port, the JAX package's unsharded programs (under
+  ``jax.enable_x64``) and the numpy blocks; the combined-floor trap; a
+  member fault in the middle of a boundary that re-shards; the flight
+  records' ``mesh`` and ``shard_live``; ``shuffle_round``'s block form
+  against the whole-list round.
 """
 
 import numpy as np
@@ -48,6 +56,8 @@ from lighthouse_tpu_torch.ops import (  # noqa: E402
     tree_hash,
     verify,
 )
+from lighthouse_tpu_torch.ops import shuffle_device as psd  # noqa: E402
+import test_torch_epoch as te  # noqa: E402
 from test_torch_verify import Spec  # noqa: E402
 
 CPU8 = ["cpu"] * 8
@@ -553,8 +563,277 @@ def test_device_summary_carries_mesh_and_autotune_sections():
 
 
 def test_epoch_ops_run_on_the_mesh_first_device():
+    """Mesh on, the standalone shuffle and proposer programs still run
+    whole on the mesh's first device (``op_device``), while the deltas and
+    the fused boundary split over the members: their flight records carry
+    the mesh size and each shard's live rows."""
     from lighthouse_tpu_torch.ops import epoch_device
 
     assert epoch_device.op_device("cpu") == torch.device("cpu")
     pdm.configure("auto", devices=["cpu", "cpu"])
     assert epoch_device.op_device("cpu") == pdm.first_device() == torch.device("cpu")
+    assert epoch_device.mesh_rows(1024) == (2, 1024)
+    plan = te.synth_plan(100)
+    psd.epoch_boundary_device(plan, in_leak=False, device="cpu")
+    epoch_device.epoch_deltas_device(te.arrays_of(plan), plan.prev_part, plan.inactivity,
+                                     device="cpu", **te.deltas_kwargs(plan, False))
+    psd.shuffle_device(np.arange(100), te.SEED, te.ROUNDS, device="cpu")
+    for op in ("epoch_boundary", "epoch_deltas"):
+        rec = pdt.FLIGHT_RECORDER.recent(1, op=op)[0]
+        assert (rec["shape"], rec["mesh"], rec["shard_live"]) == ("256@dp2", 2, [100, 0])
+    assert "mesh" not in pdt.FLIGHT_RECORDER.recent(1, op="shuffle")[0]
+
+
+# ------------------------------------------------ the epoch programs split
+
+
+#: (validators, mesh members): 1,000 padded to 1,024 over 2; 100 over 8,
+#: which leaves shards made only of padding.
+EPOCH_SPLITS = [(1000, 2), (100, 8)]
+EPOCH_LEAK = pytest.mark.parametrize("leak", [False, True], ids=["no_leak", "leak"])
+
+
+def _jax_boundary(plan, leak):
+    """The JAX package's unsharded ``_boundary_kernel`` on the port's
+    inputs for ``plan`` (under ``jax.enable_x64``), sliced as the entry
+    point slices."""
+    import jax
+    import jax.numpy as jnp
+
+    from lighthouse_tpu.ops import shuffle_device as jsd
+
+    args, _ = psd.boundary_inputs(plan, torch.device("cpu"))
+    with jax.enable_x64(True):
+        out = jax.device_get(jsd._boundary_kernel(
+            *(te.to_jax(a) for a in args[:16]), *(jnp.int64(v) for v in args[16:32]),
+            jnp.int32(args[32]), in_leak=leak))
+    out = [np.asarray(t) for t in out]
+    return [t[:plan.n] for t in out[:6]] + [out[6][:plan.m], out[7], out[8]]
+
+
+def _jax_deltas(plan, leak):
+    import jax
+    import jax.numpy as jnp
+
+    from lighthouse_tpu.ops import epoch_device as jed
+    from lighthouse_tpu_torch.ops import epoch_device as ped
+
+    nb = ped._bucket(plan.n)
+    batched = [ped.grow_rows(np.asarray(a), nb, f) for a, f in zip(
+        (plan.effective_balance, plan.activation_epoch, plan.exit_epoch,
+         plan.withdrawable_epoch, plan.slashed, plan.prev_part, plan.inactivity),
+        ped._PAD_FILLS)]
+    scalars = (plan.previous_epoch, plan.base_reward_per_increment, plan.total_active_balance,
+               plan.increment, plan.inactivity_score_bias,
+               plan.inactivity_score_recovery_rate, plan.quotient)
+    with jax.enable_x64(True):
+        out = jax.device_get(jed._deltas_kernel(
+            *(jnp.asarray(a) for a in batched), *(jnp.int64(v) for v in scalars),
+            in_leak=leak))
+    return [np.asarray(t)[:plan.n] for t in out]
+
+
+def _same(outs, *others):
+    for i, o in enumerate(outs):
+        for other in others:
+            assert np.array_equal(o, np.asarray(other[i]).astype(o.dtype)), i
+
+
+@EPOCH_LEAK
+@pytest.mark.parametrize("n,shards", EPOCH_SPLITS)
+def test_sharded_epoch_boundary_bit_identical(n, shards, leak):
+    """The fused boundary over the mesh: every output (inactivity, balance
+    delta, effective balance, the three masks, shuffling, proposers,
+    found) equals the unsharded port, the JAX package's unsharded program
+    and the numpy composite; the flight record carries the mesh and the
+    per-shard live rows, and every shard ran each shuffle round."""
+    from lighthouse_tpu_torch.consensus import per_epoch as pe
+    from lighthouse_tpu_torch.ops import cuda_epoch
+
+    plan = te.synth_plan(n)
+    unsharded = psd.epoch_boundary_device(plan, in_leak=leak, device="cpu")
+    pdm.configure("auto", devices=["cpu"] * shards)
+    calls = []
+    real = cuda_epoch.shuffle_rounds
+
+    def counted(*a, **kw):
+        calls.append(pdm.current_shard())
+        return real(*a, **kw)
+
+    cuda_epoch.shuffle_rounds = counted
+    try:
+        sharded = psd.epoch_boundary_device(plan, in_leak=leak, device="cpu")
+    finally:
+        cuda_epoch.shuffle_rounds = real
+    assert sharded[8].any()  # proposers found on the device path
+    _same(sharded, unsharded, _jax_boundary(plan, leak),
+          pe._epoch_boundary_numpy(plan, in_leak=leak))
+    rec = pdt.FLIGHT_RECORDER.recent(
+        1, op="epoch_boundary_leak" if leak else "epoch_boundary")[0]
+    nb = psd._bucket(n)
+    assert (rec["shape"], rec["mesh"]) == (f"{nb}@dp{shards}", shards)
+    assert rec["shard_live"] == [max(0, min(nb // shards, n - s * nb // shards))
+                                 for s in range(shards)]
+    assert sum(rec["shard_live"]) == n
+    assert calls == list(range(shards)) * te.ROUNDS
+
+
+def test_sharded_shuffle_exchange_counts_its_bytes():
+    """The split shuffle counts its exchange where it happens: members on
+    the first member's own device get the list itself (no bytes copied),
+    and each round gathers the whole padded list once."""
+    plan = te.synth_plan(1000)
+    pdm.configure("auto", devices=["cpu", "cpu"])
+    psd.reset_exchange_bytes()
+    psd.epoch_boundary_device(plan, in_leak=False, device="cpu")
+    nb = psd._bucket(1000)
+    assert psd.EXCHANGE_BYTES == {"copied": 0, "gathered": te.ROUNDS * nb * 4}
+
+
+@EPOCH_LEAK
+@pytest.mark.parametrize("n,shards", EPOCH_SPLITS)
+def test_sharded_epoch_deltas_bit_identical(n, shards, leak):
+    """The staged deltas over the mesh equal the unsharded port, the JAX
+    package's unsharded program and the numpy per-epoch block."""
+    from lighthouse_tpu_torch.consensus import per_epoch as pe
+    from lighthouse_tpu_torch.ops import epoch_device as ped
+
+    plan = te.synth_plan(n)
+    kwargs = te.deltas_kwargs(plan, leak)
+
+    def run():
+        return ped.epoch_deltas_device(te.arrays_of(plan), plan.prev_part, plan.inactivity,
+                                       device="cpu", **kwargs)
+
+    unsharded = run()
+    pdm.configure("auto", devices=["cpu"] * shards)
+    sharded = run()
+    _same(sharded, unsharded, _jax_deltas(plan, leak),
+          pe._epoch_deltas_numpy(te.arrays_of(plan), plan.prev_part, plan.inactivity,
+                                 **kwargs))
+    rec = pdt.FLIGHT_RECORDER.recent(1, op="epoch_deltas_leak" if leak else "epoch_deltas")[0]
+    assert rec["mesh"] == shards and sum(rec["shard_live"]) == n
+
+
+def test_sharded_deltas_floor_the_combined_sum():
+    """Effective balances off the increment grid, so that the per-shard
+    participating sums' floors add up to less than the combined sum's
+    floor: the split floors the combined raw sum, as the unsharded
+    program and the numpy block do."""
+    from lighthouse_tpu_torch.consensus import per_epoch as pe
+    from lighthouse_tpu_torch.ops import epoch_device as ped
+
+    plan = te.synth_plan(1000)
+    plan.effective_balance = plan.effective_balance + te.GWEI * 3 // 4
+    kwargs = te.deltas_kwargs(plan, False)
+    arrays = te.arrays_of(plan)
+    unsharded = ped.epoch_deltas_device(arrays, plan.prev_part, plan.inactivity, device="cpu",
+                                        **kwargs)
+    blocks = [[torch.from_numpy(np.asarray(a)[s * 512:(s + 1) * 512]) for a in (
+        plan.effective_balance, plan.activation_epoch, plan.exit_epoch, plan.slashed,
+        plan.prev_part)] for s in range(2)]
+    sums = [ped._participating_sums(*b, plan.previous_epoch) for b in blocks]
+    floors = sum(torch.div(x, te.GWEI, rounding_mode="floor") for x in sums)
+    whole = torch.div(sums[0] + sums[1], te.GWEI, rounding_mode="floor")
+    assert (floors != whole).all()  # the input separates the two
+    pdm.configure("auto", devices=["cpu"] * 2)
+    sharded = ped.epoch_deltas_device(arrays, plan.prev_part, plan.inactivity, device="cpu",
+                                      **kwargs)
+    _same(sharded, unsharded, pe._epoch_deltas_numpy(arrays, plan.prev_part, plan.inactivity,
+                                                     **kwargs))
+    pboundary = psd.epoch_boundary_device(plan, in_leak=False, device="cpu")
+    _same(pboundary, pe._epoch_boundary_numpy(plan, in_leak=False))
+
+
+def test_sharded_boundary_member_fault_reshards(monkeypatch):
+    """A member fails in the middle of a boundary (shard 1 in the shuffle's
+    fourth round, the error naming its device): the supervisor charges it,
+    its breaker trips (threshold 1), the mesh re-shards over the seven
+    survivors (1,024 rows padded to 1,029) and the boundary retries there:
+    the same answer, one reshard, no host fallback."""
+    from lighthouse_tpu_torch.consensus import per_epoch as pe
+    from lighthouse_tpu_torch.ops import tree_hash as th
+
+    monkeypatch.setenv(pdm.DEVICE_FAILURE_THRESHOLD_ENV, "1")
+    plan = te.synth_plan(1000)
+    want = psd.epoch_boundary_device(plan, in_leak=False, device="cpu")
+    pdm.configure("auto", devices=CPU8)
+    reshards = sum(metrics.DEVICE_MESH_RESHARDS.snapshot().values())
+    fallbacks = metrics.DEVICE_HOST_FALLBACK.snapshot()
+    real = psd._shuffle_block_shard
+    seen = []
+
+    def failing(values, *a):
+        seen.append(pdm.current_shard())
+        if pdm.size() == 8 and len(seen) == 3 * 8 + 2:
+            raise RuntimeError("device 1: lost in the middle of a round")
+        return real(values, *a)
+
+    monkeypatch.setattr(psd, "_shuffle_block_shard", failing)
+    th.configure(enabled=False)
+    pe.configure(backend="device", fused_boundary=True, device="cpu")
+    try:
+        got = pe._run_boundary(plan, in_leak=False)
+    finally:
+        pe.reset_for_tests()
+        th.reset_for_tests()
+        device_supervisor.reset_for_tests()
+    _same(got, want)
+    assert seen[3 * 8 + 1] == 1 and pdm.size() == 7
+    assert pdm.summary()["breakers"][1]["state"] == "open"
+    assert sum(metrics.DEVICE_MESH_RESHARDS.snapshot().values()) == reshards + 1
+    assert metrics.DEVICE_HOST_FALLBACK.snapshot() == fallbacks
+    rec = pdt.FLIGHT_RECORDER.recent(1, op="epoch_boundary")[0]
+    assert rec["shape"] == "1029@dp7" and sum(rec["shard_live"]) == 1000
+    assert not rec["host_fallback"]
+
+
+def test_sharded_boundary_entry_matches_the_jax_specs():
+    """The boundary's placement (batched vs replicated, which outputs keep
+    the batch axis) is the JAX package's sharding spec."""
+    import jax
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    from lighthouse_tpu.ops import shuffle_device as jsd
+
+    mesh = Mesh(np.array(jax.devices()), (jdm.AXIS,))
+    jentry = jdm.ShardedEntry(jsd.ENTRY_KEY, jsd._boundary_kernel.__wrapped__,
+                              static_argnames=("in_leak",))
+    pentry = psd._sharded_entry()
+    assert pentry.arg_batched == tuple(s.spec == P("dp") for s in jentry.in_shardings(mesh))
+    assert pentry.out_batched == jentry.out_batched
+    assert psd._BoundaryArgs._fields[-1] == "m_live" and len(psd._BoundaryArgs._fields) == 33
+
+
+def test_place_passes_replicated_numbers_by_value():
+    pdm.configure("auto", devices=["cpu"] * 2)
+    placed = psd._sharded_entry().place(*psd.boundary_arrays(te.synth_plan(100), 256))
+    for shard in placed:
+        assert all(type(v) is int for v in shard[16:])
+        assert all(isinstance(t, torch.Tensor) for t in shard[:16])
+    assert psd._sharded_entry().blocks(256) == [(0, 128), (128, 128)]
+
+
+@pytest.mark.parametrize("offset,count", [(0, 256), (0, 100), (60, 100), (97, 5), (100, 156),
+                                          (200, 56), (255, 1), (3, 0)])
+def test_shuffle_round_block_is_a_slice_of_the_whole_round(offset, count):
+    """The offset form of one swap-or-not round (a shard's block, read from
+    the whole list) equals the block of the whole-list round, for blocks
+    before ``n_live`` (97), straddling it and made only of padding; a
+    narrower block takes one round."""
+    from lighthouse_tpu_torch.ops import cuda_epoch
+
+    n, nb = 97, 256
+    values = torch.from_numpy(np.random.default_rng(5).permutation(nb).astype(np.int32))
+    pivots, digests = (torch.from_numpy(t) for t in psd.shuffle_tables(te.SEED, 4, n, nb))
+    for r in range(4):
+        one = (pivots[r:r + 1], digests[r:r + 1])
+        whole = cuda_epoch.shuffle_rounds_plain(values, *one, n)
+        block = cuda_epoch.shuffle_rounds_plain(values, *one, n, offset, count)
+        assert torch.equal(block, whole[offset:offset + count])
+        assert torch.equal(cuda_epoch.shuffle_rounds(values, *one, n, offset, count), block)
+        if offset >= n:
+            assert torch.equal(block, values[offset:offset + count])
+    if count != nb:
+        with pytest.raises(ValueError):
+            cuda_epoch.shuffle_rounds(values, pivots, digests, n, offset, count)

@@ -595,6 +595,29 @@ def test_cuda_source_shuffle_on_host_compiler(host_shuffle, n, rounds):
     assert out[nb] == 0x5A5A5A5A
 
 
+@pytest.mark.parametrize("n,offset,count", [(97, 0, 128), (97, 64, 64), (97, 90, 20),
+                                            (97, 100, 28), (600, 512, 512), (600, 0, 1)])
+def test_cuda_source_shuffle_block_on_host_compiler(host_shuffle, n, offset, count):
+    """``lt_shuffle_round_block``: a mesh shard's block of one round, read
+    from the whole list (blocks before, across and past ``n_live``),
+    equals the plain version's block form and the whole-list round."""
+    nb = psd._bucket(n)
+    values = np.random.default_rng(n).permutation(nb).astype(np.int32)
+    pivots, digests = psd.shuffle_tables(SEED, 3, n, nb)
+    for r in range(3):
+        out = np.full(count + 1, 0x5A5A5A5A, dtype=np.int32)  # one guard word
+        err = host_shuffle.lt_shuffle_round_block(
+            values.ctypes.data, out.ctypes.data, pivots[r:].ctypes.data,
+            digests[r].ctypes.data, n, offset, count, None)
+        assert err == 0
+        one = (torch.from_numpy(pivots[r:r + 1]), torch.from_numpy(digests[r:r + 1]))
+        plain = cuda_epoch.shuffle_rounds_plain(torch.from_numpy(values), *one, n, offset, count)
+        whole = cuda_epoch.shuffle_rounds_plain(torch.from_numpy(values), *one, n)
+        assert np.array_equal(out[:count], plain.numpy())
+        assert np.array_equal(out[:count], whole.numpy()[offset:offset + count])
+        assert out[count] == 0x5A5A5A5A
+
+
 def _walk_seeds(m: int, slots: int, top_bits: bool) -> tuple:
     """Slot seeds from hashlib; with ``top_bits`` every big-endian word of
     each seed has its top bit set (the signed-word edge of the kernel's
@@ -701,6 +724,12 @@ def test_kernels_on_card():
         out = cuda_epoch.shuffle_rounds(values.cuda(), pivots.cuda(), digests.cuda(), n)
         assert torch.equal(out.cpu(), cuda_epoch.shuffle_rounds_plain(values, pivots, digests, n))
         assert cuda_epoch.LAUNCHES["shuffle_round"] == before + 90
+        for offset, count in ((0, nb // 2), (nb // 2, nb - nb // 2), (n - 1, nb - n + 1)):
+            one = (pivots[:1], digests[:1])
+            block = cuda_epoch.shuffle_rounds(values.cuda(), *(t.cuda() for t in one), n,
+                                              offset, count)
+            assert torch.equal(block.cpu(), cuda_epoch.shuffle_rounds_plain(
+                values, *one, n, offset, count))
     for m in (1, 2, 5, 300):
         for rounds in (90, 10, 7):
             seeds = tuple(hashlib.sha256(b"card-%d-%d" % (m, s)).digest() for s in range(32))
